@@ -1,0 +1,45 @@
+"""Krum and Multi-Krum (Blanchard et al., 2017).
+
+Port of ``repro/core/aggregators/krum.py``: ``Krum`` selects the worker
+whose summed squared distance to its ``n - f - 2`` nearest neighbours is
+smallest; Multi-Krum averages the ``m`` best-scoring workers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.aggregators.base import Aggregator, pairwise_sq_dists_from_gram
+
+
+class Krum(Aggregator):
+    name = "krum"
+
+    def __init__(self, n_byzantine: int = 0, m: int = 1):
+        """Args:
+        n_byzantine: assumed number of Byzantine inputs ``f``.
+        m: number of top-scoring workers to average (``m=1`` = classic Krum).
+        """
+        self.n_byzantine = int(n_byzantine)
+        self.m = int(m)
+
+    def scores(self, gram: torch.Tensor) -> torch.Tensor:
+        n = gram.shape[0]
+        dists = pairwise_sq_dists_from_gram(gram)
+        # self-distance made +inf-like, then the (n - f - 2) closest others
+        big = torch.finfo(torch.float32).max
+        dists = dists + torch.eye(n, dtype=dists.dtype, device=dists.device) * big
+        k = max(1, min(n - 1, n - self.n_byzantine - 2))
+        smallest = torch.topk(dists, k, dim=1, largest=False).values
+        return torch.sum(smallest, dim=1)
+
+    def coeffs(self, gram):
+        n = gram.shape[0]
+        s = self.scores(gram)
+        w = torch.zeros((n,), dtype=torch.float32, device=gram.device)
+        if self.m <= 1:
+            w[torch.argmin(s)] = 1.0
+            return w
+        # multi-krum: average of the m best
+        w[torch.argsort(s)[: self.m]] = 1.0 / self.m
+        return w

@@ -1,0 +1,181 @@
+"""Packed flat-buffer robust-aggregation engine on one device.
+
+Port of the ``mesh=None`` branch of ``repro/distributed/packing.py``.
+Mixing, the Gram stats phase and the combine are linear, so the whole
+stats -> coeff -> combine pipeline runs on one packed ``[W, n_pad]`` fp32
+buffer.
+
+``GradPacker`` owns the layout: leaves in the reference's order (dict keys
+sorted), each leaf's segment padded up to a multiple of the Gram kernel's
+fixed tile, ``TILE_D`` = 2048 columns (the reference's default
+``block_d``). The kernel sums its tiles in column order
+(``kernels/pairwise_gram.py``), so a tile never straddles two leaves, and a
+chain of per-leaf Gram calls seeded through ``acc`` equals one call on the
+packed buffer bit for bit.
+
+On the main path the engine launches four kernels: ``bucket_mix`` (mix
+and final combine), ``cwise_median`` (CM), ``cwise_trimmed_mean`` (TM) and
+``pairwise_gram`` (every other rule). ``use_kernels=False`` runs the plain
+PyTorch contractions instead. The phases are marked with
+``torch.profiler.record_function`` under the reference's names (``pack``,
+``mix``, ``kernel``, ``gram``, ``coeff``, ``combine``, ``unpack``).
+Multi-device meshes belong to a later slice and raise here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.core.aragg import RobustAggregator
+from repro_torch.kernels import ops
+from repro_torch.kernels.pairwise_gram import TILE_D
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+class GradPacker:
+    """Flattens a per-worker gradient tree (leaves ``[W, ...]``) into one
+    padded ``[W, n_pad]`` fp32 buffer and back. Layout is static per tree
+    structure; build instances via ``packer_for`` to get caching."""
+
+    def __init__(self, treedef, leaf_shapes: Tuple[tuple, ...], leaf_dtypes: tuple):
+        self.treedef = treedef
+        self.leaf_shapes = tuple(tuple(s) for s in leaf_shapes)  # sans worker axis
+        self.leaf_dtypes = tuple(leaf_dtypes)
+        self.sizes = tuple(math.prod(s) for s in self.leaf_shapes)
+        self.padded = tuple(_round_up(z, TILE_D) if z else 0 for z in self.sizes)
+        self.offsets = tuple(sum(self.padded[:i]) for i in range(len(self.padded)))
+        self.n_params = sum(self.sizes)
+        self.n_pad = sum(self.padded)
+
+    def pack(self, grads_w: Any) -> torch.Tensor:
+        """Stacked tree (leaves ``[W, ...]``) -> packed ``[W, n_pad]`` fp32."""
+        leaves, _ = tree_flatten(grads_w)
+        W = leaves[0].shape[0]
+        buf = torch.zeros((W, self.n_pad), dtype=torch.float32, device=leaves[0].device)
+        for leaf, size, off in zip(leaves, self.sizes, self.offsets):
+            if size:
+                buf[:, off:off + size] = leaf.reshape(W, size)
+        return buf
+
+    def unpack(self, vec: torch.Tensor) -> Any:
+        """Packed row ``[n_pad]`` -> gradient tree (original shapes/dtypes)."""
+        leaves = [
+            vec[off:off + size].reshape(shape).to(dtype)
+            for off, size, shape, dtype in zip(
+                self.offsets, self.sizes, self.leaf_shapes, self.leaf_dtypes)
+        ]
+        return tree_unflatten(self.treedef, leaves)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"GradPacker(n_leaves={len(self.sizes)}, n_params={self.n_params}, "
+                f"n_pad={self.n_pad})")
+
+
+_PACKER_CACHE: Dict[tuple, GradPacker] = {}
+
+
+def packer_for(grads_w: Any) -> GradPacker:
+    """Layout-cached ``GradPacker`` for this tree structure (leaves carry a
+    leading worker axis that is NOT part of the layout)."""
+    leaves, treedef = tree_flatten(grads_w)
+    key = (
+        treedef,
+        tuple(tuple(l.shape[1:]) for l in leaves),
+        tuple(l.dtype for l in leaves),
+    )
+    packer = _PACKER_CACHE.get(key)
+    if packer is None:
+        packer = GradPacker(treedef, key[1], key[2])
+        _PACKER_CACHE[key] = packer
+    return packer
+
+
+def packed_robust_sync(
+    grads_w: Any,
+    aggregator: RobustAggregator,
+    mix: Optional[torch.Tensor] = None,
+    mesh=None,
+    use_kernels: bool = True,
+) -> Tuple[Any, dict]:
+    """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
+    gradient tree on a single packed buffer. Returns ``(grads, info)``.
+
+    ``mix`` is the round's ``[m, W]`` mixing matrix
+    (``aggregator.mixing_matrix``); without it the identity permutation's
+    (the reference's ``key=None``). The tensors' device decides where it
+    runs: CUDA tensors go through the kernels (``use_kernels=True``), CPU
+    tensors through the plain versions.
+    On the Gram route ``info`` holds ``agg_weights`` and
+    ``gram_diag_mean``."""
+    if mesh is not None:
+        raise NotImplementedError("the multi-device engine is not ported yet")
+    packer = packer_for(grads_w)
+    leaves, _ = tree_flatten(grads_w)
+    W, device = leaves[0].shape[0], leaves[0].device
+    if packer.n_params == 0:  # degenerate all-empty tree
+        return packer.unpack(torch.zeros((packer.n_pad,), device=device)), {}
+    if mix is None:
+        mix = aggregator.mixer.matrix(W, device=device)
+    mix = mix.to(device=device, dtype=torch.float32).contiguous()
+    info: dict = {}
+
+    with record_function("pack"):
+        buf = packer.pack(grads_w)  # [W, n_pad] fp32
+
+    def finish(out):
+        with record_function("unpack"):
+            return packer.unpack(out), info
+
+    base = aggregator.base
+    if base.coordinatewise:
+        with record_function("mix"):
+            mixed = ops.mix_apply(mix, buf) if use_kernels else mix @ buf
+        with record_function("kernel"):
+            if not use_kernels:
+                out = base.combine_leaf(mixed)
+            elif base.name == "cm":
+                out = ops.cm_aggregate(mixed)
+            elif base.name == "tm":
+                out = ops.tm_aggregate(mixed, min(base.n_trim, (mixed.shape[0] - 1) // 2))
+            else:
+                out = base.combine_leaf(mixed)
+        return finish(out)
+
+    with record_function("gram"):
+        gram = ops.gram(buf) if use_kernels else buf @ buf.T
+    with record_function("coeff"):
+        weights = aggregator.worker_weights_from_gram(gram, mix=mix)
+    info["agg_weights"] = weights
+    info["gram_diag_mean"] = torch.mean(torch.diagonal(gram))
+    with record_function("combine"):
+        if use_kernels:
+            out = ops.mix_apply(weights[None, :].contiguous(), buf)[0]
+        else:
+            out = weights @ buf
+    return finish(out)
+
+
+def packed_aggregate(
+    xs: torch.Tensor,
+    aggregator: RobustAggregator,
+    mix: Optional[torch.Tensor] = None,
+    use_kernels: bool = True,
+    with_info: bool = False,
+):
+    """Packed engine on an already-stacked ``[W, d]`` matrix -> ``[d]``; the
+    counterpart of ``RobustAggregator.__call__`` for callers that hold a
+    flat stack (the cross-device server). ``with_info=True`` returns
+    ``(out, info)``."""
+    out_tree, info = packed_robust_sync(
+        [xs], aggregator, mix=mix, use_kernels=use_kernels)
+    if with_info:
+        return out_tree[0], info
+    return out_tree[0]

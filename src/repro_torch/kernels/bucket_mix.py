@@ -1,0 +1,53 @@
+"""Mixing operator ``Y = M X``: CUDA kernel ``csrc/bucket_mix.cu``.
+
+Replaces ``repro/kernels/bucket_mix.py::bucket_mix``. Bucketing and
+resampling (Algorithm 1) are a row-stochastic ``[m, W]`` matrix applied to
+the stacked worker gradients ``[W, d]``; with ``m = 1`` the same kernel is
+the final weighted combine of the Gram route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, _build, ref
+
+_ARGS = {"bucket_mix_launch": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                               ctypes.c_void_p)}
+
+
+def sources():
+    return [("bucket_mix", _build.read_source("bucket_mix.cu"))]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    (name, text), = sources()
+    return _build.load(name, text, _ARGS)
+
+
+def bucket_mix(mix: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """mix: ``[m, W]``; xs: ``[W, d]`` -> ``[m, d]`` fp32. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (fp32, contiguous,
+    1 <= m, W <= 64)."""
+    m, W = mix.shape
+    W2, d = xs.shape
+    if W != W2:
+        raise ValueError(f"bucket_mix: mix {tuple(mix.shape)} vs xs {tuple(xs.shape)}")
+    if xs.device.type == "cpu" and mix.device.type == "cpu":
+        return ref.bucket_mix(mix, xs)
+    _build.check_inputs("bucket_mix", mix=mix, xs=xs)
+    _build.check_rows("bucket_mix", "W", W)
+    _build.check_rows("bucket_mix", "m", m)
+    out = torch.empty((m, d), dtype=torch.float32, device=xs.device)
+    if d == 0:
+        return out
+    code = _lib().bucket_mix_launch(mix.data_ptr(), xs.data_ptr(), out.data_ptr(),
+                                    m, W, d, _build.stream_of(xs))
+    _build.check_launch("bucket_mix", code)
+    LAUNCHES["bucket_mix"] += 1
+    return out

@@ -1,0 +1,64 @@
+"""Coordinate-wise trimmed mean over the worker axis: CUDA kernel generated
+from ``csrc/selection.cu``.
+
+Replaces ``repro/kernels/trimmed_mean.py::cwise_trimmed_mean``. The source
+for ``(W, n_trim)`` carries ``selection_program(W, trim_ranks(W, n_trim))``
+unrolled into register compare-exchanges, then sums the sorted band
+``[n_trim, W - n_trim)`` in rank order and scales the sum by the fp32
+reciprocal of the band length (``selection_network.band_scale``).
+``n_trim == 0`` has no program and sums the rows in row order.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, _build, ref
+from repro_torch.kernels.cwise_median import SELECT_ARGS
+from repro_torch.kernels.selection_network import band_scale, emit_cuda, trim_ranks
+
+
+def _check_trim(W: int, n_trim: int) -> None:
+    if not 0 <= n_trim <= (W - 1) // 2:
+        raise ValueError(f"n_trim={n_trim} out of range for W={W}")
+
+
+def sources(W: int, n_trim: int):
+    _check_trim(W, n_trim)
+    band = tuple(range(W)) if n_trim == 0 else trim_ranks(W, n_trim)
+    lines = [f"float s = v[{band[0]}];"]
+    lines += [f"s = __fadd_rn(s, v[{r}]);" for r in band[1:]]
+    lines.append(f"res = __fmul_rn(s, {band_scale(len(band)).hex()}f);")
+    program_ranks = () if n_trim == 0 else band
+    text = emit_cuda(_build.read_source("selection.cu"), W, program_ranks,
+                     "\n    ".join(lines))
+    return [(f"cwise_trimmed_mean_w{W}_b{n_trim}", text)]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(W: int, n_trim: int):
+    (name, text), = sources(W, n_trim)
+    return _build.load(name, text, SELECT_ARGS)
+
+
+def cwise_trimmed_mean(xs: torch.Tensor, n_trim: int) -> torch.Tensor:
+    """xs: ``[W, d]`` -> mean of the sorted ``[n_trim, W - n_trim)`` band,
+    ``[d]`` fp32; ``ValueError`` unless ``0 <= n_trim <= (W - 1) // 2``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (fp32,
+    contiguous, 1 <= W <= 64)."""
+    W, d = xs.shape
+    _check_trim(W, n_trim)
+    if xs.device.type == "cpu":
+        return ref.cwise_trimmed_mean(xs, n_trim)
+    _build.check_inputs("cwise_trimmed_mean", xs=xs)
+    _build.check_rows("cwise_trimmed_mean", "W", W)
+    out = torch.empty((d,), dtype=torch.float32, device=xs.device)
+    if d == 0:
+        return out
+    code = _lib(W, n_trim).select_launch(xs.data_ptr(), out.data_ptr(), d,
+                                         _build.stream_of(xs))
+    _build.check_launch("cwise_trimmed_mean", code)
+    LAUNCHES["cwise_trimmed_mean"] += 1
+    return out
