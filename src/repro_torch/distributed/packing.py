@@ -1,9 +1,10 @@
-"""Packed flat-buffer robust-aggregation engine on one device.
+"""Packed flat-buffer robust-aggregation engine, on one device or over a
+group of ranks.
 
-Port of the ``mesh=None`` branch of ``repro/distributed/packing.py``.
-Mixing, the Gram stats phase and the combine are linear, so the whole
-stats -> coeff -> combine pipeline runs on one packed ``[W, n_pad]`` fp32
-buffer.
+Port of ``repro/distributed/packing.py`` without its param-sharded egress
+and telemetry. Mixing, the Gram stats phase and the combine are linear, so
+the whole stats -> coeff -> combine pipeline runs on one packed
+``[W, n_pad]`` fp32 buffer.
 
 ``GradPacker`` owns the layout: leaves in the reference's order (dict keys
 sorted), each leaf's segment padded up to a multiple of the Gram kernel's
@@ -13,13 +14,24 @@ fixed tile, ``TILE_D`` = 2048 columns (the reference's default
 chain of per-leaf Gram calls seeded through ``acc`` equals one call on the
 packed buffer bit for bit.
 
-On the main path the engine launches four kernels: ``bucket_mix`` (mix
-and final combine), ``cwise_median`` (CM), ``cwise_trimmed_mean`` (TM) and
+On one device the engine launches four kernels: ``bucket_mix`` (mix and
+final combine), ``cwise_median`` (CM), ``cwise_trimmed_mean`` (TM) and
 ``pairwise_gram`` (every other rule). ``use_kernels=False`` runs the plain
 PyTorch contractions instead. The phases are marked with
 ``torch.profiler.record_function`` under the reference's names (``pack``,
 ``mix``, ``kernel``, ``gram``, ``coeff``, ``combine``, ``unpack``).
-Multi-device meshes belong to a later slice and raise here.
+
+Over a group of ranks (``mesh``: a ``torch.distributed`` process group of
+more than one rank; ``launch/mesh.py``) the engine follows the reference's
+multi-device route. ``reshard_in`` keeps this rank's column slice of the
+packed buffer, the phases run the sharded kernels of ``shard_kernels.py``
+on it, and ``reshard_out`` replicates the combined row (one all-reduce).
+CM/TM mix and select column-locally; RFA and CCLIP skip the ``[W, W]``
+Gram and run the fused compositions (one ``residual_norms`` or
+``cclip_fused_iter`` pass plus an all-reduce of ``[W]`` per iteration);
+Krum, ACClip and the mean take the sharded Gram (an all-reduce of
+``[W, W]``) and the sharded combine. ``use_kernels=False`` on a group runs
+the one-device plain route on every rank, the numerics reference.
 """
 
 from __future__ import annotations
@@ -31,8 +43,10 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.aragg import RobustAggregator
+from repro_torch.distributed import shard_kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels.pairwise_gram import TILE_D
+from repro_torch.launch.mesh import n_devices
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
@@ -98,12 +112,33 @@ def packer_for(grads_w: Any) -> GradPacker:
     return packer
 
 
+# -------------------------------------------------------------- collectives
+def reshard_in(buf: torch.Tensor, mesh) -> torch.Tensor:
+    """The ingress: this rank's column slice of the packed ``[W, n_pad]``
+    buffer (zero-padded to a multiple of the group's size). Every rank holds
+    the whole global stack, as in the reference, so no collective is
+    needed. No-op without a group."""
+    return buf if mesh is None else shard_kernels.shard_cols(buf, mesh)
+
+
+def reshard_out(vec: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """The replicated egress: the combined ``[n]`` row on every rank, from
+    each rank's column slice (one all-reduce). No-op without a group."""
+    return vec if mesh is None else shard_kernels.unshard_cols(vec, n, mesh)
+
+
+def _mesh_is_trivial(mesh) -> bool:
+    return mesh is None or n_devices(mesh) == 1
+
+
+# ------------------------------------------------------------------- engine
 def packed_robust_sync(
     grads_w: Any,
     aggregator: RobustAggregator,
     mix: Optional[torch.Tensor] = None,
     mesh=None,
     use_kernels: bool = True,
+    out_shardings: Any = None,
 ) -> Tuple[Any, dict]:
     """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
     gradient tree on a single packed buffer. Returns ``(grads, info)``.
@@ -113,10 +148,19 @@ def packed_robust_sync(
     (the reference's ``key=None``). The tensors' device decides where it
     runs: CUDA tensors go through the kernels (``use_kernels=True``), CPU
     tensors through the plain versions.
+
+    ``mesh`` is ``None`` (one device) or a process group. Over a group of
+    more than one rank every rank passes the same global stack and the same
+    ``mix`` (keeping ``mix`` the same is the caller's duty, as the
+    replicated ``key`` is in the reference), the kernel route runs sharded
+    (module docstring), and every rank gets the whole result. The
+    param-sharded egress (``out_shardings``) is not ported and raises.
     On the Gram route ``info`` holds ``agg_weights`` and
     ``gram_diag_mean``."""
-    if mesh is not None:
-        raise NotImplementedError("the multi-device engine is not ported yet")
+    if out_shardings is not None:
+        raise NotImplementedError("the param-sharded egress (out_shardings) is not ported")
+    sharded = not _mesh_is_trivial(mesh) and use_kernels
+    group = mesh if sharded else None
     packer = packer_for(grads_w)
     leaves, _ = tree_flatten(grads_w)
     W, device = leaves[0].shape[0], leaves[0].device
@@ -128,38 +172,71 @@ def packed_robust_sync(
     info: dict = {}
 
     with record_function("pack"):
-        buf = packer.pack(grads_w)  # [W, n_pad] fp32
+        buf = reshard_in(packer.pack(grads_w), group)  # [W, n_pad / R] fp32
 
     def finish(out):
         with record_function("unpack"):
-            return packer.unpack(out), info
+            return packer.unpack(reshard_out(out, packer.n_pad, group)), info
 
     base = aggregator.base
     if base.coordinatewise:
         with record_function("mix"):
-            mixed = ops.mix_apply(mix, buf) if use_kernels else mix @ buf
+            if not use_kernels:
+                mixed = mix @ buf
+            else:
+                mixed = (shard_kernels.mix_apply(mix, buf, group) if sharded
+                         else ops.mix_apply(mix, buf))
         with record_function("kernel"):
             if not use_kernels:
                 out = base.combine_leaf(mixed)
             elif base.name == "cm":
-                out = ops.cm_aggregate(mixed)
+                out = (shard_kernels.cm_aggregate(mixed, group) if sharded
+                       else ops.cm_aggregate(mixed))
             elif base.name == "tm":
-                out = ops.tm_aggregate(mixed, min(base.n_trim, (mixed.shape[0] - 1) // 2))
+                b = min(base.n_trim, (mixed.shape[0] - 1) // 2)
+                out = (shard_kernels.tm_aggregate(mixed, b, group) if sharded
+                       else ops.tm_aggregate(mixed, b))
+            elif sharded:  # any other combine_leaf is column-local too
+                out = shard_kernels.coordinatewise_combine(mixed, group, base.combine_leaf)
             else:
                 out = base.combine_leaf(mixed)
         return finish(out)
 
+    if sharded and base.name in ("rfa", "cclip"):
+        # fused multi-rank route: mix in vector space, then the sharded
+        # Weiszfeld / fused-CCLIP composition, one local kernel pass plus
+        # one [W]-sized all-reduce per iteration instead of the [W, W] Gram
+        # detour. ACClip stays on the Gram route (its adaptive tau needs the
+        # whole norm vector).
+        with record_function("mix"):
+            mixed = shard_kernels.mix_apply(mix, buf, group)
+        with record_function("kernel"):
+            if base.name == "cclip":
+                out = shard_kernels.cclip_aggregate(mixed, base.tau, group,
+                                                    n_iters=base.n_iters, eps=base.eps)
+            else:
+                out = shard_kernels.rfa_aggregate(mixed, group, n_iters=base.n_iters,
+                                                  eps=base.eps)
+        return finish(out)
+
     with record_function("gram"):
-        gram = ops.gram(buf) if use_kernels else buf @ buf.T
+        if not use_kernels:
+            gram = buf @ buf.T
+        elif sharded:
+            gram = shard_kernels.gram(buf, group)
+        else:
+            gram = ops.gram(buf)
     with record_function("coeff"):
         weights = aggregator.worker_weights_from_gram(gram, mix=mix)
     info["agg_weights"] = weights
     info["gram_diag_mean"] = torch.mean(torch.diagonal(gram))
     with record_function("combine"):
-        if use_kernels:
-            out = ops.mix_apply(weights[None, :].contiguous(), buf)[0]
-        else:
+        if not use_kernels:
             out = weights @ buf
+        elif sharded:
+            out = shard_kernels.mix_apply(weights[None, :].contiguous(), buf, group)[0]
+        else:
+            out = ops.mix_apply(weights[None, :].contiguous(), buf)[0]
     return finish(out)
 
 

@@ -1,0 +1,151 @@
+"""Byzantine-robust gradient synchronisation: the paper's technique as the
+distributed gradient sync (it replaces the mean all-reduce over workers).
+
+Port of ``repro/distributed/robust_sync.py``. Two engines:
+
+- ``engine="packed"`` (default): the whole gradient tree flattened once
+  into a padded ``[W, n_pad]`` fp32 buffer and run through the kernels
+  (``packing.py``), on one device or sharded by columns over a process
+  group (``shard_kernels.py``).
+- ``engine="per_leaf"``: each leaf contracted on its own (Gram, mixing,
+  combine per leaf), kept as the bit-exactness oracle of the packed engine.
+  With ``use_kernels=True`` its Gram chains through the Gram kernel's
+  fixed 2048-column tiles (``acc``), the same sum as the packed engine's
+  one call, so on one device the two engines agree bit for bit. With the
+  default ``use_kernels=False`` it runs plain PyTorch contractions. Over a
+  group of ranks it is not ported and raises.
+
+Semantics equal ``RobustAggregator`` on the stacked vector.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.core.aragg import RobustAggregator
+from repro_torch.distributed import packing
+from repro_torch.kernels import ops
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+
+def _flat32(leaf: torch.Tensor, n_workers: int) -> torch.Tensor:
+    return leaf.reshape(n_workers, -1).float().contiguous()
+
+
+def _tree_map(fn, tree: Any) -> Any:
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(leaf) for leaf in leaves])
+
+
+def tree_gram(grads_w: Any, n_workers: int, use_kernels: bool = False) -> torch.Tensor:
+    """Sum over leaves of per-leaf worker Gram matrices -> ``[W, W]`` fp32.
+
+    With ``use_kernels`` the per-leaf contributions chain through the Gram
+    kernel's fixed tiles with a carried ``acc``: the packed engine's sum."""
+    leaves, _ = tree_flatten(grads_w)
+    gram = torch.zeros((n_workers, n_workers), dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        if leaf.numel() == 0:
+            continue
+        flat = _flat32(leaf, n_workers)
+        gram = ops.gram(flat, acc=gram) if use_kernels else gram + flat @ flat.T
+    return gram
+
+
+def tree_combine(grads_w: Any, weights: torch.Tensor, use_kernels: bool = False) -> Any:
+    """Per-leaf weighted combination over the worker axis."""
+    def one(leaf):
+        if leaf.numel() == 0:  # guard BEFORE reshape(W, -1)
+            return torch.zeros(leaf.shape[1:], dtype=leaf.dtype, device=leaf.device)
+        flat = _flat32(leaf, leaf.shape[0])
+        out = (ops.mix_apply(weights[None, :].contiguous(), flat)[0] if use_kernels
+               else weights @ flat)
+        return out.reshape(leaf.shape[1:]).to(leaf.dtype)
+
+    return _tree_map(one, grads_w)
+
+
+def tree_mix(grads_w: Any, mix_matrix: torch.Tensor, use_kernels: bool = False) -> Any:
+    """Apply the mixing operator leaf-wise: ``[W, ...] -> [m, ...]``."""
+    m = mix_matrix.shape[0]
+
+    def one(leaf):
+        if leaf.numel() == 0:  # guard BEFORE reshape(W, -1)
+            return torch.zeros((m,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+                               device=leaf.device)
+        flat = _flat32(leaf, leaf.shape[0])
+        out = ops.mix_apply(mix_matrix, flat) if use_kernels else mix_matrix @ flat
+        return out.reshape((m,) + tuple(leaf.shape[1:])).to(leaf.dtype)
+
+    return _tree_map(one, grads_w)
+
+
+def _per_leaf_sync(grads_w: Any, aggregator: RobustAggregator, mix: torch.Tensor,
+                   use_kernels: bool) -> Tuple[Any, dict]:
+    """The per-leaf engine (module docstring)."""
+    leaves, _ = tree_flatten(grads_w)
+    n_workers = leaves[0].shape[0]
+    info: dict = {}
+    base = aggregator.base
+
+    if base.coordinatewise:
+        if not use_kernels:
+            return _tree_map(base.combine_leaf, tree_mix(grads_w, mix)), info
+
+        # kernel route: fp32 end to end per leaf, CM/TM through their
+        # kernels, phase for phase the packed engine's
+        def one(leaf):
+            if leaf.numel() == 0:  # guard BEFORE reshape(W, -1)
+                return torch.zeros(leaf.shape[1:], dtype=leaf.dtype, device=leaf.device)
+            mixed = ops.mix_apply(mix, _flat32(leaf, n_workers))
+            if base.name == "cm":
+                out = ops.cm_aggregate(mixed)
+            elif base.name == "tm":
+                out = ops.tm_aggregate(mixed, min(base.n_trim, (mixed.shape[0] - 1) // 2))
+            else:
+                out = base.combine_leaf(mixed)
+            return out.reshape(leaf.shape[1:]).to(leaf.dtype)
+
+        return _tree_map(one, grads_w), info
+
+    gram = tree_gram(grads_w, n_workers, use_kernels=use_kernels)
+    weights = aggregator.worker_weights_from_gram(gram, mix=mix)
+    info["agg_weights"] = weights
+    info["gram_diag_mean"] = torch.mean(torch.diagonal(gram))
+    return tree_combine(grads_w, weights, use_kernels=use_kernels), info
+
+
+def robust_gradient_sync(
+    grads_w: Any,
+    aggregator: RobustAggregator,
+    mix: Optional[torch.Tensor] = None,
+    mesh=None,
+    engine: str = "packed",
+    use_kernels: Optional[bool] = None,
+    out_shardings: Any = None,
+) -> Tuple[Any, dict]:
+    """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
+    gradient tree, using mixing + the robust rule. Returns ``(grads, info)``.
+
+    ``mix`` is the round's ``[m, W]`` mixing matrix (identity permutation
+    without it); over a group every rank passes the same one. ``mesh`` is
+    ``None`` or a ``torch.distributed`` process group (``launch/mesh.py``).
+    ``use_kernels=None`` resolves to the kernels for the packed engine and
+    to plain PyTorch for the per-leaf engine. ``out_shardings`` (the
+    param-sharded egress) is not ported and raises."""
+    if engine == "packed":
+        return packing.packed_robust_sync(
+            grads_w, aggregator, mix=mix, mesh=mesh,
+            use_kernels=True if use_kernels is None else use_kernels,
+            out_shardings=out_shardings)
+    if engine != "per_leaf":
+        raise ValueError(f"unknown sync engine {engine!r}")
+    if not packing._mesh_is_trivial(mesh) or out_shardings is not None:
+        raise NotImplementedError("the per-leaf engine runs on one device only")
+    leaves, _ = tree_flatten(grads_w)
+    device = leaves[0].device
+    mix = (aggregator.mixer.matrix(leaves[0].shape[0], device=device) if mix is None
+           else mix.to(device=device, dtype=torch.float32).contiguous())
+    return _per_leaf_sync(grads_w, aggregator, mix, bool(use_kernels))

@@ -1,0 +1,158 @@
+"""The aggregation kernels partitioned over a group of ranks.
+
+Port of ``repro/distributed/shard_kernels.py``. There, ``shard_map`` hands
+each device its COLUMN slice of the packed ``[W, n_pad]`` buffer (worker
+rows replicated) and the wrappers finish with a ``psum`` where the math
+reduces over columns. Here each rank of a ``torch.distributed`` group holds
+its slice as an ordinary tensor, and a function below receives what the
+reference's ``shard_map`` body receives:
+
+  gram / residual_norms / the fused-CCLIP residual output
+      column reductions  -> local kernel + ``all_reduce`` over the group;
+  mix_apply / cm_aggregate / tm_aggregate / coordinatewise_combine / the
+      fused-CCLIP centre output
+      column-local       -> local kernel, no collective; the output STAYS
+      column-sharded (rank r holds slice r).
+
+``shard_cols`` lays a global ``[..., n]`` tensor out this way (``_pad_cols``
+first zero-pads ``n`` up to a multiple of the group's size, so slices are
+equal; zero columns add 0 to every reduction) and ``unshard_cols``
+replicates a column-sharded result: one ``all_reduce`` of a zero-filled row
+into which each rank has written its own slice (gloo has no CUDA
+``all_gather``; adding zeros is exact). The collectives run on the tensors'
+own device: nothing is staged through the host here.
+
+Numerics: the ranks' partial sums are added in the collective's order, so
+reductions match the single-device kernels to fp32 tolerance, not bit for
+bit. Column-local results do match bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import n_devices
+
+
+def _pad_cols(x: torch.Tensor, group) -> Tuple[torch.Tensor, int]:
+    """Zero-pad the last axis up to a multiple of the group's size. Returns
+    ``(padded, original_n)``."""
+    n_dev = n_devices(group)
+    n = x.shape[-1]
+    n_up = -(-n // n_dev) * n_dev
+    if n_up == n:
+        return x, n
+    return torch.nn.functional.pad(x, (0, n_up - n)), n
+
+
+def shard_cols(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's (contiguous) column slice of the zero-padded ``x``."""
+    x, _ = _pad_cols(x, group)
+    n_local = x.shape[-1] // n_devices(group)
+    r = dist.get_rank(group)
+    return x[..., r * n_local:(r + 1) * n_local].contiguous()
+
+
+def unshard_cols(local: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The global ``[..., n]`` tensor, replicated on every rank, from each
+    rank's column slice: one ``all_reduce``."""
+    n_local = local.shape[-1]
+    r = dist.get_rank(group)
+    full = torch.zeros(local.shape[:-1] + (n_local * n_devices(group),),
+                       dtype=local.dtype, device=local.device)
+    full[..., r * n_local:(r + 1) * n_local] = local
+    dist.all_reduce(full, group=group)
+    return full[..., :n]
+
+
+def _all_reduced(t: torch.Tensor, group) -> torch.Tensor:
+    dist.all_reduce(t, group=group)
+    return t
+
+
+# ------------------------------------------------------------------ kernels
+def gram(local: torch.Tensor, group) -> torch.Tensor:
+    """Sharded stats phase: local ``[W, n/R]`` Gram + all-reduce -> ``[W, W]``."""
+    return _all_reduced(ops.gram(local), group)
+
+
+def mix_apply(mix: torch.Tensor, local: torch.Tensor, group) -> torch.Tensor:
+    """Sharded mixing/combine: the small ``[m, W]`` operator is the same on
+    every rank and each rank mixes its own columns; no collective, the
+    output stays column-sharded."""
+    del group  # column-local
+    return ops.mix_apply(mix, local)
+
+
+def cm_aggregate(local: torch.Tensor, group) -> torch.Tensor:
+    """Sharded coordinate-wise median: column-local selection network; the
+    output is this rank's slice of the ``[n]`` aggregate."""
+    del group  # column-local
+    return ops.cm_aggregate(local)
+
+
+def tm_aggregate(local: torch.Tensor, n_trim: int, group) -> torch.Tensor:
+    """Sharded coordinate-wise trimmed mean: column-local selection network;
+    the output is this rank's slice of the ``[n]`` aggregate."""
+    del group  # column-local
+    return ops.tm_aggregate(local, n_trim)
+
+
+def coordinatewise_combine(local: torch.Tensor, group, combine_fn: Callable) -> torch.Tensor:
+    """Any column-local ``[W, n] -> [n]`` reduction (an aggregator's
+    ``combine_leaf``) run on this rank's columns."""
+    del group  # column-local
+    return combine_fn(local)
+
+
+def residual_norms(local: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *,
+                   center: Optional[torch.Tensor] = None, group) -> torch.Tensor:
+    """Sharded Weiszfeld/CCLIP norms phase: local pass + all-reduce ->
+    ``[W]``. The centre is given as ``coeffs`` ``[W]`` (the same on every
+    rank) or as this rank's slice of an explicit ``center`` row."""
+    if (coeffs is None) == (center is None):
+        raise ValueError("provide exactly one of coeffs / center")
+    return _all_reduced(ops.norms(local, coeffs, center=center), group)
+
+
+def cclip_fused_iter(local: torch.Tensor, v: torch.Tensor, lam: torch.Tensor,
+                     group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sharded fused CCLIP iteration: the centre update is column-local (the
+    new centre stays column-sharded; one pass over the local slice); the
+    next iteration's residuals finish with an all-reduce."""
+    v_new, r2 = ops.cclip_iter(local, v, lam)
+    return v_new, _all_reduced(r2, group)
+
+
+# ------------------------------------------------------------- compositions
+def rfa_aggregate(local: torch.Tensor, group, *, n_iters: int = 8,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Counterpart of ``ops.rfa_aggregate`` over the group: smoothed
+    Weiszfeld with one sharded norms pass (+ all-reduce of ``[W]``) per
+    iteration. Returns this rank's slice of the aggregate."""
+    W = local.shape[0]
+    c = torch.full((W,), 1.0 / W, dtype=torch.float32, device=local.device)
+    for _ in range(n_iters):
+        r2 = residual_norms(local, c, group=group)
+        w = 1.0 / torch.sqrt(r2 + eps**2)
+        c = w / torch.sum(w)
+    return mix_apply(c[None, :], local, group)[0]
+
+
+def cclip_aggregate(local: torch.Tensor, tau: float, group, *, n_iters: int = 3,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """Counterpart of ``ops.cclip_aggregate`` over the group: one fused
+    sharded pass per iteration (combine column-local, norms all-reduced).
+    Returns this rank's slice of the aggregate."""
+    W = local.shape[0]
+    uniform = torch.full((1, W), 1.0 / W, dtype=torch.float32, device=local.device)
+    v = mix_apply(uniform, local, group)[0]
+    r2 = residual_norms(local, center=v, group=group)
+    for _ in range(n_iters):
+        lam = torch.clamp(tau / torch.sqrt(r2 + eps), max=1.0)
+        v, r2 = cclip_fused_iter(local, v, lam, group)
+    return v

@@ -19,6 +19,9 @@ LAUNCHES: Dict[str, int] = {
     "pairwise_gram": 0,
     "cwise_median": 0,
     "cwise_trimmed_mean": 0,
+    "residual_norms": 0,
+    "cclip_fused_iter": 0,
+    "cclip_combine": 0,
 }
 
 

@@ -18,8 +18,9 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, _build, ref
 
-#: columns per tile of the kernel (``GR_TILE`` in the source)
-TILE_D = 2048
+#: columns per tile of the kernel (``GR_TILE`` in the source) and of the
+#: plain version's sum
+TILE_D = ref.GRAM_TILE
 
 _ARGS = {"pairwise_gram_launch": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

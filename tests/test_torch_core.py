@@ -197,8 +197,10 @@ def test_packed_aggregate_matches(agg, kwargs, mixing_name, use_kernels):
 
 def test_packed_sync_rejects_mesh_and_handles_empty_tree():
     ra = aragg.RobustAggregator.from_spec("rfa", mixing="none")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         packing.packed_robust_sync([torch.zeros(4, 8)], ra, mesh=object())
+    with pytest.raises(NotImplementedError):
+        packing.packed_robust_sync([torch.zeros(4, 8)], ra, out_shardings=[None])
     out, info = packing.packed_robust_sync({"e": torch.zeros(4, 0)}, ra)
     assert out["e"].shape == (0,) and info == {}
 

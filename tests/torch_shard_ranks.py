@@ -1,0 +1,99 @@
+"""Rank bodies for tests/test_torch_shard_engine.py.
+
+``run_all`` runs in every process of a gloo group on the CPU
+(``repro_torch.launch.mesh.spawn_ranks``). This module imports torch and
+the port only, so the rank processes never import jax; the test module
+computes the JAX side and hands the ranks the same numpy inputs and the
+reference's mixing matrices.
+"""
+
+import torch
+
+from repro_torch.core.aragg import RobustAggregator
+from repro_torch.distributed import packing, shard_kernels
+from repro_torch.distributed.robust_sync import robust_gradient_sync
+
+#: shard_kernels functions the engine may route through, counted per sync
+ROUTED = ("gram", "mix_apply", "cm_aggregate", "tm_aggregate", "coordinatewise_combine",
+          "residual_norms", "cclip_fused_iter", "rfa_aggregate", "cclip_aggregate")
+
+
+def _primitives(group, p):
+    """Each sharded primitive and composition on this rank's column slice;
+    column-sharded outputs are replicated back to the global shape."""
+    xs = torch.tensor(p["xs"])
+    n = xs.shape[1]
+    local = shard_kernels.shard_cols(xs, group)
+    coeffs, lam = torch.tensor(p["coeffs"]), torch.tensor(p["lam"])
+    center = shard_kernels.shard_cols(torch.tensor(p["center"]), group)
+    v0 = shard_kernels.shard_cols(torch.tensor(p["v0"]), group)
+    full = lambda t: shard_kernels.unshard_cols(t, n, group)  # noqa: E731
+    v_new, r2 = shard_kernels.cclip_fused_iter(local, v0, lam, group)
+    return {
+        "n_local": local.shape[1],
+        "gram": shard_kernels.gram(local, group),
+        "mix": full(shard_kernels.mix_apply(torch.tensor(p["mix"]), local, group)),
+        "cm": full(shard_kernels.cm_aggregate(local, group)),
+        "tm": full(shard_kernels.tm_aggregate(local, 2, group)),
+        "cw": full(shard_kernels.coordinatewise_combine(
+            local, group, lambda b: b.sum(0))),
+        "norms_c": shard_kernels.residual_norms(local, coeffs, group=group),
+        "norms_v": shard_kernels.residual_norms(local, center=center, group=group),
+        "cclip_v": full(v_new),
+        "cclip_r2": r2,
+        "rfa": full(shard_kernels.rfa_aggregate(local, group)),
+        "cclip": full(shard_kernels.cclip_aggregate(local, p["tau"], group)),
+    }
+
+
+def _routes(group, tree, specs):
+    """Which shard_kernels functions each rule's sync calls, and how often."""
+    hits = {}
+    originals = {name: getattr(shard_kernels, name) for name in ROUTED}
+
+    def counting(name):
+        def wrapper(*args, **kwargs):
+            hits[name] = hits.get(name, 0) + 1
+            return originals[name](*args, **kwargs)
+        return wrapper
+
+    out = {}
+    try:
+        for name in ROUTED:
+            setattr(shard_kernels, name, counting(name))
+        for label, (agg, kwargs) in specs.items():
+            hits.clear()
+            ra = RobustAggregator.from_spec(agg, mixing="bucketing", s=2, **kwargs)
+            packing.packed_robust_sync(tree, ra, mesh=group)
+            out[label] = dict(hits)
+    finally:
+        for name, fn in originals.items():
+            setattr(shard_kernels, name, fn)
+    return out
+
+
+def run_all(rank, group, device, payload):
+    tree = {k: torch.tensor(v, device=device) for k, v in payload["tree"].items()}
+    syncs = {}
+    for label, (agg, kwargs, mixing, mix) in payload["syncs"].items():
+        ra = RobustAggregator.from_spec(agg, mixing=mixing, s=2, **kwargs)
+        out, _ = robust_gradient_sync(tree, ra, mix=torch.tensor(mix, device=device),
+                                      mesh=group, engine="packed")
+        syncs[label] = out
+    return {
+        "rank": rank,
+        "world_size": torch.distributed.get_world_size(group),
+        "primitives": _primitives(group, payload["primitives"]),
+        "syncs": syncs,
+        "routes": _routes(group, tree, payload["routes"]),
+    }
+
+
+def fail_on_rank_one(rank, group, device):
+    """Rank 1 raises while rank 0 hangs, as a rank stuck in a collective
+    would."""
+    if rank == 1:
+        raise ValueError("rank one fails")
+    import time
+
+    time.sleep(600)
