@@ -36,6 +36,32 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    packed engine on the card (CM/TM bit for bit, the rest to 5e-4); every
    rank's result must be the same bit for bit. Host time per sync over 20
    syncs is printed, for 4 ranks sharing one card.
+7. Hold ``flash_attention`` against its plain version (``ref.attention``) on
+   the card: the reference test's four cases in fp32 (2e-4), and in bf16
+   (torch's bf16 tolerance, with the fp64 error of kernel and plain version
+   printed) the attention shapes of the ported configs at B = 1, S = 4096
+   (TinyLlama H 32 / KV 4 / dh 64, qwen2.5-14b 40 / 8 / 128, gemma-7b
+   16 / 16 / 256), a chunked prefill (Sq = 512 against Skv = 4096) and a
+   window of 1024; timed and bounded as in phase 2 (bf16 operations against
+   the tensor-core peak), with ``scaled_dot_product_attention`` as the
+   yardstick where ``Sq == Skv`` and there is no window.
+8. Serve TinyLlama-1.1B at full width (22 layers, bf16, random weights from
+   a seeded generator on the card): (a) ``make_prefill_step`` on B = 2,
+   S = 4096 gives finite next-token logits [2, 1, 32000], timed and
+   profiled (device busy share); (b) layer
+   0's q/k/v, made by the model's own ``rmsnorm`` and ``_project_qkv`` from
+   that prefill's embeddings, go through ``flash_attention`` (exactly one
+   launch, counted on its own) and are held against the plain version, the
+   model's ``_attn_blockwise`` and ``_attn_xla``, and an fp64 attention;
+   (c) a ``ServeEngine`` with 4 slots serves 6 seeded requests (prompts of
+   16-96 tokens, 16 new tokens each, greedy) to completion, and request 0's
+   tokens equal a sequential greedy loop over ``decode_step`` run at the
+   engine's batch width (the one-row loop's agreement is printed); decode
+   ms per step and tokens/s are printed, and 20 steps with all 4 slots busy
+   are timed and profiled; (d) in fp32 at full width, the last
+   prompt position's logits of the prefill and of token-by-token decode
+   agree within the reference's bar (rtol and atol 2e-3). The serving
+   path's own modules launch no kernel, as in the reference (counted).
 
 The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
@@ -52,9 +78,11 @@ import sys
 import time
 from pathlib import Path
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 (non-tensor) op/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) op/s
+#: and dense bf16 tensor-core op/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 
 MAIN_D = 106_496          # the MLP's packed width (4 leaves padded to 2048)
 PAPER_D = 16_777_216      # 1.68 GB at W = 25: above launch latency
@@ -62,6 +90,7 @@ ROUNDS = 120
 SYNC_RANKS = 4            # ranks of the sharded sync, all on cuda:0
 RANK_D = MAIN_D // SYNC_RANKS
 SYNC_REPS = 20
+ATTN_S = 4096             # the attention and serving phases' sequence length
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
 SYNC_ROUTE = {
@@ -110,32 +139,35 @@ def time_ms(fn, reps: int, batch: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def build_phase():
     from repro_torch.kernels import (_build, bucket_mix, cclip_fused, cwise_median,
-                                     pairwise_gram, trimmed_mean, weiszfeld_norms)
+                                     flash_attention, pairwise_gram, trimmed_mean,
+                                     weiszfeld_norms)
 
     # every library the ranks of phase 6 load is built here, before they start
     sources = (bucket_mix.sources() + pairwise_gram.sources()
                + cwise_median.sources(5) + cwise_median.sources(13)
                + trimmed_mean.sources(5, 1) + trimmed_mean.sources(13, 5)
                + trimmed_mean.sources(5, 2) + weiszfeld_norms.sources()
-               + cclip_fused.sources())
+               + cclip_fused.sources() + flash_attention.sources())
     seconds = _build.build_all(sources)
     log(f"build: {len(sources)} CUDA sources for sm_90a ready in {seconds:.1f} s "
         f"({_build.BUILD_DIR})")
 
 
-def measure(results, name, label, kernel, plain, library, n_bytes, n_ops, timing, check):
+def measure(results, name, label, kernel, plain, library, n_bytes, n_ops, timing, check,
+            peak_ops=PEAK_FP32_PER_S):
     """Hold ``kernel()`` against ``plain()`` with ``check``, time kernel, plain
     version and library call, and append the row to ``results[name]``. A
     kernel with several outputs returns a tuple, checked by a tuple of checks;
-    the error is the largest."""
+    the error is the largest. ``peak_ops`` is the card's peak for the inputs'
+    type (fp32 on the CUDA cores unless given)."""
     import torch
 
     got, want = kernel(), plain()
@@ -145,7 +177,7 @@ def measure(results, name, label, kernel, plain, library, n_bytes, n_ops, timing
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     for g, w, c in zip(got, want, check):
         c(g, w)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, peak_ops)
     row = dict(shape=label, max_abs_err=err, ms=time_ms(kernel, *timing),
                plain_ms=time_ms(plain, *timing),
                library_ms=None if library is None else time_ms(library, *timing),
@@ -557,14 +589,284 @@ def sync_phase():
     return launches
 
 
-def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20) -> None:
-    """Device busy time per round and its largest kernels, from the
-    profiler's CUDA kernel records; the busy share is taken against
-    ``round_us``, the round time measured without the profiler (which slows
-    the host)."""
+def visible_pairs(Sq: int, Skv: int, window: int, q_offset: int) -> int:
+    """Query-key pairs the causal (and windowed) mask lets through."""
+    import numpy as np
+
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Skv, qpos + 1)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros_like(qpos)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def attention_fp64(q, k, v, window: int = 0, q_offset=None):
+    """``ref.attention`` in fp64: the yardstick of both bf16 versions' error."""
+    from repro_torch.kernels import ref
+
+    return ref.attention(q.double(), k.double(), v.double(), window=window, q_offset=q_offset)
+
+
+def attention_row(results, label, q, k, v, window=0, q_offset=-1, timing=(5, 2),
+                  blocks=(128, 128)):
+    """One ``flash_attention`` case: kernel against the plain version, timed
+    and bounded; for bf16 inputs the fp64 error of both is printed. ``blocks``
+    are the caller's (block_q, block_kv), which must divide Sq and Skv."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    off = Skv - Sq if q_offset == -1 else q_offset
+    library = None
+    if Sq == Skv and window == 0:  # SDPA's is_causal aligns top-left: only then the same
+        def library():
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), is_causal=True,
+                                                  enable_gqa=True)
+    bf16 = q.dtype == torch.bfloat16
+    # fp32 at the reference's 2e-4; bf16: both do fp32 math and round the
+    # output to bf16 once, so torch's bf16 tolerance (rtol 1.6e-2, atol 1e-5)
+    check = close(1.6e-2, 1e-5) if bf16 else close(2e-4, 2e-4)
+    n_bytes = (2 * B * Sq * H * dh + 2 * B * Skv * KV * dh) * q.element_size()
+    n_ops = 4 * B * H * dh * visible_pairs(Sq, Skv, window, off)
+    measure(results, "flash_attention", label,
+            lambda: flash_attention(q, k, v, window=window, q_offset=q_offset,
+                                    block_q=blocks[0], block_kv=blocks[1]),
+            lambda: ref.attention(q, k, v, window=window, q_offset=off), library,
+            n_bytes, n_ops, timing, check, PEAK_BF16_PER_S if bf16 else PEAK_FP32_PER_S)
+    if bf16:
+        exact = attention_fp64(q, k, v, window, off)
+        errs = {name: float((got.double() - exact).abs().max()) for name, got in
+                (("kernel", flash_attention(q, k, v, window=window, q_offset=q_offset,
+                                            block_q=blocks[0], block_kv=blocks[1])),
+                 ("plain", ref.attention(q, k, v, window=window, q_offset=off)))}
+        results["flash_attention"][-1]["err_vs_fp64"] = errs
+        log(f"check flash_attention [{label}]: max |error| against fp64 attention: "
+            f"kernel {errs['kernel']:.4g}, plain {errs['plain']:.4g}")
+        del exact
+    torch.cuda.empty_cache()
+
+
+def attention_phase(dev):
+    """Phase 7: ``flash_attention`` against its plain version at the reference
+    test's cases (fp32) and the ported configs' attention shapes (bf16)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    results = {"flash_attention": []}
+    gen = torch.Generator(dev).manual_seed(7)
+
+    def qkv(B, Sq, Skv, H, KV, dh, dtype):
+        return (torch.randn((B, Sq, H, dh), device=dev, generator=gen).to(dtype),
+                torch.randn((B, Skv, KV, dh), device=dev, generator=gen).to(dtype),
+                torch.randn((B, Skv, KV, dh), device=dev, generator=gen).to(dtype))
+
+    # tests/test_kernels.py's cases: B = 2, dh = 32, fp32
+    for Sq, Skv, H, KV, window in [(64, 64, 4, 4, 0), (64, 64, 8, 2, 0), (64, 64, 4, 2, 24),
+                                   (32, 128, 4, 4, 0)]:
+        attention_row(results, f"fp32 B2 Sq{Sq} Skv{Skv} H{H} KV{KV} dh32 w{window}",
+                      *qkv(2, Sq, Skv, H, KV, 32, torch.float32), window=window,
+                      timing=(20, 50), blocks=(16, 32))
+    S = ATTN_S
+    cases = [(name, get_config(name)) for name in ("tinyllama-1.1b", "qwen2.5-14b", "gemma-7b")]
+    for name, cfg in cases:
+        H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        attention_row(results, f"bf16 {name} B1 S{S} H{H} KV{KV} dh{dh}",
+                      *qkv(1, S, S, H, KV, dh, torch.bfloat16))
+    tiny = cases[0][1]
+    H, KV, dh = tiny.n_heads, tiny.n_kv_heads, tiny.head_dim_
+    attention_row(results, f"bf16 tinyllama-1.1b chunked B1 Sq512 Skv{S}",
+                  *qkv(1, 512, S, H, KV, dh, torch.bfloat16))
+    attention_row(results, f"bf16 tinyllama-1.1b B1 S{S} window 1024",
+                  *qkv(1, S, S, H, KV, dh, torch.bfloat16), window=1024)
+    return results
+
+
+def greedy_decode(cfg, params, prompt, max_new, batch, dev):
+    """Sequential greedy decode of one request over ``decode_step`` (the
+    loop of tests/test_serving.py::reference_decode), the request in row 0
+    of a ``batch``-row step whose other rows feed token 0."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cache = tfm.init_cache(cfg, batch, 256, device=dev)
+    out = []
+    for t in range(len(prompt) + max_new - 1):
+        feed = torch.zeros(batch, dtype=torch.long, device=dev)
+        feed[0] = prompt[t] if t < len(prompt) else out[-1]
+        logits, cache = tfm.decode_step(params, cfg, cache, feed, t)
+        if t >= len(prompt) - 1:
+            out.append(int(torch.argmax(logits[0])))
+    return out[:max_new]
+
+
+def serve_phase(dev, results):
+    """Phase 8: TinyLlama-1.1B at full width through the serving path; adds
+    the kernel's row on the model's own q/k/v at the front of ``results``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.steps import make_prefill_step
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.utils.tree import tree_flatten, tree_map
+
+    cfg = get_config("tinyllama-1.1b")
+    V, S = cfg.vocab_size, ATTN_S
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    log(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, {cfg.dtype}): {n_params:,} parameters on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        return out
+
+    # (a) the serving prefill, B = 2, S = 4096 (auto -> blockwise attention)
+    tokens = torch.randint(0, V, (2, S), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    prefill = make_prefill_step(cfg, device=dev)
+    logits = counted("serve.prefill", lambda: prefill(params, {"tokens": tokens}))
+    if tuple(logits.shape) != (2, 1, V) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"serve prefill B2 S{S}: logits [2, 1, {V}] finite; host ms per prefill "
+        f"{', '.join(f'{t:.1f}' for t in times)} (median {statistics.median(times):.1f}); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    profile_steps(lambda: prefill(params, {"tokens": tokens}), f"serve.prefill B2 S{S}",
+                  statistics.median(times) * 1e3, 1, "prefill")
+
+    # (b) the kernel on layer 0's own q/k/v
+    lp = tree_map(lambda t: t[0], params["blocks"])["0"]
+    x = tfm.embed_tokens(params, cfg, tokens)
+    q, k, v = attn._project_qkv(lp["mixer"], rmsnorm(lp["norm1"], x, cfg.norm_eps), cfg,
+                                torch.arange(S, device=dev)[None, :])
+    got = counted("serve.layer0_attention", lambda: flash_attention(q, k, v))
+    want = {name: int(name == "flash_attention") for name in LAUNCHES}
+    if launches["serve.layer0_attention"] != want:
+        raise AssertionError(f"layer 0 attention: launches "
+                             f"{launches['serve.layer0_attention']}, expected {want}")
+    scale = cfg.head_dim_ ** -0.5
+    exact = attention_fp64(q, k, v)
+    others = {"plain": ref.attention(q, k, v),
+              "blockwise": attn._attn_blockwise(q, k, v, scale, True, 0, cfg.attn_block_q,
+                                                cfg.attn_block_kv),
+              "xla": attn._attn_xla(q, k, v, scale, True, 0)}
+    errs = {name: float((t.double() - exact).abs().max())
+            for name, t in [("kernel", got)] + list(others.items())}
+    diffs = {name: float((got.float() - t.float()).abs().max()) for name, t in others.items()}
+    log(f"check flash_attention on layer 0's q/k/v {tuple(q.shape)} {q.dtype}: max |error| "
+        f"against fp64 attention: " + ", ".join(f"{n} {e:.4g}" for n, e in errs.items())
+        + "; max |kernel - other|: " + ", ".join(f"{n} {d:.4g}" for n, d in diffs.items()))
+    # the model's impls round the logits (xla the probabilities too) to bf16
+    # before the softmax, so they stand further from the exact value than
+    # the kernel and the plain version, which keep them in fp32: 2^-5
+    for name in ("blockwise", "xla"):
+        torch.testing.assert_close(got, others[name], rtol=2**-5, atol=2**-5)
+    del exact, others
+    torch.cuda.empty_cache()
+    rows = {"flash_attention": []}
+    attention_row(rows, f"serve layer 0 q/k/v bf16 B2 S{S} H{cfg.n_heads} KV{cfg.n_kv_heads} "
+                  f"dh{cfg.head_dim_}", q, k, v,
+                  timing=(3, 1))
+    results["flash_attention"].insert(0, rows["flash_attention"][0])
+    del q, k, v, x, got
+    torch.cuda.empty_cache()
+
+    # (c) continuous batching: 4 slots, 6 requests
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.randint(16, 97, (6,), generator=rng).tolist()
+    prompts = [torch.randint(0, V, (n,), generator=rng).tolist() for n in lens]
+    eng = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=16))
+    t0 = time.perf_counter()
+    done = counted("serve.engine", eng.run_until_drained)
+    wall = time.perf_counter() - t0
+    if sorted(done) != list(range(6)) or any(len(r.output) != 16 for r in done.values()):
+        raise AssertionError(f"engine: finished {sorted(done)}, outputs "
+                             f"{[len(r.output or []) for r in done.values()]}")
+    stats = eng.stats()
+    log(f"serve engine: 6 requests (prompts {lens}) x 16 new tokens in {eng.steps_total} steps, "
+        f"{wall:.2f} s; decode ms per step mean {stats['serve_decode_step_s'] * 1e3:.2f}, "
+        f"median {eng.step_timer.summary()['p50_s'] * 1e3:.2f}; "
+        f"{eng.tokens_total / wall:.1f} tokens/s "
+        f"over the run ({stats.get('serve_tokens_per_s', float('nan')):.1f} over the "
+        f"timer's window)")
+    # bf16 GEMMs of another batch size may sum in another order, and greedy
+    # argmax follows any last-bit change of near-tied logits: the loop runs
+    # the request in a batch of the engine's width, where row 0's arithmetic
+    # is the engine's own; the one-row loop's agreement is printed
+    seq = greedy_decode(cfg, params, prompts[0], 16, eng.B, dev)
+    if done[0].output != seq:
+        raise AssertionError(f"engine request 0 {done[0].output} != sequential greedy {seq}")
+    one_row = greedy_decode(cfg, params, prompts[0], 16, 1, dev)
+    log(f"check engine request 0 == sequential greedy decode over decode_step (16 tokens); "
+        f"the one-row loop agrees on {sum(a == b for a, b in zip(one_row, seq))} of 16")
+
+    # decode steps with all 4 slots in one cohort, unprofiled then profiled
+    busy = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
+    for uid in range(4):
+        busy.submit(Request(uid=uid, prompt=prompts[uid][:8], max_new_tokens=200))
+    for _ in range(5):
+        busy.step()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        busy.step()
+    step_us = (time.perf_counter() - t0) / 20 * 1e6
+    log(f"serve decode, 4 slots busy: {step_us / 1e3:.2f} ms per step, "
+        f"{4e6 / step_us:.1f} tokens/s")
+    profile_steps(busy.step, "serve.decode 4 slots", step_us, 20)
+    del busy
+
+    # (d) prefill against decode in fp32 at full width
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    prompt = torch.randint(0, V, (1, 32), device=dev, generator=torch.Generator(dev).manual_seed(4))
+    last = make_prefill_step(cfg32, device=dev)(params32, {"tokens": prompt})[:, 0]
+    cache = tfm.init_cache(cfg32, 1, 32, device=dev)
+    for t in range(32):
+        step, cache = tfm.decode_step(params32, cfg32, cache, prompt[:, t], t)
+    err = float((step - last).abs().max())
+    torch.testing.assert_close(step, last, rtol=2e-3, atol=2e-3)
+    log(f"check fp32 prefill vs decode (32 tokens, full width): last-position logits agree, "
+        f"max |diff| {err:.3g} (bar: rtol and atol 2e-3)")
+    del params32, cache
+    torch.cuda.empty_cache()
+    for label in ("serve.prefill", "serve.engine"):
+        if any(launches[label].values()):
+            raise AssertionError(f"{label} launched {launches[label]}; the serving path's "
+                                 "own modules call no kernel")
+    return launches
+
+
+def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20) -> None:
+    """Profile ``rounds`` rounds of ``sim`` after 5 warm-up rounds."""
+    import torch
 
     from repro_torch.models.mlp import init_mlp
 
@@ -572,27 +874,44 @@ def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20) -
     state = sim.init_state(init_mlp(torch.Generator().manual_seed(1), device=dev))
     for _ in range(5):
         state, _ = sim.step(state, wx, wy, sim.draw(gen, wx.shape[1]))
+
+    def one_round():
+        nonlocal state
+        state, _ = sim.step(state, wx, wy, sim.draw(gen, wx.shape[1]))
+
+    profile_steps(one_round, label, round_us, rounds, "round")
+
+
+def profile_steps(step, label, step_us: float, steps: int, unit: str = "step") -> None:
+    """Device busy time per step and its largest kernels, from the
+    profiler's CUDA kernel records; the busy share is taken against
+    ``step_us``, the step time measured without the profiler (which slows
+    the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(rounds):
-            state, _ = sim.step(state, wx, wy, sim.draw(gen, wx.shape[1]))
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"profile {label}: {rounds} rounds, device busy {busy_us / rounds:.1f} us/round "
-        f"= {100 * busy_us / rounds / round_us:.2f} % of the unprofiled round "
-        f"({round_us:.0f} us; {wall_us / rounds:.0f} us under the profiler), "
-        f"{sum(e.count for e in kernels) / rounds:.0f} kernels/round; largest: " + "; ".join(
-            f"{e.key[:48]} x{e.count / rounds:g} {e.self_device_time_total / rounds:.1f} us"
+    log(f"profile {label}: {steps} {unit}s, device busy {busy_us / steps:.1f} us/{unit} "
+        f"= {100 * busy_us / steps / step_us:.2f} % of the unprofiled {unit} "
+        f"({step_us:.0f} us; {wall_us / steps:.0f} us under the profiler), "
+        f"{sum(e.count for e in kernels) / steps:.0f} kernels/{unit}; largest: " + "; ".join(
+            f"{e.key[:48]} x{e.count / steps:g} {e.self_device_time_total / steps:.1f} us"
             for e in top))
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:8]
-    log(f"profile {label} host self time per round (under the profiler): " + "; ".join(
-        f"{e.key[:40]} x{e.count / rounds:g} {e.self_cpu_time_total / rounds:.0f} us"
+    log(f"profile {label} host self time per {unit} (under the profiler): " + "; ".join(
+        f"{e.key[:40]} x{e.count / steps:g} {e.self_cpu_time_total / steps:.0f} us"
         for e in host))
 
 
@@ -617,18 +936,21 @@ def main() -> int:
     launches = slice_phase(dev)
     launches.update(ops_phase(dev))
     launches.update(sync_phase())
+    results.update(attention_phase(dev))
+    launches.update(serve_phase(dev, results))
 
     src = {"bucket_mix": "bucket_mix.cu", "pairwise_gram": "pairwise_gram.cu",
            "cwise_median": "selection.cu", "cwise_trimmed_mean": "selection.cu",
            "residual_norms": "residual_norms.cu", "cclip_fused_iter": "cclip.cu",
-           "cclip_combine": "cclip.cu"}
+           "cclip_combine": "cclip.cu", "flash_attention": "flash_attention.cu"}
     tpu = {"bucket_mix": "src/repro/kernels/bucket_mix.py:28",
            "pairwise_gram": "src/repro/kernels/pairwise_gram.py:47",
            "cwise_median": "src/repro/kernels/cwise_median.py:47",
            "cwise_trimmed_mean": "src/repro/kernels/trimmed_mean.py:43",
            "residual_norms": "src/repro/kernels/weiszfeld_norms.py:68",
            "cclip_fused_iter": "src/repro/kernels/cclip_fused.py:50",
-           "cclip_combine": "src/repro/kernels/cclip_combine.py:33"}
+           "cclip_combine": "src/repro/kernels/cclip_combine.py:33",
+           "flash_attention": "src/repro/kernels/flash_attention.py:74"}
     kernels = []
     for name, rows in results.items():
         main_row = rows[0]  # the main path's shape comes first

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the robust-aggregation hot spots.
+"""Hand-written Hopper kernels: the robust-aggregation hot spots and the
+causal GQA attention of the LLM stack.
 
 Each kernel module holds a wrapper that launches a CUDA C++ kernel from
 ``csrc/`` on a CUDA tensor, and uses the plain PyTorch version in ``ref.py``
@@ -22,6 +23,7 @@ LAUNCHES: Dict[str, int] = {
     "residual_norms": 0,
     "cclip_fused_iter": 0,
     "cclip_combine": 0,
+    "flash_attention": 0,
 }
 
 

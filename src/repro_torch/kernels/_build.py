@@ -108,14 +108,15 @@ def load(name: str, text: str, functions: Dict[str, tuple]) -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(kernel: str, **tensors) -> None:
-    """Raise unless every tensor is a contiguous fp32 tensor on the current
-    CUDA device (the kernels launch there)."""
+def check_inputs(kernel: str, dtypes=(torch.float32,), **tensors) -> None:
+    """Raise unless every tensor is a contiguous tensor of one of ``dtypes``
+    (float32 by default) on the current CUDA device (the kernels launch there)."""
     for name, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: {name} is on {t.device}, not a CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {name} is {t.dtype}; the kernel takes float32")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}; the kernel takes "
+                            + " or ".join(str(d).replace("torch.", "") for d in dtypes))
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
         if t.device.index not in (None, torch.cuda.current_device()):

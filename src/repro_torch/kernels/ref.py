@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the ported kernels, and the vector-space
-oracles of the composed aggregators (``rfa_aggregate``, ``cclip_aggregate``).
+"""Plain PyTorch versions of the ported kernels (``attention`` is
+``flash_attention``'s), and the vector-space oracles of the composed
+aggregators (``rfa_aggregate``, ``cclip_aggregate``).
 
 Each is the function its CUDA kernel computes, written with PyTorch
 operators. The wrappers use them for tensors on the CPU (the tests), and
@@ -111,3 +112,32 @@ def rfa_aggregate(xs: torch.Tensor, n_iters: int = 8, eps: float = 1e-6) -> torc
         w = 1.0 / r
         c = w / torch.sum(w)
     return c @ x32
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+              window: int = 0, q_offset: Optional[int] = None) -> torch.Tensor:
+    """Plain version of ``flash_attention``. q: [B,Sq,H,dh]; k,v: [B,Skv,KV,dh]
+    -> [B,Sq,H,dh] in q's dtype, fp32 math (fp64 for fp64 inputs, which is
+    how ``chip_smoke.py`` takes an exact yardstick). Query row i sits at position
+    ``q_offset + i`` (``None`` -> ``Skv - Sq``); head h reads kv head
+    ``h // (H // KV)``. Masked logits are -1e30, so a row with no visible
+    key gets the uniform softmax: the mean of V over all keys."""
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    off = Skv - Sq if q_offset is None else q_offset
+    ct = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * dh ** -0.5
+    qpos = off + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(ct))
+    return out.to(q.dtype)

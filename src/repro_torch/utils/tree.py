@@ -9,7 +9,7 @@ gradient and a parameter dict share one column layout with the reference
 
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Tuple
 
 _LEAF = "*"
 
@@ -45,3 +45,14 @@ def tree_unflatten(treedef: Any, leaves) -> Any:
         return built if kind == "list" else tuple(built)
 
     return build(treedef)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf to trees of one structure, as
+    ``jax.tree_util.tree_map`` does."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(t) for t in rest]
+    for _, other_def in others:
+        if other_def != treedef:
+            raise ValueError("tree_map: the trees differ in structure")
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *(o for o, _ in others))])

@@ -226,10 +226,16 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import smoke_config
     from repro_torch.data.synthetic import make_train_test
+    from repro_torch.distributed.steps import make_prefill_step
+    from repro_torch.models import transformer
     from repro_torch.models.mlp import nll_loss
+    from repro_torch.serving import ServeEngine
     from repro_torch.training.cross_device import CrossDeviceSim
 
+    cfg = smoke_config("tinyllama-1.1b")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     calls = [
         lambda: repro_torch.resolve_device(),
         lambda: init_mlp(torch.Generator().manual_seed(0)),
@@ -237,6 +243,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: mixing.Bucketing(2).matrix(4),
         lambda: CrossDeviceSim(loss_fn=nll_loss, byz=ByzConfig(), n_clients=4,
                                byz_frac=0.0, clients_per_round=2),
+        lambda: transformer.init_params(cfg, torch.Generator().manual_seed(0)),
+        lambda: transformer.init_cache(cfg, 1, 8),
+        lambda: make_prefill_step(cfg)(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)}),
+        lambda: ServeEngine(cfg, params),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -14,6 +14,7 @@ from repro_torch.kernels import LAUNCHES, ref, reset_launches
 from repro_torch.kernels import bucket_mix, cwise_median, pairwise_gram, trimmed_mean
 from repro_torch.kernels.cclip_combine import cclip_combine
 from repro_torch.kernels.cclip_fused import cclip_fused_iter
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.weiszfeld_norms import residual_norms
 
 
@@ -68,9 +69,12 @@ def test_each_launch_counts_once(cuda):
     residual_norms(x, center=v)
     cclip_fused_iter(x, v, lam)
     cclip_combine(x, v, lam)
+    q = torch.randn((1, 64, 4, 64), device=cuda)
+    flash_attention(q, q[:, :, :2].contiguous(), q[:, :, 2:].contiguous(), block_q=64,
+                    block_kv=64)
     assert LAUNCHES == {"bucket_mix": 1, "pairwise_gram": 1, "cwise_median": 1,
                         "cwise_trimmed_mean": 1, "residual_norms": 1, "cclip_fused_iter": 1,
-                        "cclip_combine": 1}
+                        "cclip_combine": 1, "flash_attention": 1}
 
 
 @pytest.mark.cuda
@@ -135,5 +139,58 @@ def test_norm_and_clip_kernels_refuse_what_they_do_not_take(cuda):
                  lambda: cclip_combine(wide, torch.zeros(64, device=cuda),
                                        torch.rand(65, device=cuda)),
                  lambda: residual_norms(x, center=v.cpu())):
+        with pytest.raises(ValueError):
+            call()
+
+
+# fp32 at the reference's 2e-4; bf16 at torch's bf16 default (rtol 1.6e-2,
+# atol 1e-5): both sides do fp32 math and round the output to bf16 once
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,dh,window,q_offset", [
+    (2, 64, 64, 4, 4, 32, 0, -1),        # the reference test's cases
+    (2, 64, 64, 8, 2, 32, 0, -1),
+    (2, 64, 64, 4, 2, 32, 24, -1),
+    (2, 32, 128, 4, 4, 32, 0, -1),
+    (1, 256, 256, 32, 4, 64, 0, -1),     # tinyllama heads
+    (1, 192, 192, 40, 8, 128, 0, -1),    # qwen2.5-14b heads, ragged against the 64-row tile
+    (1, 128, 128, 16, 16, 256, 0, -1),   # gemma-7b heads
+    (1, 64, 320, 32, 4, 64, 0, -1),      # chunked prefill
+    (1, 320, 320, 32, 4, 64, 100, -1),   # sliding window
+    (1, 48, 80, 4, 2, 48, 0, -1),        # ragged S and dh
+    (1, 64, 128, 4, 2, 32, 0, -8),       # rows before every key
+    (1, 64, 128, 4, 2, 32, 8, 200),      # rows past the window's reach
+])
+def test_flash_attention_matches_plain_on_card(cuda, dtype, B, Sq, Skv, H, KV, dh, window,
+                                               q_offset):
+    gen = torch.Generator(cuda).manual_seed(Sq + Skv + dh)
+    q = torch.randn((B, Sq, H, dh), device=cuda, generator=gen).to(dtype)
+    k = torch.randn((B, Skv, KV, dh), device=cuda, generator=gen).to(dtype)
+    v = torch.randn((B, Skv, KV, dh), device=cuda, generator=gen).to(dtype)
+    reset_launches()
+    got = flash_attention(q, k, v, window=window, block_q=16, block_kv=16, q_offset=q_offset)
+    assert LAUNCHES["flash_attention"] == 1
+    want = ref.attention(q, k, v, window=window,
+                         q_offset=None if q_offset == -1 else q_offset)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-5)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.randn((1, 128, 4, 64), device=cuda)  # S = 128: the default blocks divide it
+    k = torch.randn((1, 128, 2, 64), device=cuda)
+    for call in (lambda: flash_attention(q.half(), k.half(), k.half()),
+                 lambda: flash_attention(q.double(), k.double(), k.double()),
+                 lambda: flash_attention(q, k.bfloat16(), k)):
+        with pytest.raises(TypeError):
+            call()
+    for call in (lambda: flash_attention(q, k, k, block_q=48),
+                 lambda: flash_attention(q, k.cpu(), k),
+                 lambda: flash_attention(q.transpose(1, 2), k, k, block_q=4),
+                 lambda: flash_attention(torch.randn((1, 128, 4, 320), device=cuda),
+                                         torch.randn((1, 128, 2, 320), device=cuda),
+                                         torch.randn((1, 128, 2, 320), device=cuda))):
         with pytest.raises(ValueError):
             call()
