@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 (``/usr/local/cuda`` or ``CUDA_HOME``). Phases, each fatal on failure:
 
 1. Build every CUDA kernel of the main path from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once).
+   (one ``nvcc`` per source, all at once), and print the registers and spills
+   ``ptxas`` reports for each instance of the tensor-core attention kernel
+   (``flash_attention_wgmma.cu``); a spill fails the phase.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (cohort W = 10, m = 5 buckets, d = 106,496: the
    784-128-10 MLP packed) and at the paper's n (W = 25, m = 13) with
@@ -44,15 +46,20 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    16 / 16 / 256), a chunked prefill (Sq = 512 against Skv = 4096) and a
    window of 1024; timed and bounded as in phase 2 (bf16 operations against
    the tensor-core peak), with ``scaled_dot_product_attention`` as the
-   yardstick where ``Sq == Skv`` and there is no window.
+   yardstick (``is_causal`` where ``Sq == Skv`` and there is no window, else
+   an explicit boolean ``attn_mask``). Each row prints the kernel that ran
+   (``VARIANT_LAUNCHES``): every bf16 row must take ``wgmma``, every fp32
+   row ``simt``; each bf16 row also checks and times the CUDA-core kernel on
+   the same inputs, as the earlier design's time in the same run.
 8. Serve TinyLlama-1.1B at full width (22 layers, bf16, random weights from
    a seeded generator on the card): (a) ``make_prefill_step`` on B = 2,
    S = 4096 gives finite next-token logits [2, 1, 32000], timed and
    profiled (device busy share); (b) layer
    0's q/k/v, made by the model's own ``rmsnorm`` and ``_project_qkv`` from
    that prefill's embeddings, go through ``flash_attention`` (exactly one
-   launch, counted on its own) and are held against the plain version, the
-   model's ``_attn_blockwise`` and ``_attn_xla``, and an fp64 attention;
+   launch, of the ``wgmma`` kernel, counted on its own) and are held against
+   the plain version, the model's ``_attn_blockwise`` and ``_attn_xla`` (2^-5),
+   and an fp64 attention (the kernel's error no larger than blockwise's);
    (c) a ``ServeEngine`` with 4 slots serves 6 seeded requests (prompts of
    16-96 tokens, 16 new tokens each, greedy) to completion, and request 0's
    tokens equal a sequential greedy loop over ``decode_step`` run at the
@@ -159,6 +166,37 @@ def build_phase():
     seconds = _build.build_all(sources)
     log(f"build: {len(sources)} CUDA sources for sm_90a ready in {seconds:.1f} s "
         f"({_build.BUILD_DIR})")
+    (text,) = [t for n, t in sources if n == "flash_attention_wgmma"]
+    ptxas = ptxas_resources(_build.build_log("flash_attention_wgmma", text))
+    for inst, res in ptxas.items():
+        log(f"build flash_attention_wgmma {inst}: {res['registers']} registers, spill "
+            f"stores {res['spill_stores']} B, spill loads {res['spill_loads']} B")
+    if not ptxas or any(r["spill_stores"] or r["spill_loads"] for r in ptxas.values()):
+        raise AssertionError(f"flash_attention_wgmma: ptxas resources {ptxas} (a spill, or "
+                             "no report)")
+    return ptxas
+
+
+def ptxas_resources(text: str):
+    """Registers and spill bytes per kernel instance from ``ptxas -v``
+    output, keyed by the instance's template argument (``DH=64`` ...)."""
+    import re
+
+    out, inst = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            arg = re.search(r"ILi(\d+)E", entry.group(1))
+            inst = f"DH={arg.group(1)}" if arg else entry.group(1)
+            out[inst] = dict(registers=None, spill_stores=None, spill_loads=None)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and inst:
+            out[inst].update(spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and inst:
+            out[inst]["registers"] = int(regs.group(1))
+    return out
 
 
 def measure(results, name, label, kernel, plain, library, n_bytes, n_ops, timing, check,
@@ -614,19 +652,25 @@ def attention_row(results, label, q, k, v, window=0, q_offset=-1, timing=(5, 2),
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import VARIANT_LAUNCHES, ref
     from repro_torch.kernels.flash_attention import flash_attention
 
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     off = Skv - Sq if q_offset == -1 else q_offset
-    library = None
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if Sq == Skv and window == 0:  # SDPA's is_causal aligns top-left: only then the same
         def library():
-            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                  v.transpose(1, 2), is_causal=True,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:  # the same function through an explicit boolean mask (True: attend)
+        qpos = off + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        mask = (kpos <= qpos) & ((kpos > qpos - window) if window > 0 else True)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
     bf16 = q.dtype == torch.bfloat16
+    before = dict(VARIANT_LAUNCHES)
     # fp32 at the reference's 2e-4; bf16: both do fp32 math and round the
     # output to bf16 once, so torch's bf16 tolerance (rtol 1.6e-2, atol 1e-5)
     check = close(1.6e-2, 1e-5) if bf16 else close(2e-4, 2e-4)
@@ -637,6 +681,12 @@ def attention_row(results, label, q, k, v, window=0, q_offset=-1, timing=(5, 2),
                                     block_q=blocks[0], block_kv=blocks[1]),
             lambda: ref.attention(q, k, v, window=window, q_offset=off), library,
             n_bytes, n_ops, timing, check, PEAK_BF16_PER_S if bf16 else PEAK_FP32_PER_S)
+    ran = [kind for kind, n in VARIANT_LAUNCHES.items() if n > before[kind]]
+    want = "wgmma" if bf16 else "simt"
+    results["flash_attention"][-1]["variant"] = "+".join(ran)
+    log(f"variant flash_attention [{label}]: {'+'.join(ran)}")
+    if ran != [want]:
+        raise AssertionError(f"flash_attention [{label}]: ran {ran}, expected {want}")
     if bf16:
         exact = attention_fp64(q, k, v, window, off)
         errs = {name: float((got.double() - exact).abs().max()) for name, got in
@@ -647,7 +697,36 @@ def attention_row(results, label, q, k, v, window=0, q_offset=-1, timing=(5, 2),
         log(f"check flash_attention [{label}]: max |error| against fp64 attention: "
             f"kernel {errs['kernel']:.4g}, plain {errs['plain']:.4g}")
         del exact
+        # the CUDA-core kernel (the only one before the tensor-core redesign)
+        # on the same inputs, called past the dispatch: not a launch of the path
+        simt = simt_attention(q, k, v, window, off)
+        check(simt(), ref.attention(q, k, v, window=window, q_offset=off))
+        row = results["flash_attention"][-1]
+        row["simt_ms"] = time_ms(simt, *timing)
+        log(f"kernel flash_attention [{label}]: CUDA-core kernel on the same bf16 inputs "
+            f"{row['simt_ms']:.4f} ms, {row['simt_ms'] / row['ms']:.1f}x the wgmma kernel")
     torch.cuda.empty_cache()
+
+
+def simt_attention(q, k, v, window: int, off: int):
+    """A call of ``csrc/flash_attention.cu`` on bf16 inputs that the
+    wrapper would send to the tensor-core kernel."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+
+    def call():
+        code = fa._lib("simt").flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KV, dh,
+            1, window, off, dh ** -0.5, 1, _build.stream_of(q))
+        _build.check_launch("flash_attention (simt)", code)
+        return out
+    return call
 
 
 def attention_phase(dev):
@@ -714,7 +793,7 @@ def serve_phase(dev, results):
 
     from repro_torch.configs import get_config
     from repro_torch.distributed.steps import make_prefill_step
-    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, ref, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
@@ -767,9 +846,10 @@ def serve_phase(dev, results):
                                 torch.arange(S, device=dev)[None, :])
     got = counted("serve.layer0_attention", lambda: flash_attention(q, k, v))
     want = {name: int(name == "flash_attention") for name in LAUNCHES}
-    if launches["serve.layer0_attention"] != want:
+    if launches["serve.layer0_attention"] != want or VARIANT_LAUNCHES != {"wgmma": 1, "simt": 0}:
         raise AssertionError(f"layer 0 attention: launches "
-                             f"{launches['serve.layer0_attention']}, expected {want}")
+                             f"{launches['serve.layer0_attention']}, expected {want}; "
+                             f"variants {VARIANT_LAUNCHES}, expected one wgmma")
     scale = cfg.head_dim_ ** -0.5
     exact = attention_fp64(q, k, v)
     others = {"plain": ref.attention(q, k, v),
@@ -787,6 +867,9 @@ def serve_phase(dev, results):
     # the kernel and the plain version, which keep them in fp32: 2^-5
     for name in ("blockwise", "xla"):
         torch.testing.assert_close(got, others[name], rtol=2**-5, atol=2**-5)
+    if errs["kernel"] > errs["blockwise"]:
+        raise AssertionError(f"layer 0 attention: kernel error {errs['kernel']} above "
+                             f"blockwise's {errs['blockwise']}")
     del exact, others
     torch.cuda.empty_cache()
     rows = {"flash_attention": []}
@@ -930,7 +1013,7 @@ def main() -> int:
                          timeout=60, check=True).stdout.strip()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    build_phase()
+    ptxas = build_phase()
     results = kernel_phase(dev)
     results.update(norm_kernel_phase(dev))
     launches = slice_phase(dev)
@@ -942,7 +1025,12 @@ def main() -> int:
     src = {"bucket_mix": "bucket_mix.cu", "pairwise_gram": "pairwise_gram.cu",
            "cwise_median": "selection.cu", "cwise_trimmed_mean": "selection.cu",
            "residual_norms": "residual_norms.cu", "cclip_fused_iter": "cclip.cu",
-           "cclip_combine": "cclip.cu", "flash_attention": "flash_attention.cu"}
+           "cclip_combine": "cclip.cu", "flash_attention": "flash_attention_wgmma.cu"}
+    # flash_attention: the tensor-core kernel (bf16, the main path's rows) and
+    # the CUDA-core one (fp32 and the bf16 inputs TMA refuses)
+    other = {"flash_attention": {"sources": [
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"], "ptxas": ptxas}}
     tpu = {"bucket_mix": "src/repro/kernels/bucket_mix.py:28",
            "pairwise_gram": "src/repro/kernels/pairwise_gram.py:47",
            "cwise_median": "src/repro/kernels/cwise_median.py:47",
@@ -963,7 +1051,8 @@ def main() -> int:
             max_abs_err=main_row["max_abs_err"],
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows))
+            library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
+            **other.get(name, {})))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,9 @@ only for a tensor on the CPU. Sources are built at first use
 
 ``LAUNCHES`` counts, per kernel, the launches of its CUDA kernel: each
 wrapper adds one where it launches and nowhere else, so a run can show
-that it went through the kernels.
+that it went through the kernels. ``VARIANT_LAUNCHES`` splits the
+``flash_attention`` count by the CUDA kernel that ran: ``wgmma`` (the
+tensor-core kernel for bf16) or ``simt`` (the CUDA-core kernel).
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ LAUNCHES: Dict[str, int] = {
     "cclip_combine": 0,
     "flash_attention": 0,
 }
+VARIANT_LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0

@@ -7,7 +7,9 @@ C interface and loaded with ``ctypes``. Libraries are cached under
 ``kernels/_build/`` (listed in ``.gitignore``), named by a hash of the
 source text and the flags, so an edited source is rebuilt and an unchanged
 one is not. ``build_all`` starts one ``nvcc`` per missing library, all at
-once, and waits for every one of them.
+once, and waits for every one of them. ``ptxas`` reports each kernel's
+registers, shared memory and spills (``-Xptxas -v``); the compiler's output
+is kept beside the library (``build_log``).
 
 The wrappers validate their inputs with ``check_inputs`` / ``check_rows``
 before passing raw pointers, launch on PyTorch's current stream
@@ -34,7 +36,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[Path, ctypes.CDLL] = {}
 
@@ -84,6 +86,7 @@ def build_all(sources: Iterable[Tuple[str, str]]) -> float:
     for lib, tmp, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode == 0:
+            lib.with_suffix(".log").write_text(out)
             os.replace(tmp, lib)  # atomic: a reader never sees half a library
         else:
             tmp.unlink(missing_ok=True)
@@ -91,6 +94,13 @@ def build_all(sources: Iterable[Tuple[str, str]]) -> float:
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return time.perf_counter() - t0
+
+
+def build_log(name: str, text: str) -> str:
+    """The compiler's output (``ptxas`` resource lines included) from the
+    build of ``text``; empty if the library was built elsewhere."""
+    log = library_path(name, text).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str, text: str, functions: Dict[str, tuple]) -> ctypes.CDLL:

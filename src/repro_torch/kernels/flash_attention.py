@@ -1,41 +1,59 @@
-"""Causal GQA flash attention: CUDA kernel ``csrc/flash_attention.cu``.
+"""Causal GQA flash attention: CUDA kernels ``csrc/flash_attention_wgmma.cu``
+(bf16 on the tensor cores) and ``csrc/flash_attention.cu`` (fp32, and the
+bf16 inputs the first does not take).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention`` and keeps its
 entry point: the same signature (without ``interpret``), the same mask
 semantics, the same refusal of lengths that the caller's blocks do not
 divide. As in the reference, no model path calls it; ``chip_smoke.py``
 holds it on the card at the attention shapes of the ported LLM configs and
-on the serving model's own q/k/v.
+on the serving model's own q/k/v. ``variant`` picks the kernel from dtype,
+head dim and alignment before the launch; ``VARIANT_LAUNCHES`` counts each.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Iterable
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, ref
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, _build, ref
 
-_ARGS = {"flash_attention_launch": (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, out
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B Sq Skv H KV
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dh causal window q_offset
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)}  # scale, bf16, stream
+_COMMON = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v out
+           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B Sq Skv H KV
+           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dh causal window q_offset
+           ctypes.c_float)  # scale (simt) or scale * log2(e) (wgmma)
+_ARGS = {"simt": {"flash_attention_launch": _COMMON + (ctypes.c_int, ctypes.c_void_p)},  # bf16
+         "wgmma": {"flash_attention_wgmma_launch": _COMMON + (ctypes.c_void_p,)}}
+_NAMES = {"simt": "flash_attention", "wgmma": "flash_attention_wgmma"}  # csrc/<name>.cu
 
 #: largest head dim the kernel's templates cover
 MAX_HEAD_DIM = 256
-_GRID_LIMIT = 65535  # gridDim.y (heads) and gridDim.z (batch)
+_GRID_LIMIT = 65535  # gridDim.y and gridDim.z: heads and batch (simt), batch (wgmma)
 
 
 def sources():
-    return [("flash_attention", _build.read_source("flash_attention.cu"))]
+    return [(name, _build.read_source(name + ".cu")) for name in _NAMES.values()]
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    (name, text), = sources()
-    return _build.load(name, text, _ARGS)
+def _lib(kind: str):
+    name = _NAMES[kind]
+    return _build.load(name, _build.read_source(name + ".cu"), _ARGS[kind])
+
+
+def variant(dtype: torch.dtype, dh: int, data_ptrs: Iterable[int]) -> str:
+    """The CUDA kernel a call takes: ``"wgmma"`` (tensor cores, TMA) for bf16
+    with ``dh % 8 == 0`` and every pointer 16-byte aligned (TMA's rule for
+    the base address and the row strides), else ``"simt"`` (fp32 math on the
+    CUDA cores: fp32 inputs keep the reference's precision, which neither
+    TF32 nor bf16 products would hold)."""
+    if dtype != torch.bfloat16 or dh % 8:
+        return "simt"
+    return "wgmma" if all(p % 16 == 0 for p in data_ptrs) else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -45,9 +63,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     q's dtype. Head h reads kv head ``h // (H // KV)``; query row i sits at
     position ``q_offset + i`` (-1 -> ``Skv - Sq``). ``Sq`` must be divisible
     by ``block_q`` and ``Skv`` by ``block_kv``, as the reference requires;
-    the CUDA tiles are the kernel's own. CPU tensors take the plain version
-    (``ref.attention``); CUDA tensors launch the kernel (fp32 or bf16,
-    contiguous, dh <= 256)."""
+    the CUDA tiles are the kernels' own. CPU tensors take the plain version
+    (``ref.attention``); CUDA tensors launch the kernel that ``variant``
+    names (fp32 or bf16, contiguous, dh <= 256)."""
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if Sq % block_q or Skv % block_kv:
@@ -70,10 +88,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    code = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KV, dh,
-        int(causal), window, off, dh ** -0.5, int(q.dtype == torch.bfloat16),
-        _build.stream_of(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    args = (*ptrs, B, Sq, Skv, H, KV, dh, int(causal), window, off)
+    kind = variant(q.dtype, dh, ptrs)
+    if kind == "wgmma":
+        code = _lib(kind).flash_attention_wgmma_launch(*args, dh ** -0.5 * math.log2(math.e),
+                                                       _build.stream_of(q))
+    else:
+        code = _lib(kind).flash_attention_launch(*args, dh ** -0.5,
+                                                 int(q.dtype == torch.bfloat16),
+                                                 _build.stream_of(q))
     _build.check_launch("flash_attention", code)
     LAUNCHES["flash_attention"] += 1
+    VARIANT_LAUNCHES[kind] += 1
     return out

@@ -10,7 +10,7 @@ Every test is marked ``cuda`` and skips where CUDA is unavailable.
 import pytest
 import torch
 
-from repro_torch.kernels import LAUNCHES, ref, reset_launches
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, ref, reset_launches
 from repro_torch.kernels import bucket_mix, cwise_median, pairwise_gram, trimmed_mean
 from repro_torch.kernels.cclip_combine import cclip_combine
 from repro_torch.kernels.cclip_fused import cclip_fused_iter
@@ -160,6 +160,19 @@ def test_norm_and_clip_kernels_refuse_what_they_do_not_take(cuda):
     (1, 48, 80, 4, 2, 48, 0, -1),        # ragged S and dh
     (1, 64, 128, 4, 2, 32, 0, -8),       # rows before every key
     (1, 64, 128, 4, 2, 32, 8, 200),      # rows past the window's reach
+    # edges of the bf16 tensor-core kernel (128-key tiles, 64 at dh 256)
+    (1, 1024, 1024, 8, 2, 64, 0, -1),    # several turns of the K/V ring
+    (1, 512, 512, 4, 2, 128, 0, -1),
+    (1, 512, 512, 4, 4, 256, 0, -1),
+    (1, 64, 208, 4, 2, 64, 0, 300),      # Skv not a multiple of the tile: keys past
+    (1, 64, 208, 4, 2, 128, 0, 300),     # Skv must be masked, not given p = e^0
+    (1, 64, 208, 4, 4, 256, 0, 300),
+    (1, 128, 208, 8, 2, 48, 0, 300),     # dh 48 and 32: zero fill in dh
+    (1, 256, 256, 8, 2, 32, 0, -1),
+    (1, 512, 512, 8, 2, 128, 200, -1),   # window edges inside tiles
+    (1, 256, 256, 4, 4, 256, 72, -1),
+    (2, 256, 256, 16, 2, 64, 0, -1),     # B = 2, 8 query heads per kv head
+    (2, 128, 384, 16, 2, 128, 0, -1),
 ])
 def test_flash_attention_matches_plain_on_card(cuda, dtype, B, Sq, Skv, H, KV, dh, window,
                                                q_offset):
@@ -170,11 +183,50 @@ def test_flash_attention_matches_plain_on_card(cuda, dtype, B, Sq, Skv, H, KV, d
     reset_launches()
     got = flash_attention(q, k, v, window=window, block_q=16, block_kv=16, q_offset=q_offset)
     assert LAUNCHES["flash_attention"] == 1
+    kind = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert VARIANT_LAUNCHES == {"wgmma": int(kind == "wgmma"), "simt": int(kind == "simt")}
     want = ref.attention(q, k, v, window=window,
                          q_offset=None if q_offset == -1 else q_offset)
     assert got.dtype == dtype and got.shape == q.shape
     tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-5)
     torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,window", [(64, 0), (128, 40), (256, 0)])
+def test_flash_attention_non_causal_matches_plain_on_card(cuda, dtype, dh, window):
+    """causal=False: every key up to Skv = 208 is visible (and, with a window,
+    the keys after a row too), so the zeros past Skv in the last tile are
+    masked by Skv alone."""
+    gen = torch.Generator(cuda).manual_seed(dh + window)
+    q = torch.randn((1, 192, 8, dh), device=cuda, generator=gen).to(dtype)
+    k = torch.randn((1, 208, 2, dh), device=cuda, generator=gen).to(dtype)
+    v = torch.randn((1, 208, 2, dh), device=cuda, generator=gen).to(dtype)
+    reset_launches()
+    got = flash_attention(q, k, v, causal=False, window=window, block_q=16, block_kv=16)
+    kind = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert VARIANT_LAUNCHES == {"wgmma": int(kind == "wgmma"), "simt": int(kind == "simt")}
+    want = ref.attention(q, k, v, causal=False, window=window)
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-5)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_misaligned_bf16_takes_simt(cuda):
+    """A bf16 view 2 bytes past a 16-byte boundary is refused by TMA: it takes
+    the CUDA-core kernel, at the bf16 tolerance."""
+    gen = torch.Generator(cuda).manual_seed(11)
+    n = 1 * 128 * 4 * 64
+    buf = torch.randn(n + 1, device=cuda, generator=gen).to(torch.bfloat16)
+    q = buf[1:].view(1, 128, 4, 64)
+    k = torch.randn((1, 128, 2, 64), device=cuda, generator=gen).to(torch.bfloat16)
+    v = torch.randn((1, 128, 2, 64), device=cuda, generator=gen).to(torch.bfloat16)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    reset_launches()
+    got = flash_attention(q, k, v, block_q=16, block_kv=16)
+    assert LAUNCHES["flash_attention"] == 1 and VARIANT_LAUNCHES == {"wgmma": 0, "simt": 1}
+    torch.testing.assert_close(got, ref.attention(q, k, v), rtol=1.6e-2, atol=1e-5)
 
 
 @pytest.mark.cuda
