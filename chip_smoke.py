@@ -9,12 +9,19 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 1. Build every CUDA kernel of the main path from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), and print the registers and spills
    ``ptxas`` reports for each instance of the tensor-core attention kernel
-   (``flash_attention_wgmma.cu``); a spill fails the phase.
+   (``flash_attention_wgmma.cu``) and of the Gram kernel
+   (``pairwise_gram.cu``); a spill fails the phase.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (cohort W = 10, m = 5 buckets, d = 106,496: the
    784-128-10 MLP packed) and at the paper's n (W = 25, m = 13) with
    d = 16,777,216; time kernel, plain version and a one-call PyTorch
    yardstick, and compute each call's bound from bytes and operations.
+   The Gram is also timed at a rank's slice of the 4-rank sync
+   (X[10, 26,624]); it must be bitwise repeatable, symmetric and equal to
+   its chain over 2048-aligned cuts, and it must stage X by TMA at these
+   shapes (``VARIANT_LAUNCHES``), and by predicated loads at an unaligned
+   X[10, 100,003], whose Gram equals bit for bit the TMA call on the same
+   columns padded to 2048.
 3. Drive the main path: ``CrossDeviceSim`` trains the MLP for 120 rounds
    under four rule/attack pairs. For each pair the kernel launch counts are
    set to 0 just before its run and read just after: each kernel of its
@@ -166,18 +173,20 @@ def build_phase():
     seconds = _build.build_all(sources)
     log(f"build: {len(sources)} CUDA sources for sm_90a ready in {seconds:.1f} s "
         f"({_build.BUILD_DIR})")
-    (text,) = [t for n, t in sources if n == "flash_attention_wgmma"]
-    ptxas = ptxas_resources(_build.build_log("flash_attention_wgmma", text))
-    for inst, res in ptxas.items():
-        log(f"build flash_attention_wgmma {inst}: {res['registers']} registers, spill "
-            f"stores {res['spill_stores']} B, spill loads {res['spill_loads']} B")
-    if not ptxas or any(r["spill_stores"] or r["spill_loads"] for r in ptxas.values()):
-        raise AssertionError(f"flash_attention_wgmma: ptxas resources {ptxas} (a spill, or "
-                             "no report)")
+    ptxas = {}
+    # the kernels built from a template: each instance's registers and spills
+    for name, param in (("flash_attention_wgmma", "DH"), ("pairwise_gram", "L")):
+        (text,) = [t for n, t in sources if n == name]
+        ptxas[name] = res = ptxas_resources(_build.build_log(name, text), param)
+        for inst, r in res.items():
+            log(f"build {name} {inst}: {r['registers']} registers, spill "
+                f"stores {r['spill_stores']} B, spill loads {r['spill_loads']} B")
+        if not res or any(r["spill_stores"] or r["spill_loads"] for r in res.values()):
+            raise AssertionError(f"{name}: ptxas resources {res} (a spill, or no report)")
     return ptxas
 
 
-def ptxas_resources(text: str):
+def ptxas_resources(text: str, param: str = "DH"):
     """Registers and spill bytes per kernel instance from ``ptxas -v``
     output, keyed by the instance's template argument (``DH=64`` ...)."""
     import re
@@ -187,7 +196,7 @@ def ptxas_resources(text: str):
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             arg = re.search(r"ILi(\d+)E", entry.group(1))
-            inst = f"DH={arg.group(1)}" if arg else entry.group(1)
+            inst = f"{param}={arg.group(1)}" if arg else entry.group(1)
             out[inst] = dict(registers=None, spill_stores=None, spill_loads=None)
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -309,7 +318,10 @@ def kernel_phase(dev):
             f"kernel {errs['kernel']:.4g}, plain fp32 {errs['plain']:.4g}")
         del exact
 
-        g1, g2 = pairwise_gram(x), pairwise_gram(x)
+        g1, kind = gram_variant(lambda: pairwise_gram(x))
+        if kind != "gram_tma":
+            raise AssertionError(f"pairwise_gram X[{W},{d}] ran {kind}, not gram_tma")
+        g2 = pairwise_gram(x)
         if not (torch.equal(g1, g2) and torch.equal(g1, g1.T)):
             raise AssertionError("pairwise_gram is not bitwise repeatable and symmetric")
         cuts = [0, TILE_D, 2 * TILE_D, d - TILE_D, d] if d == MAIN_D else \
@@ -319,7 +331,7 @@ def kernel_phase(dev):
             acc = pairwise_gram(x[:, lo:hi].contiguous(), acc)
         if not torch.equal(acc, g1):
             raise AssertionError("pairwise_gram acc chain differs from one call")
-        log(f"check pairwise_gram X[{W},{d}]: bitwise repeatable, symmetric, "
+        log(f"check pairwise_gram X[{W},{d}]: {kind}, bitwise repeatable, symmetric, "
             f"{len(cuts) - 1}-call acc chain == one call")
 
         mixed = bucket_mix(mix, x)
@@ -347,7 +359,44 @@ def kernel_phase(dev):
             log("check cwise_median: a NaN column comes out NaN, the rest bitwise")
         del x, mixed
         torch.cuda.empty_cache()
+
+    # the Gram at a rank's slice of the 4-rank sync (krum, acclip)
+    x = torch.randn((10, RANK_D), device=dev, generator=torch.Generator(dev).manual_seed(4))
+    record("pairwise_gram", f"X[10,{RANK_D}]", lambda: pairwise_gram(x),
+           lambda: ref.pairwise_gram(x), lambda: torch.matmul(x, x.T),
+           (10 * RANK_D + 100) * 4, 110 * RANK_D, (20, 50), gram_close(x))
+    g1, kind = gram_variant(lambda: pairwise_gram(x))
+    if kind != "gram_tma" or not (torch.equal(g1, pairwise_gram(x)) and torch.equal(g1, g1.T)):
+        raise AssertionError(f"pairwise_gram X[10,{RANK_D}]: {kind}, or not bitwise "
+                             "repeatable and symmetric")
+    log(f"check pairwise_gram X[10,{RANK_D}]: {kind}, bitwise repeatable, symmetric")
+    # an unaligned X (the per-leaf chain's leaves) takes the predicated loads
+    # and gives the bits of the same values padded to TILE_D, which take TMA
+    d_odd = 100_003
+    x = torch.randn((10, d_odd), device=dev, generator=torch.Generator(dev).manual_seed(5))
+    g_odd, kind = gram_variant(lambda: pairwise_gram(x))
+    gram_close(x)(g_odd, ref.pairwise_gram(x))
+    padded = torch.nn.functional.pad(x, (0, -d_odd % TILE_D)).contiguous()
+    g_pad, kind_pad = gram_variant(lambda: pairwise_gram(padded))
+    if (kind, kind_pad) != ("gram_ldg", "gram_tma") or not torch.equal(g_odd, g_pad):
+        raise AssertionError(f"pairwise_gram X[10,{d_odd}] ran {kind} (padded: {kind_pad}); "
+                             "expected gram_ldg and gram_tma with the same bits")
+    log(f"check pairwise_gram X[10,{d_odd}]: gram_ldg, within tolerance, bitwise equal to "
+        "the TMA call on the same columns padded to 2048")
+    del x, padded
     return results
+
+
+def gram_variant(call):
+    """``call()``'s result and the one ``pairwise_gram`` variant it ran."""
+    from repro_torch.kernels import VARIANT_LAUNCHES
+
+    before = dict(VARIANT_LAUNCHES)
+    out = call()
+    ran = [k for k in ("gram_tma", "gram_ldg") if VARIANT_LAUNCHES[k] > before[k]]
+    if len(ran) != 1:
+        raise AssertionError(f"pairwise_gram ran the variants {ran}")
+    return out, ran[0]
 
 
 def slice_phase(dev):
@@ -846,7 +895,8 @@ def serve_phase(dev, results):
                                 torch.arange(S, device=dev)[None, :])
     got = counted("serve.layer0_attention", lambda: flash_attention(q, k, v))
     want = {name: int(name == "flash_attention") for name in LAUNCHES}
-    if launches["serve.layer0_attention"] != want or VARIANT_LAUNCHES != {"wgmma": 1, "simt": 0}:
+    attn_variants = {k: VARIANT_LAUNCHES[k] for k in ("wgmma", "simt")}
+    if launches["serve.layer0_attention"] != want or attn_variants != {"wgmma": 1, "simt": 0}:
         raise AssertionError(f"layer 0 attention: launches "
                              f"{launches['serve.layer0_attention']}, expected {want}; "
                              f"variants {VARIANT_LAUNCHES}, expected one wgmma")
@@ -1030,7 +1080,14 @@ def main() -> int:
     # the CUDA-core one (fp32 and the bf16 inputs TMA refuses)
     other = {"flash_attention": {"sources": [
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
-        "src/repro_torch/kernels/csrc/flash_attention.cu"], "ptxas": ptxas}}
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro_torch/kernels/csrc/tma.cuh"], "ptxas": ptxas["flash_attention_wgmma"]},
+        # pairwise_gram: one kernel, X staged by TMA (aligned rows, the main
+        # path's) or by predicated loads (the per-leaf chain's unaligned leaves)
+        "pairwise_gram": {"sources": [
+            "src/repro_torch/kernels/csrc/pairwise_gram.cu",
+            "src/repro_torch/kernels/csrc/tma.cuh"], "variants": ["gram_tma", "gram_ldg"],
+            "ptxas": ptxas["pairwise_gram"]}}
     tpu = {"bucket_mix": "src/repro/kernels/bucket_mix.py:28",
            "pairwise_gram": "src/repro/kernels/pairwise_gram.py:47",
            "cwise_median": "src/repro/kernels/cwise_median.py:47",

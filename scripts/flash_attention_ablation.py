@@ -62,7 +62,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import flash_attention as fa
 
-    base = _build.read_source("flash_attention_wgmma.cu")
+    base = fa._text("wgmma")
     texts = {name: variant_source(base, edits) for name, edits in EDITS.items()}
     _build.build_all([(f"fa_ablation_{n}", t) for n, t in texts.items()])
     libs = {}

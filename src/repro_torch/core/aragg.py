@@ -95,6 +95,11 @@ class RobustAggregator:
             raise ValueError("coordinatewise base rules do not use Gram weights")
         m = self._mix_for(gram.shape[0], mix, gram.device)
         gram_y = m @ gram.float() @ m.T
+        # The product rounds (i, j) and (j, i) apart; its upper triangle,
+        # mirrored, keeps the exact ties of the rules' scores (two buckets
+        # that are each other's nearest neighbour have the same Krum score),
+        # so the lower index wins them whichever path made the Gram.
+        gram_y = torch.triu(gram_y) + torch.triu(gram_y, 1).T
         return m.T @ self.base.coeffs(gram_y)
 
     def __repr__(self) -> str:  # pragma: no cover

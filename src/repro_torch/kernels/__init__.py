@@ -10,7 +10,9 @@ only for a tensor on the CPU. Sources are built at first use
 wrapper adds one where it launches and nowhere else, so a run can show
 that it went through the kernels. ``VARIANT_LAUNCHES`` splits the
 ``flash_attention`` count by the CUDA kernel that ran: ``wgmma`` (the
-tensor-core kernel for bf16) or ``simt`` (the CUDA-core kernel).
+tensor-core kernel for bf16) or ``simt`` (the CUDA-core kernel); and the
+``pairwise_gram`` count by how the kernel staged its input: ``gram_tma``
+(a TMA tensor map) or ``gram_ldg`` (predicated loads).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ LAUNCHES: Dict[str, int] = {
     "cclip_combine": 0,
     "flash_attention": 0,
 }
-VARIANT_LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0}
+VARIANT_LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "gram_tma": 0, "gram_ldg": 0}
 
 
 def reset_launches() -> None:

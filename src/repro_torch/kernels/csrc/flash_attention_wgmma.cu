@@ -46,7 +46,7 @@
 //   holding such a row makes. Then O / max(l, 1e-30), one __float2bfloat16
 //   (round to nearest even), stores guarded by row < Sq and col < dh.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
+// tma.cuh (prepended by the wrapper): mbarrier helpers and the tensor-map encoder
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,38 +66,6 @@ struct FwShape {
     static constexpr int KV_BYTES = BKV * DH * 2;  // one K or one V tile
     static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES;
 };
-
-__device__ __forceinline__ uint32_t fw_smem(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
@@ -346,11 +314,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
     extern __shared__ uint8_t smem_raw[];
     // a 128-byte swizzle atom is 8 rows x 128 bytes: tiles start on 1024 bytes
-    const uint32_t q_s = (fw_smem(smem_raw) + 1023u) & ~1023u;
+    const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t kv_s = q_s + Sh::Q_BYTES;  // stage s: K at + 2s KV_BYTES, V after it
-    const uint32_t q_full = fw_smem(&bars[0]);
-    const uint32_t k_full = fw_smem(&bars[1]), v_full = fw_smem(&bars[1 + STAGES]);
-    const uint32_t empty = fw_smem(&bars[1 + 2 * STAGES]);
+    const uint32_t q_full = smem_u32(&bars[0]);
+    const uint32_t k_full = smem_u32(&bars[1]), v_full = smem_u32(&bars[1 + STAGES]);
+    const uint32_t empty = smem_u32(&bars[1 + 2 * STAGES]);
 
     // heaviest query tiles first: the causal tail does not straggle
     const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
@@ -566,35 +534,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     }
 }
 
-typedef CUresult (*FwEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda)
-static FwEncodeTiled fw_encoder() {
-    static FwEncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-        cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<FwEncodeTiled>(p);
-    }
-    return fn;
-}
-
 // a bf16 [batch, S, heads, dh] tensor, read in boxes of 64 x 1 x rows x 1,
 // 128-byte swizzle, zeros out of bounds
 static int fw_map(CUtensorMap* map, const void* ptr, int batch, int S, int heads, int dh,
                   int rows) {
-    const FwEncodeTiled encode = fw_encoder();
+    const TmaEncodeTiled encode = tma_encoder();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
     const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)S,
                                 (cuuint64_t)batch};

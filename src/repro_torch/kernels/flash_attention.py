@@ -35,14 +35,18 @@ MAX_HEAD_DIM = 256
 _GRID_LIMIT = 65535  # gridDim.y and gridDim.z: heads and batch (simt), batch (wgmma)
 
 
+def _text(kind: str) -> str:
+    text = _build.read_source(_NAMES[kind] + ".cu")
+    return _build.read_source("tma.cuh") + text if kind == "wgmma" else text
+
+
 def sources():
-    return [(name, _build.read_source(name + ".cu")) for name in _NAMES.values()]
+    return [(_NAMES[kind], _text(kind)) for kind in _NAMES]
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(kind: str):
-    name = _NAMES[kind]
-    return _build.load(name, _build.read_source(name + ".cu"), _ARGS[kind])
+    return _build.load(_NAMES[kind], _text(kind), _ARGS[kind])
 
 
 def variant(dtype: torch.dtype, dh: int, data_ptrs: Iterable[int]) -> str:

@@ -93,6 +93,22 @@ def test_gram_weights_match(agg, kwargs):
     np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-6)
 
 
+def test_gram_weights_see_an_exactly_symmetric_bucket_gram(monkeypatch):
+    """The bucket Gram M G M^T rounds (i, j) and (j, i) apart; the rule sees
+    its upper triangle mirrored, so the exact ties of Krum's scores (two
+    buckets that are each other's nearest neighbour) stay exact, and the
+    sharded and one-device paths pick the same bucket."""
+    x = torch.tensor(_xs((10, 300), seed=4))
+    tra = aragg.RobustAggregator.from_spec("krum", mixing="bucketing", s=2, n_byzantine=2)
+    seen, coeffs = [], tra.base.coeffs
+    monkeypatch.setattr(tra.base, "coeffs", lambda g: (seen.append(g), coeffs(g))[1])
+    mix = tra.mixing_matrix(10, torch.Generator().manual_seed(7), device="cpu")
+    tra.worker_weights_from_gram(x @ x.T, mix=mix)
+    assert torch.equal(seen[0], seen[0].T)
+    scores = tra.base.scores(seen[0])
+    assert int((scores == scores.min()).sum()) >= 2  # a tie, won by the lower index
+
+
 def test_theorem1_and_delta_max():
     assert aragg.DELTA_MAX == raragg.DELTA_MAX
     for delta, dmax, n in [(0.0, 0.5, 10), (0.1, 0.5, 10), (0.2, 0.25, 3), (0.05, 0.5, 4)]:

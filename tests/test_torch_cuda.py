@@ -25,6 +25,10 @@ def cuda():
     return torch.device("cuda")
 
 
+def _attention_variants():
+    return {k: VARIANT_LAUNCHES[k] for k in ("wgmma", "simt")}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,d", [(5, 106_496), (10, 106_496), (13, 100_003), (64, 4097)])
 def test_kernels_match_plain_on_card(cuda, W, d):
@@ -55,6 +59,81 @@ def test_gram_chain_and_repeat_bitwise_on_card(cuda):
         seg = x[:, lo * pairwise_gram.TILE_D:hi * pairwise_gram.TILE_D].contiguous()
         acc = pairwise_gram.pairwise_gram(seg, acc)
     assert torch.equal(acc, whole)
+
+
+def _padded(x):
+    """x [W, d] with zero columns up to the next multiple of TILE_D."""
+    tile = pairwise_gram.TILE_D
+    return torch.nn.functional.pad(x, (0, -x.shape[1] % tile)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 10, 25, 64])
+def test_gram_unaligned_leaf_chain_equals_packed_on_card(cuda, W):
+    """The per-leaf chain (robust_sync.tree_gram's) over unaligned leaves,
+    which take the predicated loads, equals one call over the leaves packed
+    and padded to TILE_D, which takes TMA: both paths give the same unit
+    partials bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(W)
+    leaves = [torch.randn((W, d), device=cuda, generator=gen) * 3
+              for d in (10, 100_003, 4097, 6144)]
+    reset_launches()
+    acc = None
+    for leaf in leaves:
+        acc = pairwise_gram.pairwise_gram(leaf, acc)
+    packed = pairwise_gram.pairwise_gram(torch.cat([_padded(x) for x in leaves], dim=1))
+    assert torch.equal(acc, packed)
+    assert VARIANT_LAUNCHES["gram_ldg"] == 3 and VARIANT_LAUNCHES["gram_tma"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 10, 25, 64])
+def test_gram_chain_repeat_symmetry_on_card(cuda, W):
+    gen = torch.Generator(cuda).manual_seed(100 + W)
+    tile = pairwise_gram.TILE_D
+    x = torch.randn((W, 7 * tile + 1000), device=cuda, generator=gen)
+    seed = torch.randn((W, W), device=cuda, generator=gen)
+    seed = seed + seed.T
+    whole = pairwise_gram.pairwise_gram(x, seed)
+    assert torch.equal(whole, pairwise_gram.pairwise_gram(x, seed))
+    assert torch.equal(whole, whole.T)
+    acc = seed
+    for lo, hi in [(0, tile), (tile, 4 * tile), (4 * tile, x.shape[1])]:
+        acc = pairwise_gram.pairwise_gram(x[:, lo:hi].contiguous(), acc)
+    assert torch.equal(acc, whole)
+
+
+@pytest.mark.cuda
+def test_gram_cut_at_every_unit_boundary_on_card(cuda):
+    """X[10, 26,624], a rank's slice in the 4-rank sync: 13 one-unit calls
+    chained equal one call."""
+    tile = pairwise_gram.TILE_D
+    x = torch.randn((10, 26_624), device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    acc = None
+    for lo in range(0, x.shape[1], tile):
+        acc = pairwise_gram.pairwise_gram(x[:, lo:lo + tile].contiguous(), acc)
+    assert torch.equal(acc, pairwise_gram.pairwise_gram(x))
+
+
+@pytest.mark.cuda
+def test_gram_variant_rule_on_card(cuda):
+    """16-byte aligned rows take TMA; the same values 4 bytes off a 16-byte
+    boundary, or d % 4 != 0, take the predicated loads; the bits agree."""
+    gen = torch.Generator(cuda).manual_seed(5)
+    x = torch.randn((10, 4096), device=cuda, generator=gen)
+    buf = torch.empty(10 * 4096 + 1, device=cuda)
+    off = buf[1:].view(10, 4096)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    reset_launches()
+    got = pairwise_gram.pairwise_gram(x)
+    assert VARIANT_LAUNCHES["gram_tma"] == 1 and VARIANT_LAUNCHES["gram_ldg"] == 0
+    assert torch.equal(pairwise_gram.pairwise_gram(off), got)
+    assert VARIANT_LAUNCHES["gram_ldg"] == 1
+    ragged = x[:, :4094].contiguous()
+    pairwise_gram.pairwise_gram(ragged)
+    assert VARIANT_LAUNCHES == {"wgmma": 0, "simt": 0, "gram_tma": 1, "gram_ldg": 2}
+    assert LAUNCHES["pairwise_gram"] == 3
 
 
 @pytest.mark.cuda
@@ -184,7 +263,7 @@ def test_flash_attention_matches_plain_on_card(cuda, dtype, B, Sq, Skv, H, KV, d
     got = flash_attention(q, k, v, window=window, block_q=16, block_kv=16, q_offset=q_offset)
     assert LAUNCHES["flash_attention"] == 1
     kind = "wgmma" if dtype == torch.bfloat16 else "simt"
-    assert VARIANT_LAUNCHES == {"wgmma": int(kind == "wgmma"), "simt": int(kind == "simt")}
+    assert _attention_variants() == {"wgmma": int(kind == "wgmma"), "simt": int(kind == "simt")}
     want = ref.attention(q, k, v, window=window,
                          q_offset=None if q_offset == -1 else q_offset)
     assert got.dtype == dtype and got.shape == q.shape
@@ -206,7 +285,7 @@ def test_flash_attention_non_causal_matches_plain_on_card(cuda, dtype, dh, windo
     reset_launches()
     got = flash_attention(q, k, v, causal=False, window=window, block_q=16, block_kv=16)
     kind = "wgmma" if dtype == torch.bfloat16 else "simt"
-    assert VARIANT_LAUNCHES == {"wgmma": int(kind == "wgmma"), "simt": int(kind == "simt")}
+    assert _attention_variants() == {"wgmma": int(kind == "wgmma"), "simt": int(kind == "simt")}
     want = ref.attention(q, k, v, causal=False, window=window)
     tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-5)
     torch.testing.assert_close(got, want, **tol)
@@ -225,7 +304,7 @@ def test_flash_attention_misaligned_bf16_takes_simt(cuda):
     assert q.is_contiguous() and q.data_ptr() % 16 == 2
     reset_launches()
     got = flash_attention(q, k, v, block_q=16, block_kv=16)
-    assert LAUNCHES["flash_attention"] == 1 and VARIANT_LAUNCHES == {"wgmma": 0, "simt": 1}
+    assert LAUNCHES["flash_attention"] == 1 and _attention_variants() == {"wgmma": 0, "simt": 1}
     torch.testing.assert_close(got, ref.attention(q, k, v), rtol=1.6e-2, atol=1e-5)
 
 
