@@ -9,8 +9,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 1. Build every CUDA kernel of the main path from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), and print the registers and spills
    ``ptxas`` reports for each instance of the tensor-core attention kernel
-   (``flash_attention_wgmma.cu``) and of the Gram kernel
-   (``pairwise_gram.cu``); a spill fails the phase.
+   (``flash_attention_wgmma.cu``), the Gram kernel (``pairwise_gram.cu``),
+   ``bucket_mix.cu``, ``residual_norms.cu``, ``cclip.cu`` and the selection
+   kernels at W = 65 and 128; a spill fails the phase.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (cohort W = 10, m = 5 buckets, d = 106,496: the
    784-128-10 MLP packed) and at the paper's n (W = 25, m = 13) with
@@ -21,7 +22,10 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    its chain over 2048-aligned cuts, and it must stage X by TMA at these
    shapes (``VARIANT_LAUNCHES``), and by predicated loads at an unaligned
    X[10, 100,003], whose Gram equals bit for bit the TMA call on the same
-   columns padded to 2048.
+   columns padded to 2048. Above 64 workers (W = 65 and 128, d = 106,496)
+   the mix and combine, the Gram (one launch per pair of 32-row groups:
+   symmetric, bitwise repeatable), CM and TM are held, timed and bounded
+   the same way.
 3. Drive the main path: ``CrossDeviceSim`` trains the MLP for 120 rounds
    under four rule/attack pairs. For each pair the kernel launch counts are
    set to 0 just before its run and read just after: each kernel of its
@@ -32,8 +36,8 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 4. Hold the residual-norm and centered-clipping kernels (``residual_norms``,
    ``cclip_fused_iter``, ``cclip_combine``) against their plain versions at
    the per-rank shape of the sharded sync ([5, 26,624]), the one-device
-   main shape ([10, 106,496]) and the paper's ([25, 16,777,216]), timed and
-   bounded as in phase 2.
+   main shape ([10, 106,496]), the paper's ([25, 16,777,216]) and above 64
+   workers ([65, 106,496], [128, 106,496]), timed and bounded as in phase 2.
 5. Drive the one-device compositions ``ops.rfa_aggregate``, ``ops.cclip_aggregate``
    and ``ops.cclip_aggregate_unfused`` against their vector-space oracles,
    each with its exact launch counts, and time them at the paper's shape.
@@ -104,6 +108,7 @@ ROUNDS = 120
 SYNC_RANKS = 4            # ranks of the sharded sync, all on cuda:0
 RANK_D = MAIN_D // SYNC_RANKS
 SYNC_REPS = 20
+WIDE_W = (65, 128)        # workers above the 64 the register arrays hold
 ATTN_S = 4096             # the attention and serving phases' sequence length
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
@@ -165,38 +170,58 @@ def build_phase():
                                      weiszfeld_norms)
 
     # every library the ranks of phase 6 load is built here, before they start
+    wide = [src for W in WIDE_W
+            for src in cwise_median.sources(W) + trimmed_mean.sources(W, W // 4)]
     sources = (bucket_mix.sources() + pairwise_gram.sources()
                + cwise_median.sources(5) + cwise_median.sources(13)
                + trimmed_mean.sources(5, 1) + trimmed_mean.sources(13, 5)
                + trimmed_mean.sources(5, 2) + weiszfeld_norms.sources()
-               + cclip_fused.sources() + flash_attention.sources())
+               + cclip_fused.sources() + flash_attention.sources() + wide)
     seconds = _build.build_all(sources)
     log(f"build: {len(sources)} CUDA sources for sm_90a ready in {seconds:.1f} s "
         f"({_build.BUILD_DIR})")
     ptxas = {}
-    # the kernels built from a template: each instance's registers and spills
-    for name, param in (("flash_attention_wgmma", "DH"), ("pairwise_gram", "L")):
+    # each instance's registers and spills: the tensor-core attention and
+    # the Gram, bucket_mix and residual_norms, the CCLIP kernels and the
+    # selection kernels at W = 65 and 128. A spill fails the phase, but for
+    # the CCLIP kernels at W <= 64: cclip_fused_partial_kernel<32> and <64>
+    # spill a few bytes (8 and 40 B of stores), as they did when they were
+    # written, and keep their code; their route above 64 rows is held to it.
+    old_cclip = ("cclip_fused_partial_kernel<32>", "cclip_fused_partial_kernel<64>")
+    checked = [("flash_attention_wgmma", "DH"), ("pairwise_gram", "L"), ("bucket_mix", ""),
+               ("residual_norms", ""), ("cclip", "")] + [(n, "") for n, _ in wide]
+    for name, param in checked:
         (text,) = [t for n, t in sources if n == name]
         ptxas[name] = res = ptxas_resources(_build.build_log(name, text), param)
         for inst, r in res.items():
             log(f"build {name} {inst}: {r['registers']} registers, spill "
                 f"stores {r['spill_stores']} B, spill loads {r['spill_loads']} B")
-        if not res or any(r["spill_stores"] or r["spill_loads"] for r in res.values()):
+        held = {i: r for i, r in res.items() if i not in old_cclip}
+        if not res or any(r["spill_stores"] or r["spill_loads"] for r in held.values()):
             raise AssertionError(f"{name}: ptxas resources {res} (a spill, or no report)")
     return ptxas
 
 
-def ptxas_resources(text: str, param: str = "DH"):
+def ptxas_resources(text: str, param: str = ""):
     """Registers and spill bytes per kernel instance from ``ptxas -v``
-    output, keyed by the instance's template argument (``DH=64`` ...)."""
+    output, keyed by the instance's template arguments: ``DH=64`` for a
+    ``param`` of one argument, else ``name<16,1>`` (bools as 0 / 1), or
+    the kernel's name where it has none."""
     import re
 
     out, inst = {}, None
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            arg = re.search(r"ILi(\d+)E", entry.group(1))
-            inst = f"{param}={arg.group(1)}" if arg else entry.group(1)
+            mangled = entry.group(1)
+            head = re.match(r"_Z(\d+)", mangled)
+            name = mangled[head.end():head.end() + int(head.group(1))] if head else mangled
+            args = re.search(r"I((?:L[a-z]\d+E)+)E", mangled)
+            vals = re.findall(r"L[a-z](\d+)E", args.group(1)) if args else []
+            if param and len(vals) == 1:
+                inst = f"{param}={vals[0]}"
+            else:
+                inst = f"{name}<{','.join(vals)}>" if vals else name
             out[inst] = dict(registers=None, spill_stores=None, spill_loads=None)
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -384,7 +409,64 @@ def kernel_phase(dev):
     log(f"check pairwise_gram X[10,{d_odd}]: gram_ldg, within tolerance, bitwise equal to "
         "the TMA call on the same columns padded to 2048")
     del x, padded
+    wide_kernel_rows(dev, record, gram_close, bitwise)
     return results
+
+
+def wide_kernel_rows(dev, record, gram_close, bitwise):
+    """Phase 2's rows above 64 workers (W = 65, 128) at the one-device d:
+    mix (bucketing s = 2) and combine, the Gram (one launch per pair of
+    32-row groups), CM and TM (b = W // 4) on the W rows themselves."""
+    import torch
+
+    from repro_torch.core.mixing import Bucketing
+    from repro_torch.kernels import LAUNCHES, ref
+    from repro_torch.kernels.bucket_mix import bucket_mix
+    from repro_torch.kernels.cwise_median import cwise_median
+    from repro_torch.kernels.pairwise_gram import pairwise_gram, row_groups
+    from repro_torch.kernels.selection_network import median_ranks, selection_program, trim_ranks
+    from repro_torch.kernels.trimmed_mean import cwise_trimmed_mean
+
+    d = MAIN_D
+    for W in WIDE_W:
+        gen = torch.Generator(dev).manual_seed(W)
+        x = torch.randn((W, d), device=dev, generator=gen)
+        perm = torch.randperm(W, generator=torch.Generator().manual_seed(W))
+        weights = torch.rand((1, W), device=dev, generator=gen)
+        for what, M in (("mix", Bucketing(2).matrix(W, perm=perm, device=dev)),
+                        ("combine", weights / weights.sum())):
+            rows = M.shape[0]
+            record("bucket_mix", f"{what} M[{rows},{W}] X[{W},{d}]",
+                   lambda M=M: bucket_mix(M, x), lambda M=M: ref.bucket_mix(M, x),
+                   lambda M=M: torch.matmul(M, x),
+                   (W * d + rows * W + rows * d) * 4, 2 * rows * W * d, (20, 50),
+                   close(1e-5, 1e-4))
+        before = LAUNCHES["pairwise_gram"]
+        g = pairwise_gram(x)
+        calls = LAUNCHES["pairwise_gram"] - before
+        n_groups = len(row_groups(W))
+        if calls != n_groups * (n_groups - 1) // 2 or not (
+                torch.equal(g, g.T) and torch.equal(g, pairwise_gram(x))):
+            raise AssertionError(f"pairwise_gram X[{W},{d}]: {calls} launches, or not "
+                                 "symmetric and bitwise repeatable")
+        record("pairwise_gram", f"X[{W},{d}] ({calls} launches)", lambda: pairwise_gram(x),
+               lambda: ref.pairwise_gram(x), lambda: torch.matmul(x, x.T),
+               (W * d + W * W) * 4, W * (W + 1) * d, (20, 10), gram_close(x))
+        n_med = len(selection_program(W, median_ranks(W)))
+        record("cwise_median", f"X[{W},{d}]", lambda: cwise_median(x),
+               lambda: ref.cwise_median(x), lambda: torch.median(x, dim=0).values,
+               (W + 1) * d * 4, 2 * n_med * d, (20, 10), bitwise)
+        b = W // 4
+        band = trim_ranks(W, b)
+        n_tm = len(selection_program(W, band))
+        record("cwise_trimmed_mean", f"X[{W},{d}] b={b}",
+               lambda: cwise_trimmed_mean(x, b), lambda: ref.cwise_trimmed_mean(x, b),
+               lambda: torch.sort(x, dim=0).values[b:W - b].mean(dim=0),
+               (W + 1) * d * 4, (2 * n_tm + len(band)) * d, (20, 10), bitwise)
+        log(f"check W = {W}: every aggregation kernel of phase 2 ran and agreed with its "
+            f"plain version (the Gram in {calls} launches, symmetric, bitwise repeatable)")
+        del x, g
+        torch.cuda.empty_cache()
 
 
 def gram_variant(call):
@@ -488,7 +570,8 @@ def norm_kernel_phase(dev):
 
     results = {name: [] for name in ("residual_norms", "cclip_fused_iter", "cclip_combine")}
     record = functools.partial(measure, results)
-    shapes = [(5, RANK_D, (20, 50)), (10, MAIN_D, (20, 50)), (25, PAPER_D, (10, 1))]
+    shapes = [(5, RANK_D, (20, 50)), (10, MAIN_D, (20, 50)), (25, PAPER_D, (10, 1))] + [
+        (W, MAIN_D, (20, 20)) for W in WIDE_W]
     for W, d, timing in shapes:
         gen = torch.Generator(dev).manual_seed(100 + W)
         x = torch.randn((W, d), device=dev, generator=gen)
@@ -1078,7 +1161,10 @@ def main() -> int:
            "cclip_combine": "cclip.cu", "flash_attention": "flash_attention_wgmma.cu"}
     # flash_attention: the tensor-core kernel (bf16, the main path's rows) and
     # the CUDA-core one (fp32 and the bf16 inputs TMA refuses)
-    other = {"flash_attention": {"sources": [
+    # the two kernels redesigned last: every instance's ptxas report
+    other = {"bucket_mix": {"ptxas": ptxas["bucket_mix"]},
+             "residual_norms": {"ptxas": ptxas["residual_norms"]},
+             "flash_attention": {"sources": [
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro_torch/kernels/csrc/tma.cuh"], "ptxas": ptxas["flash_attention_wgmma"]},

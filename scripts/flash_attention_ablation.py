@@ -67,7 +67,7 @@ def main() -> int:
     _build.build_all([(f"fa_ablation_{n}", t) for n, t in texts.items()])
     libs = {}
     for name, text in texts.items():
-        res = ptxas_resources(_build.build_log(f"fa_ablation_{name}", text))
+        res = ptxas_resources(_build.build_log(f"fa_ablation_{name}", text), "DH")
         print(f"{name}: ptxas " + "; ".join(
             f"{inst} {r['registers']} registers, spills {r['spill_stores']}/{r['spill_loads']} B"
             for inst, r in res.items()), flush=True)

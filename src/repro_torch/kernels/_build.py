@@ -12,9 +12,10 @@ registers, shared memory and spills (``-Xptxas -v``); the compiler's output
 is kept beside the library (``build_log``).
 
 The wrappers validate their inputs with ``check_inputs`` / ``check_rows``
-before passing raw pointers, launch on PyTorch's current stream
-(``stream_of``), and raise through ``check_launch`` when the C entry
-returns a non-zero ``cudaGetLastError()``.
+(any row count of at least one) before passing raw pointers, launch on
+PyTorch's current stream (``stream_of``), and raise through
+``check_launch`` when the C entry returns a non-zero
+``cudaGetLastError()``.
 
 Nothing here runs on import: the CPU tests import every module.
 """
@@ -22,6 +23,7 @@ Nothing here runs on import: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -134,9 +136,24 @@ def check_inputs(kernel: str, dtypes=(torch.float32,), **tensors) -> None:
                              f"device cuda:{torch.cuda.current_device()}")
 
 
-def check_rows(kernel: str, name: str, n: int, limit: int = 64) -> None:
-    if not 1 <= n <= limit:
-        raise ValueError(f"{kernel}: {name}={n} outside 1..{limit}")
+def check_rows(kernel: str, name: str, n: int) -> None:
+    if n < 1:
+        raise ValueError(f"{kernel}: {name}={n}; the kernel needs at least one row")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def fitted_threads(n_groups: int, n_sm: int) -> int:
+    """Threads a block (64 .. 256, a multiple of 32) for a kernel that gives
+    each thread one group of columns: the fewest that cover ``n_groups``
+    with one block an SM, so a small call spreads evenly over the card and
+    a large one takes full blocks."""
+    per_sm = -(-n_groups // n_sm)
+    return min(256, max(64, -(-per_sm // 32) * 32))
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build, ref
 
 _ARGS = {"bucket_mix_launch": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_void_p)}
 
 
@@ -32,8 +32,8 @@ def _lib():
 
 def bucket_mix(mix: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """mix: ``[m, W]``; xs: ``[W, d]`` -> ``[m, d]`` fp32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (fp32, contiguous,
-    1 <= m, W <= 64)."""
+    plain version; CUDA tensors launch the kernel (fp32, contiguous, any
+    m, W >= 1)."""
     m, W = mix.shape
     W2, d = xs.shape
     if W != W2:
@@ -46,8 +46,9 @@ def bucket_mix(mix: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, d), dtype=torch.float32, device=xs.device)
     if d == 0:
         return out
+    threads = _build.fitted_threads(-(-d // 4), _build.sm_count(xs.device.index))
     code = _lib().bucket_mix_launch(mix.data_ptr(), xs.data_ptr(), out.data_ptr(),
-                                    m, W, d, _build.stream_of(xs))
+                                    m, W, d, threads, _build.stream_of(xs))
     _build.check_launch("bucket_mix", code)
     LAUNCHES["bucket_mix"] += 1
     return out

@@ -19,7 +19,7 @@ __all__ = ["cclip_combine", "sources"]
 def cclip_combine(xs: torch.Tensor, v: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     """xs: ``[W, d]``; v: ``[d]``; lam: ``[W]`` -> updated centre ``[d]`` fp32.
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32,
-    contiguous, 1 <= W <= 64)."""
+    contiguous, any W >= 1)."""
     if check_update_args("cclip_combine", xs, v, lam):
         return ref.cclip_combine(xs, v, lam)
     W, d = xs.shape

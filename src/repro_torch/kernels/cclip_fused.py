@@ -19,7 +19,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, ref
-from repro_torch.kernels.weiszfeld_norms import TILE_D
+
+#: columns per block of the kernel (``RS_TILE`` in ``row_sums.cuh``)
+TILE_D = 2048
 
 _P = ctypes.c_void_p
 _ARGS = {
@@ -57,7 +59,7 @@ def cclip_fused_iter(xs: torch.Tensor, v: torch.Tensor,
                      lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """xs: ``[W, d]``; v: ``[d]``; lam: ``[W]`` -> ``(v' [d], ||x_i - v'||^2
     [W])`` fp32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (fp32, contiguous, 1 <= W <= 64)."""
+    kernel (fp32, contiguous, any W >= 1; above 64 rows a slower route)."""
     if check_update_args("cclip_fused_iter", xs, v, lam):
         return ref.cclip_fused_iter(xs, v, lam)
     W, d = xs.shape

@@ -1,5 +1,5 @@
-// Per-worker residual norms r_i = ||x_i - v||^2 for X [W, d] fp32, W <= 64.
-// Needs row_sums.cuh before it (the wrapper prepends it).
+// Per-worker residual norms r_i = ||x_i - v||^2 for X [W, d] fp32, any
+// W >= 1.
 //
 // Replaces the Pallas TPU kernel repro/kernels/weiszfeld_norms.py::
 // residual_norms (pallas_call at weiszfeld_norms.py:91): the inner loop of
@@ -12,73 +12,292 @@
 // plus d * 4 for an explicit centre) for 3 W d flops (2 W d more in the
 // coefficient form): under 2 flops per byte.
 //
-// Design: one block per RS_TILE-column tile, one thread per column at a
-// time. A warp reads 32 neighbouring columns of a row (128 coalesced
-// bytes); the thread keeps its column's W values in registers, forms v_j
-// from them (or loads center[j]) and adds (x_ij - v_j)^2 into W per-row
-// register sums. The block's sums go to partial [W, n_tiles] and the fold
-// kernel adds them up (row_sums.cuh). The TPU kernel sums its grid in
-// order; this sum runs in another order, so the two agree to a tolerance,
-// not bit for bit. The result does repeat bit for bit.
+// What held the previous kernel back (one 2048-column tile a block, one
+// column a thread at a time, the fold a second kernel): 13 blocks for 132
+// SMs at a rank's X[5, 26,624]; 8 dependent DRAM round trips a thread,
+// each with W loads in flight; and a second graph node. Design:
+// - A thread owns 4 neighbouring columns at a time and issues the 16-byte
+//   loads of all the rows it holds (RC of them) before it uses them; the
+//   coefficients are read beside them (a broadcast load), not staged
+//   behind a barrier.
+// - The grid is fitted to the card: G = min(ceil(d / 4 / 256), n_SM *
+//   blocks an SM) blocks of 256 threads, each owning a contiguous range of
+//   column groups, so the path's X[10, 106,496] is 104 blocks of one pass
+//   each and the paper's X[25, 16.7 M] 132 blocks of 124. (Fewer threads a
+//   block, to spread a rank's X[5, 26,624] over more SMs, was slower: more
+//   partials to fold.) The wrapper computes G (weiszfeld_norms.geometry)
+//   and sizes the partials [W, G] by it.
+// - Rows go in passes over the block's columns, per-row sums acc[] in
+//   registers. Up to 32 rows, one pass of RC (8, 16 or 32, the smallest
+//   >= W) rows loaded together; in the coefficient form the centre comes
+//   from those rows. Above 32 rows the centre form takes passes of 32 rows,
+//   each reading its rows and the centre. The coefficient form takes passes
+//   of 64 rows: a column group first streams all W rows to form its centre
+//   (RN_WB rows at a time), then reads the pass's rows again, 16 at a time
+//   (NSUB = 4), from the caches the first read has just filled. So up to
+//   64 rows X leaves memory once, as with the previous kernel; above, once
+//   a pass.
+// - A block adds its threads' sums in a fixed order (a warp butterfly,
+//   then the warps in index order) and writes one partial per row.
+// - The fold runs in the same launch: after its partials, each block
+//   draws a ticket (rn_draw); the block that draws the last one stages
+//   the partials in shared memory (all its loads in flight at once), then
+//   adds them, one warp a row, lane l summing blocks l, l + 32, ... in
+//   order, then a butterfly. No block waits on another, so nothing needs
+//   the grid to be co-resident. The last block sets the ticket back to 0,
+//   so the counter is zero before every launch on its stream: the wrapper
+//   keeps one counter per device, stream and graph capture.
+// - Rows that are not 16-byte aligned (d % 4 != 0, or a base off 16 bytes)
+//   take predicated scalar loads (ALIGNED = false).
+// The centre of a column is the fmaf chain over w = 0 .. W-1 in order, as
+// before. The sums over columns run in another order than the TPU
+// kernel's (and the previous kernel's), so they agree to a tolerance, not
+// bit for bit; for a given card and shape the order is fixed, so a result
+// repeats bit for bit.
 
-template <int MAX_W, bool COEFF>
-__global__ void __launch_bounds__(RS_THREADS, RS_MIN_BLOCKS(MAX_W))
-residual_norms_partial_kernel(const float* __restrict__ xs, const float* __restrict__ coeffs,
-                              const float* __restrict__ center, float* __restrict__ partial,
-                              int W, long long d, long long n_tiles) {
-    __shared__ float sc[RS_MAX_W];
-    if constexpr (COEFF) {
-        if (threadIdx.x < W) sc[threadIdx.x] = coeffs[threadIdx.x];
-        __syncthreads();
-    }
-    float acc[MAX_W];
-#pragma unroll
-    for (int w = 0; w < MAX_W; ++w) acc[w] = 0.0f;
+#include <cuda_runtime.h>
 
-    const long long c0 = (long long)blockIdx.x * RS_TILE;
-    // one column at a time: unrolling would hold two columns' registers
-#pragma unroll 1
-    for (int k = threadIdx.x; k < RS_TILE && c0 + k < d; k += RS_THREADS) {
-        const long long col = c0 + k;
-        float x[MAX_W];
-#pragma unroll
-        for (int w = 0; w < MAX_W; ++w) x[w] = (w < W) ? xs[(long long)w * d + col] : 0.0f;
-        float v;
-        if constexpr (COEFF) {
-            v = 0.0f;
-#pragma unroll
-            for (int w = 0; w < MAX_W; ++w)
-                if (w < W) v = fmaf(sc[w], x[w], v);
-        } else {
-            v = center[col];
-        }
-#pragma unroll
-        for (int w = 0; w < MAX_W; ++w) {
-            if (w < W) {
-                const float e = x[w] - v;
-                acc[w] = fmaf(e, e, acc[w]);
-            }
-        }
+#include <cstdint>
+
+#define RN_THREADS 256
+#define RN_FOLD 4096  // partials the folding block stages at a time (16 KB)
+#define RN_FOLD_LD 8  // loads a thread of the folding block keeps in flight
+#define RN_WB 8  // rows a thread loads at once while it streams the centre
+// blocks an SM the build asks for: two at RC = 8, one above, where the
+// coefficient form needs more than the 128 registers of two blocks
+// (weiszfeld_norms.geometry mirrors it)
+#define RN_MIN_BLOCKS(RC) ((RC) <= 8 ? 2 : 1)
+
+template <bool ALIGNED>
+__device__ __forceinline__ float4 rn_load4(const float* __restrict__ row, long long c0,
+                                           long long d) {
+    if constexpr (ALIGNED) {
+        return __ldg(reinterpret_cast<const float4*>(row + c0));
+    } else {
+        float4 v;
+        v.x = c0 < d ? __ldg(row + c0) : 0.0f;
+        v.y = c0 + 1 < d ? __ldg(row + c0 + 1) : 0.0f;
+        v.z = c0 + 2 < d ? __ldg(row + c0 + 2) : 0.0f;
+        v.w = c0 + 3 < d ? __ldg(row + c0 + 3) : 0.0f;
+        return v;
     }
-    rs_block_store<MAX_W>(acc, W, partial, n_tiles);
 }
 
-extern "C" int residual_norms_launch(const float* xs, const float* coeffs, const float* center,
-                                     float* out, float* partial, int W, long long d,
-                                     cudaStream_t stream) {
-    const long long n_tiles = (d + RS_TILE - 1) / RS_TILE;
-#define RN_LAUNCH(MW)                                                                      \
-    if (coeffs) {                                                                          \
-        residual_norms_partial_kernel<MW, true><<<(unsigned)n_tiles, RS_THREADS, 0, stream>>>( \
-            xs, coeffs, center, partial, W, d, n_tiles);                                   \
-    } else {                                                                               \
-        residual_norms_partial_kernel<MW, false><<<(unsigned)n_tiles, RS_THREADS, 0, stream>>>( \
-            xs, coeffs, center, partial, W, d, n_tiles);                                   \
+__device__ __forceinline__ void rn_fma4(float4& v, float c, const float4& x) {
+    v.x = fmaf(c, x.x, v.x);
+    v.y = fmaf(c, x.y, v.y);
+    v.z = fmaf(c, x.z, v.z);
+    v.w = fmaf(c, x.w, v.w);
+}
+
+// v = c^T X at columns c0 .. c0 + 3, streaming all W rows RN_WB at a time
+template <bool ALIGNED>
+__device__ __forceinline__ float4 rn_stream_center(const float* __restrict__ xs,
+                                                   const float* __restrict__ coeffs, int W,
+                                                   long long c0, long long d) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int w0 = 0; w0 < W; w0 += RN_WB) {
+        float4 x[RN_WB];
+#pragma unroll
+        for (int j = 0; j < RN_WB; ++j) {
+            if (w0 + j < W) x[j] = rn_load4<ALIGNED>(xs + (long long)(w0 + j) * d, c0, d);
+        }
+#pragma unroll
+        for (int j = 0; j < RN_WB; ++j) {
+            if (w0 + j < W) rn_fma4(v, __ldg(coeffs + w0 + j), x[j]);
+        }
     }
-    RS_DISPATCH_W(W, RN_LAUNCH);
-#undef RN_LAUNCH
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    rs_fold_kernel<<<W, RS_THREADS, 0, stream>>>(partial, out, n_tiles);
+    return v;
+}
+
+// dst[r * stride] = the block's sum of acc[r] for r < rows: a butterfly in
+// each warp, then the warps in index order. The RC butterflies run
+// unconditionally (rows past `rows` hold zeros), so they interleave.
+template <int RC>
+__device__ __forceinline__ void rn_block_sum(const float (&acc)[RC], int rows,
+                                             float* __restrict__ dst, long long stride) {
+    __shared__ float red[RN_THREADS / 32][RC];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int r = 0; r < RC; ++r) {
+        float s = acc[r];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+        if (lane == 0) red[warp][r] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < rows) {
+        float s = red[0][threadIdx.x];
+        for (int k = 1; k < (int)(blockDim.x >> 5); ++k) s = __fadd_rn(s, red[k][threadIdx.x]);
+        dst[(long long)threadIdx.x * stride] = s;
+    }
+    __syncthreads();  // red is written again by the next chunk
+}
+
+// The block's ticket: an acquire-release add at GPU scope. Drawn by one
+// thread after a barrier, it releases every partial the block wrote (the
+// barrier makes them the drawing thread's to release), and for the last
+// block it acquires every other block's, which the barrier after it hands
+// to all the block's threads: no separate fence on either side.
+__device__ __forceinline__ unsigned rn_draw(unsigned* ticket) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(old)
+                 : "l"(ticket)
+                 : "memory");
+    return old;
+}
+
+template <int RC, int NSUB, bool COEFF, bool ALIGNED>
+__global__ void __launch_bounds__(RN_THREADS, RN_MIN_BLOCKS(RC))
+residual_norms_kernel(const float* __restrict__ xs, const float* __restrict__ coeffs,
+                      const float* __restrict__ center, float* __restrict__ out,
+                      float* __restrict__ partial, unsigned* __restrict__ ticket, int W,
+                      long long d, long long per_block) {
+    __shared__ float fold[RN_FOLD];
+    __shared__ bool s_last;
+    const int G = gridDim.x;
+    const long long n_vec = (d + 3) / 4;
+    const long long lo = (long long)blockIdx.x * per_block;
+    const long long hi = lo + per_block < n_vec ? lo + per_block : n_vec;
+    constexpr int RP = RC * NSUB;  // rows a pass sums
+    // the centre from the rows in registers (only instances of one chunk)
+    const bool held = COEFF && NSUB == 1 && W <= RC;
+
+    for (int r0 = 0; r0 < W; r0 += RP) {
+        const int rows = min(RP, W - r0);
+        float acc[RP];
+#pragma unroll
+        for (int r = 0; r < RP; ++r) acc[r] = 0.0f;
+        for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
+            const long long c0 = g * 4;
+            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if constexpr (COEFF) {
+                if (!held) v = rn_stream_center<ALIGNED>(xs, coeffs, W, c0, d);
+            } else {
+                v = rn_load4<ALIGNED>(center, c0, d);
+            }
+#pragma unroll
+            for (int s = 0; s < NSUB; ++s) {  // RC rows at a time
+                float4 x[RC];
+#pragma unroll
+                for (int r = 0; r < RC; ++r) {
+                    if (s * RC + r < rows)
+                        x[r] = rn_load4<ALIGNED>(xs + (long long)(r0 + s * RC + r) * d, c0, d);
+                }
+                if (held) {
+#pragma unroll
+                    for (int r = 0; r < RC; ++r) {
+                        if (r < W) rn_fma4(v, __ldg(coeffs + r), x[r]);
+                    }
+                }
+                const float vk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                for (int r = 0; r < RC; ++r) {
+                    if (s * RC + r < rows) {
+                        const float xk[4] = {x[r].x, x[r].y, x[r].z, x[r].w};
+#pragma unroll
+                        for (int k = 0; k < 4; ++k) {
+                            if (ALIGNED || c0 + k < d) {
+                                const float e = xk[k] - vk[k];
+                                acc[s * RC + r] = fmaf(e, e, acc[s * RC + r]);
+                            }
+                        }
+                    }
+                }
+            }
+        }
+        rn_block_sum<RP>(acc, rows, partial + (long long)r0 * G + blockIdx.x, G);
+    }
+
+    // the fold: the block that draws the last ticket adds the partials
+    if (threadIdx.x == 0) s_last = rn_draw(ticket) == (unsigned)G - 1u;
+    __syncthreads();
+    if (!s_last) return;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    const int rows_per = RN_FOLD / G;  // whole rows of partials a turn (G <= RN_FOLD)
+    for (int r0 = 0; r0 < W; r0 += rows_per) {
+        const int n = min(rows_per, W - r0) * G;
+        const float* src = partial + (long long)r0 * G;
+        __syncthreads();  // the previous turn's readers are done
+        for (int e0 = threadIdx.x; e0 < n; e0 += RN_FOLD_LD * blockDim.x) {
+            float v[RN_FOLD_LD];  // loads in flight together, then stored
+#pragma unroll
+            for (int k = 0; k < RN_FOLD_LD; ++k) {
+                const int e = e0 + k * blockDim.x;
+                if (e < n) v[k] = __ldcg(src + e);
+            }
+#pragma unroll
+            for (int k = 0; k < RN_FOLD_LD; ++k) {
+                const int e = e0 + k * blockDim.x;
+                if (e < n) fold[e] = v[k];
+            }
+        }
+        __syncthreads();
+        for (int r = warp; r * G < n; r += n_warps) {
+            float s = 0.0f;
+            for (int t = lane; t < G; t += 32) s = __fadd_rn(s, fold[r * G + t]);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+            if (lane == 0) out[r0 + r] = s;
+        }
+    }
+    if (threadIdx.x == 0) *ticket = 0u;  // every block has drawn: zero for the next launch
+}
+
+template <int RC, int NSUB, bool COEFF>
+static void rn_launch(bool aligned, unsigned blocks, int threads, cudaStream_t stream,
+                      const float* xs, const float* coeffs, const float* center, float* out,
+                      float* partial, unsigned* ticket, int W, long long d, long long per_block) {
+    if (aligned) {
+        residual_norms_kernel<RC, NSUB, COEFF, true><<<blocks, threads, 0, stream>>>(
+            xs, coeffs, center, out, partial, ticket, W, d, per_block);
+    } else {
+        residual_norms_kernel<RC, NSUB, COEFF, false><<<blocks, threads, 0, stream>>>(
+            xs, coeffs, center, out, partial, ticket, W, d, per_block);
+    }
+}
+
+// xs [W, d] fp32 contiguous, W, d >= 1; exactly one of coeffs [W] and
+// center [d]; out [W]; partial [W, blocks] scratch; ticket one unsigned,
+// zero before the launch (the kernel leaves it zero). threads a multiple of
+// 32 in 32 .. 256, 1 <= blocks <= RN_FOLD (weiszfeld_norms.geometry).
+// Returns cudaGetLastError() after the launch.
+extern "C" int residual_norms_launch(const float* xs, const float* coeffs, const float* center,
+                                     float* out, float* partial, unsigned* ticket, int W,
+                                     long long d, int threads, int blocks,
+                                     cudaStream_t stream) {
+    if (W < 1 || d < 1 || threads < 32 || threads > RN_THREADS || threads % 32 || blocks < 1 ||
+        blocks > RN_FOLD || (coeffs == nullptr) == (center == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const long long n_vec = (d + 3) / 4;
+    const long long per_block = (n_vec + blocks - 1) / blocks;
+    const bool aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+                         (center == nullptr || reinterpret_cast<uintptr_t>(center) % 16 == 0);
+    const unsigned b = (unsigned)blocks;
+#define RN_ARGS \
+    aligned, b, threads, stream, xs, coeffs, center, out, partial, ticket, W, d, per_block
+    if (W <= 8) {
+        if (coeffs) rn_launch<8, 1, true>(RN_ARGS); else rn_launch<8, 1, false>(RN_ARGS);
+    } else if (W <= 16) {
+        if (coeffs) rn_launch<16, 1, true>(RN_ARGS); else rn_launch<16, 1, false>(RN_ARGS);
+    } else if (W <= 32 || !coeffs) {
+        if (coeffs) rn_launch<32, 1, true>(RN_ARGS); else rn_launch<32, 1, false>(RN_ARGS);
+    } else {
+        rn_launch<16, 4, true>(RN_ARGS);
+    }
+#undef RN_ARGS
     return (int)cudaGetLastError();
+}
+
+// *id = the id of the graph capture under way on stream, 0 when none is
+// (the wrapper keeps one ticket per capture). Returns the CUDA error.
+extern "C" int rn_capture_id(cudaStream_t stream, unsigned long long* id) {
+    cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+    *id = 0;
+    const cudaError_t e = cudaStreamGetCaptureInfo(stream, &status, id);
+    if (status != cudaStreamCaptureStatusActive) *id = 0;
+    return (int)e;
 }

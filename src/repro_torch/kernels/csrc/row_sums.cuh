@@ -1,5 +1,5 @@
-// Per-row sums over column tiles, shared by residual_norms.cu and cclip.cu
-// (the wrappers prepend this text to each source before it is compiled).
+// Per-row sums over column tiles for cclip.cu (its wrapper prepends this
+// text to the source before it is compiled).
 //
 // A kernel that reduces X [W, d] over its columns gives each block one
 // RS_TILE-column tile. Its threads accumulate per-row partial sums in
@@ -66,7 +66,8 @@ rs_fold_kernel(const float* __restrict__ partial, float* __restrict__ out,
 }
 
 // Launch a kernel templated on the register bound MAX_W (8, 16, 32 or 64,
-// the smallest >= W), so a small W does not pay 64 registers of each array.
+// the smallest >= W, for W <= RS_MAX_W), so a small W does not pay 64
+// registers of each array.
 #define RS_DISPATCH_W(W, LAUNCH) \
     do {                         \
         if ((W) <= 8) {          \

@@ -1,4 +1,4 @@
-// Template: coordinate-wise order statistics of W <= 64 worker rows.
+// Template: coordinate-wise order statistics of W worker rows, any W >= 1.
 //
 // kernels/cwise_median.py and kernels/trimmed_mean.py fill the three
 // @-placeholders with the worker count, the unrolled compare-exchange
@@ -24,6 +24,11 @@
 // version bit for bit on finite input. NaN: like torch.minimum and
 // torch.maximum, a NaN in either input is returned (bare fminf/fmaxf would
 // drop it).
+//
+// Any W takes this layout. ptxas holds the programs in registers without a
+// spill at W = 65 and 128 (79 and 166-168 registers, chip_smoke.py's build
+// phase prints them); wider programs spill to local memory: correct, and
+// slower.
 
 #include <cuda_runtime.h>
 

@@ -41,7 +41,7 @@ def _lib(W: int):
 def cwise_median(xs: torch.Tensor) -> torch.Tensor:
     """xs: ``[W, d]`` -> median over workers ``[d]`` fp32. CPU tensors take the
     plain version; CUDA tensors launch the kernel (fp32, contiguous,
-    1 <= W <= 64)."""
+    any W >= 1)."""
     W, d = xs.shape
     if xs.device.type == "cpu":
         return ref.cwise_median(xs)

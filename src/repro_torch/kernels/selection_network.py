@@ -5,7 +5,7 @@ builder is pure Python and returns the IDENTICAL comparator tuples, and
 ``apply_program`` runs them with ``torch.minimum``/``torch.maximum``.
 
 The coordinate-wise median and trimmed mean need a few order statistics of
-W <= 64 worker values per coordinate. Batcher's odd-even merge sort for the
+W worker values per coordinate. Batcher's odd-even merge sort for the
 next power of two P is shrunk twice:
 
 1. **Sentinel elimination.** Slots W..P-1 would hold +inf and every

@@ -47,7 +47,7 @@ def cwise_trimmed_mean(xs: torch.Tensor, n_trim: int) -> torch.Tensor:
     """xs: ``[W, d]`` -> mean of the sorted ``[n_trim, W - n_trim)`` band,
     ``[d]`` fp32; ``ValueError`` unless ``0 <= n_trim <= (W - 1) // 2``. CPU
     tensors take the plain version; CUDA tensors launch the kernel (fp32,
-    contiguous, 1 <= W <= 64)."""
+    contiguous, any W >= 1)."""
     W, d = xs.shape
     _check_trim(W, n_trim)
     if xs.device.type == "cpu":

@@ -1,34 +1,41 @@
 """Per-worker residual norms ``r_i = ||x_i - v||^2``: CUDA kernel
-``csrc/residual_norms.cu`` (with ``csrc/row_sums.cuh``).
+``csrc/residual_norms.cu``.
 
 Replaces ``repro/kernels/weiszfeld_norms.py::residual_norms``, the inner
 loop of smoothed Weiszfeld (RFA) and the first norms pass of centered
 clipping. The centre is given either as coefficients ``coeffs`` (``v =
 c^T X``, formed per column inside the kernel and never written out) or as an
 explicit row ``center``.
+
+The kernel folds its blocks' partial sums in the same launch: the block
+that draws the last ticket of a counter adds them, and sets the counter
+back to zero. The counters belong to this module, one per device and
+stream, and one more for the graph capture under way on a stream
+(``_ticket``), so two launches that may run at once never share one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, ref
 
-#: columns per block of the kernel (``RS_TILE`` in ``row_sums.cuh``)
-TILE_D = 2048
-
-_ARGS = {"residual_norms_launch": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_longlong, ctypes.c_void_p)}
+_P = ctypes.c_void_p
+_ARGS = {
+    "residual_norms_launch": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                              ctypes.c_int, ctypes.c_int, _P),
+    "rn_capture_id": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
+}
+#: (device, stream, under capture) -> (capture id, ticket counter)
+_TICKETS: Dict[Tuple[int, int, bool], Tuple[int, torch.Tensor]] = {}
 
 
 def sources():
-    return [("residual_norms",
-             _build.read_source("row_sums.cuh") + _build.read_source("residual_norms.cu"))]
+    return [("residual_norms", _build.read_source("residual_norms.cu"))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,12 +44,39 @@ def _lib():
     return _build.load(name, text, _ARGS)
 
 
+#: threads a block (``RN_THREADS``)
+THREADS = 256
+
+
+def geometry(W: int, d: int, n_sm: int) -> Tuple[int, int]:
+    """``(threads, blocks)`` of a launch: 256 threads, one group of 4
+    columns a thread, and at most as many blocks as fit on the card at once
+    (``RN_MIN_BLOCKS``: 2 an SM up to W = 8, 1 above), each owning a
+    contiguous range of column groups."""
+    n_vec = -(-d // 4)
+    per_sm = 2 if W <= 8 else 1
+    return THREADS, min(-(-n_vec // THREADS), n_sm * per_sm)
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The zeroed counter for a launch on ``stream``. Under a graph capture
+    it is made (and zeroed, by a node of that graph) once per capture; the
+    previous capture's counter stays with its graph's memory pool."""
+    cid = ctypes.c_ulonglong()
+    _build.check_launch("residual_norms", _lib().rn_capture_id(stream, ctypes.byref(cid)))
+    key = (device.index, stream, cid.value != 0)
+    held = _TICKETS.get(key)
+    if held is None or held[0] != cid.value:
+        held = _TICKETS[key] = (cid.value, torch.zeros(1, dtype=torch.int32, device=device))
+    return held[1]
+
+
 def residual_norms(xs: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *,
                    center: Optional[torch.Tensor] = None) -> torch.Tensor:
     """xs: ``[W, d]`` -> ``[W]`` fp32, against ``v = coeffs^T xs`` (``coeffs``
     ``[W]``) or an explicit ``center`` ``[d]``; exactly one of the two, else
     ``ValueError``. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (fp32, contiguous, 1 <= W <= 64)."""
+    the kernel (fp32, contiguous, any W >= 1)."""
     if (coeffs is None) == (center is None):
         raise ValueError("provide exactly one of coeffs / center")
     W, d = xs.shape
@@ -57,11 +91,13 @@ def residual_norms(xs: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *,
     out = torch.empty((W,), dtype=torch.float32, device=xs.device)
     if d == 0:
         return out.zero_()
-    partial = torch.empty((W, -(-d // TILE_D)), dtype=torch.float32, device=xs.device)
+    threads, blocks = geometry(W, d, _build.sm_count(xs.device.index))
+    partial = torch.empty((W, blocks), dtype=torch.float32, device=xs.device)
+    stream = _build.stream_of(xs)
     code = _lib().residual_norms_launch(
         xs.data_ptr(), None if coeffs is None else coeffs.data_ptr(),
         None if center is None else center.data_ptr(), out.data_ptr(), partial.data_ptr(),
-        W, d, _build.stream_of(xs))
+        _ticket(xs.device, stream).data_ptr(), W, d, threads, blocks, stream)
     _build.check_launch("residual_norms", code)
     LAUNCHES["residual_norms"] += 1
     return out

@@ -164,7 +164,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         pairwise_gram.pairwise_gram(x.T)
     with pytest.raises(ValueError):
-        bucket_mix.bucket_mix(torch.ones((1, 65), device=cuda), torch.ones((65, 8), device=cuda))
+        bucket_mix.bucket_mix(torch.full((1, 5), 0.2, device=cuda), x.cpu())
 
 
 @pytest.mark.cuda
@@ -205,21 +205,163 @@ def test_norms_repeat_bitwise_on_card(cuda):
 def test_norm_and_clip_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.randn((5, 4096), device=cuda)
     v, lam = torch.randn(4096, device=cuda), torch.rand(5, device=cuda)
-    wide = torch.randn((65, 64), device=cuda)
     for call in (lambda: residual_norms(x.double(), lam.double()),
                  lambda: residual_norms(x, center=v.half()),
                  lambda: cclip_fused_iter(x, v.double(), lam),
                  lambda: cclip_combine(x.bfloat16(), v, lam)):
         with pytest.raises(TypeError):
             call()
-    for call in (lambda: residual_norms(wide, torch.rand(65, device=cuda)),
-                 lambda: cclip_fused_iter(wide, torch.zeros(64, device=cuda),
-                                          torch.rand(65, device=cuda)),
-                 lambda: cclip_combine(wide, torch.zeros(64, device=cuda),
-                                       torch.rand(65, device=cuda)),
-                 lambda: residual_norms(x, center=v.cpu())):
+    for call in (lambda: residual_norms(x, center=v.cpu()),
+                 lambda: residual_norms(x[:, ::2], center=v[::2]),
+                 lambda: cclip_fused_iter(x, v.cpu(), lam),
+                 lambda: cclip_combine(x, v, lam.cpu())):
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [65, 128])
+@pytest.mark.parametrize("d", [106_496, 4097])
+def test_wide_kernels_match_plain_on_card(cuda, W, d):
+    """Above 64 workers every aggregation kernel runs (the Gram through one
+    launch per pair of 32-row groups) and agrees with its plain version:
+    CM/TM bit for bit, the rest at the reference's tolerances."""
+    gen = torch.Generator(cuda).manual_seed(W + d)
+    x = torch.randn((W, d), device=cuda, generator=gen) * 3
+    for rows in (W // 2, 65):
+        m = torch.rand((rows, W), device=cuda, generator=gen)
+        m = m / m.sum(1, keepdim=True)
+        torch.testing.assert_close(bucket_mix.bucket_mix(m, x), ref.bucket_mix(m, x),
+                                   rtol=1e-5, atol=1e-4)
+    scale = x.abs() @ x.abs().T
+    reset_launches()
+    g = pairwise_gram.pairwise_gram(x)
+    groups = len(pairwise_gram.row_groups(W))
+    assert LAUNCHES["pairwise_gram"] == groups * (groups - 1) // 2
+    assert torch.equal(g, g.T) and torch.equal(g, pairwise_gram.pairwise_gram(x))
+    assert bool(((g - ref.pairwise_gram(x)).abs() <= 1e-3 + 1e-5 * scale).all())
+    assert torch.equal(cwise_median.cwise_median(x), ref.cwise_median(x))
+    for b in (1, (W - 1) // 2):
+        assert torch.equal(trimmed_mean.cwise_trimmed_mean(x, b), ref.cwise_trimmed_mean(x, b))
+    c = torch.softmax(torch.randn(W, device=cuda, generator=gen), 0)
+    v = torch.randn(d, device=cuda, generator=gen)
+    lam = torch.rand(W, device=cuda, generator=gen)
+    torch.testing.assert_close(residual_norms(x, c), ref.residual_norms(x, c),
+                               rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(residual_norms(x, center=v), ref.residual_norms(x, center=v),
+                               rtol=1e-4, atol=1e-3)
+    v_new, r2 = cclip_fused_iter(x, v, lam)
+    v_ref, r2_ref = ref.cclip_fused_iter(x, v, lam)
+    torch.testing.assert_close(v_new, v_ref, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(r2, r2_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(cclip_combine(x, v, lam), ref.cclip_combine(x, v, lam),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wide_gram_chain_bitwise_on_card(cuda):
+    """The grouped route at W = 80 chains over 2048-aligned cuts, seeded
+    with a symmetric acc, bit for bit, and each call repeats."""
+    tile = pairwise_gram.TILE_D
+    gen = torch.Generator(cuda).manual_seed(80)
+    x = torch.randn((80, 5 * tile + 300), device=cuda, generator=gen)
+    seed = torch.randn((80, 80), device=cuda, generator=gen)
+    seed = seed + seed.T
+    whole = pairwise_gram.pairwise_gram(x, seed)
+    assert torch.equal(whole, whole.T) and torch.equal(whole, pairwise_gram.pairwise_gram(x, seed))
+    acc = seed
+    for lo, hi in [(0, 2 * tile), (2 * tile, 3 * tile), (3 * tile, x.shape[1])]:
+        acc = pairwise_gram.pairwise_gram(x[:, lo:hi].contiguous(), acc)
+    assert torch.equal(acc, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [129, 200])
+def test_selection_past_128_rows_on_card(cuda, W):
+    """Past 128 rows the programs spill out of the registers: slower, and
+    the same bits."""
+    x = torch.randn((W, 3000), device=cuda, generator=torch.Generator(cuda).manual_seed(W))
+    assert torch.equal(cwise_median.cwise_median(x), ref.cwise_median(x))
+    assert torch.equal(trimmed_mean.cwise_trimmed_mean(x, (W - 1) // 2),
+                       ref.cwise_trimmed_mean(x, (W - 1) // 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,m", [(10, 5), (25, 13), (10, 1), (3, 2), (53, 27), (70, 20)])
+@pytest.mark.parametrize("d", [4097, 100_003])
+def test_mix_unaligned_rows_give_the_aligned_bits_on_card(cuda, W, m, d):
+    """Rows that are not 16-byte aligned take the predicated loads; each
+    column's bits are those of the same column in an aligned call (the
+    columns padded to a multiple of 4), and a call repeats bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(d + W)
+    x = torch.randn((W, d), device=cuda, generator=gen)
+    mix = torch.rand((m, W), device=cuda, generator=gen)
+    mix = mix / mix.sum(1, keepdim=True)
+    got = bucket_mix.bucket_mix(mix, x)
+    assert torch.equal(got, bucket_mix.bucket_mix(mix, x))
+    padded = torch.nn.functional.pad(x, (0, -d % 4)).contiguous()
+    assert torch.equal(got, bucket_mix.bucket_mix(mix, padded)[:, :d])
+    buf = torch.empty(W * d + 1, device=cuda)
+    off = buf[1:].view(W, d)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 4
+    assert torch.equal(got, bucket_mix.bucket_mix(mix, off))
+    torch.testing.assert_close(got, ref.bucket_mix(mix, x), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [5, 10, 25, 40, 53])
+@pytest.mark.parametrize("d", [4097, 100_003])
+def test_norms_unaligned_rows_on_card(cuda, W, d):
+    """The predicated-load route of residual_norms, both forms, against the
+    plain version, and repeating bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(W * d)
+    x = torch.randn((W, d), device=cuda, generator=gen) * 3
+    c = torch.softmax(torch.randn(W, device=cuda, generator=gen), 0)
+    buf = torch.empty(d + 1, device=cuda)
+    v = buf[1:]
+    v.copy_(torch.randn(d, device=cuda, generator=gen))
+    for call, want in ((lambda: residual_norms(x, c), ref.residual_norms(x, c)),
+                       (lambda: residual_norms(x, center=v), ref.residual_norms(x, center=v))):
+        got = call()
+        assert torch.equal(got, call())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_residual_norms_is_one_kernel_and_captures_on_card(cuda):
+    """The fold runs in the same launch: one CUDA kernel a call and no
+    memset; a CUDA graph of calls (its own ticket counter) replays to the
+    eager bits, and eager calls after it still agree."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(cuda).manual_seed(6)
+    x = torch.randn((10, 106_496), device=cuda, generator=gen)
+    c = torch.softmax(torch.randn(10, device=cuda, generator=gen), 0)
+    want = residual_norms(x, c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            residual_norms(x, c)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    assert sum(e.count for e in kernels) == 5, [(e.key, e.count) for e in kernels]
+    assert all("residual_norms" in e.key for e in kernels)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        residual_norms(x, c)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [residual_norms(x, c) for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+    assert torch.equal(residual_norms(x, c), want)
 
 
 # fp32 at the reference's 2e-4; bf16 at torch's bf16 default (rtol 1.6e-2,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.kernels as rkernels
 from repro.kernels import ops as rops
 from repro.kernels import selection_network as rsel
 from repro_torch.kernels import LAUNCHES, _build, reset_launches
@@ -128,3 +129,113 @@ def test_cuda_wrappers_refuse_non_cuda_devices():
                  lambda: tops.mix_apply(torch.zeros((1, 5), device="meta"), x)):
         with pytest.raises(ValueError):
             call()
+
+
+# ------------------------------------------- more than 64 workers (W > 64)
+# The kernels take any W on the card; their plain versions (what the card
+# is held to) against the reference's Pallas kernels in interpret mode.
+WIDE = [65, 128]
+
+
+def _wide_case(W, d=300):
+    x = _xs((W, d), seed=W)
+    v = np.random.default_rng(W + 1).standard_normal(d).astype(np.float32)
+    lam = np.random.default_rng(W + 2).uniform(size=W).astype(np.float32)
+    c = np.random.default_rng(W + 3).uniform(size=W).astype(np.float32)
+    return x, v, lam, c / c.sum()
+
+
+@pytest.mark.parametrize("W", WIDE)
+@pytest.mark.parametrize("m", [None, 65])  # None: W // 2 rows
+def test_wide_bucket_mix_matches_reference(W, m):
+    x = _xs((W, 300), seed=W)
+    rows = W // 2 if m is None else m
+    mix = np.random.default_rng(W + rows).uniform(size=(rows, W))
+    mix = (mix / mix.sum(1, keepdims=True)).astype(np.float32)
+    expect = np.asarray(rkernels.bucket_mix(jnp.asarray(mix), jnp.asarray(x)))
+    np.testing.assert_allclose(tops.mix_apply(torch.tensor(mix), torch.tensor(x)).numpy(),
+                               expect, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("W", WIDE)
+def test_wide_gram_matches_reference(W):
+    x, _, _, _ = _wide_case(W)
+    acc = _xs((W, W), seed=W + 4)
+    acc = acc + acc.T
+    np.testing.assert_allclose(
+        tops.gram(torch.tensor(x), torch.tensor(acc)).numpy(),
+        np.asarray(rkernels.pairwise_gram(jnp.asarray(x), jnp.asarray(acc))),
+        rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("W", WIDE)
+def test_wide_cm_bitwise(W):
+    x, _, _, _ = _wide_case(W)
+    np.testing.assert_array_equal(tops.cm_aggregate(torch.tensor(x)).numpy(),
+                                  np.asarray(rkernels.cwise_median(jnp.asarray(x))))
+
+
+# the reference traces one operation per comparator: the bands with the
+# shortest programs at W = 128 (n_trim = 1 there takes a minute to trace)
+@pytest.mark.parametrize("W,n_trim", [(65, 1), (65, 32), (128, 63)])
+def test_wide_tm_bitwise(W, n_trim):
+    x, _, _, _ = _wide_case(W)
+    np.testing.assert_array_equal(
+        tops.tm_aggregate(torch.tensor(x), n_trim).numpy(),
+        np.asarray(rkernels.cwise_trimmed_mean(jnp.asarray(x), n_trim)))
+
+
+@pytest.mark.parametrize("n_trim", [1, 2, 32])
+def test_wide_tm_long_band_bitwise_against_a_sort(n_trim):
+    """W = 128 with long bands, whose programs take the reference minutes to
+    trace: the band of a full sort, summed in rank order in fp32 and scaled
+    by the fp32 reciprocal, is what the plain version must give bit for bit."""
+    x, _, _, _ = _wide_case(128)
+    band = np.sort(x, axis=0)[n_trim:128 - n_trim]
+    acc = band[0].copy()
+    for row in band[1:]:
+        acc = acc + row
+    expect = acc * np.float32(tsel.band_scale(len(band)))
+    np.testing.assert_array_equal(tops.tm_aggregate(torch.tensor(x), n_trim).numpy(), expect)
+
+
+@pytest.mark.parametrize("W", WIDE)
+def test_wide_norms_and_clip_match_reference(W):
+    x, v, lam, c = _wide_case(W)
+    xt, vt, lamt, ct = (torch.tensor(a) for a in (x, v, lam, c))
+    xj, vj, lamj, cj = (jnp.asarray(a) for a in (x, v, lam, c))
+    np.testing.assert_allclose(tops.norms(xt, ct).numpy(),
+                               np.asarray(rkernels.residual_norms(xj, cj)), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(tops.norms(xt, center=vt).numpy(),
+                               np.asarray(rkernels.residual_norms(xj, center=vj)),
+                               rtol=1e-4, atol=1e-3)
+    v_new, r2 = tops.cclip_iter(xt, vt, lamt)
+    v_ref, r2_ref = rkernels.cclip_fused_iter(xj, vj, lamj)
+    np.testing.assert_allclose(v_new.numpy(), np.asarray(v_ref), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(r2.numpy(), np.asarray(r2_ref), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(tops.cclip_combine(xt, vt, lamt).numpy(),
+                               np.asarray(rkernels.cclip_combine(xj, vj, lamj)),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("W", [1, 5, 64, 65, 128, 200, 1000, 2000])
+def test_selection_layout_by_width(W):
+    """Every W takes the one layout: a thread's column in a register array
+    of W values, the median program unrolled on literal indices, nothing
+    left of the template."""
+    (_, text), = cwise_median.sources(W)
+    assert f"#define SEL_W {W}" in text and "float v[SEL_W];" in text
+    assert "@" not in text.replace("@-placeholders", "")
+    n_cx = text.count("CX(") - text.count("#define CX(")
+    assert n_cx == len(tsel.selection_program(W, tsel.median_ranks(W)))
+
+
+@pytest.mark.parametrize("d,n_sm,want", [(26_624, 132, 64), (106_496, 132, 224),
+                                         (16_777_216, 132, 256), (1, 132, 64),
+                                         (106_496, 114, 256)])
+def test_fitted_threads(d, n_sm, want):
+    """One thread per 4 columns, the fewest threads (a multiple of 32, 64 ..
+    256) that cover the columns with one block an SM."""
+    threads = _build.fitted_threads(-(-d // 4), n_sm)
+    assert threads == want
+    assert threads * n_sm * 4 >= d or threads == 256

@@ -31,7 +31,8 @@ import torch
 
 from repro.kernels.pairwise_gram import pairwise_gram as rgram
 from repro_torch.kernels import ref
-from repro_torch.kernels.pairwise_gram import TILE_D, variant
+from repro_torch.kernels.pairwise_gram import (GROUP_ROWS, MAX_ROWS, TILE_D, grouped_gram,
+                                               row_groups, variant)
 
 STAGE, FOLD_PAIRS = 128, 4  # GR_C, GR_FOLD_PAIRS of the source
 
@@ -202,3 +203,56 @@ def test_variant_rule(d, ptr, want):
     """TMA needs 16-byte aligned rows (base and row stride) and a 32-bit
     column coordinate; anything else takes the predicated loads."""
     assert variant(d, ptr) == want
+
+
+# ------------------------------------- more than 64 rows: the grouped route
+# On the card, W > 64 goes through ``grouped_gram``: groups of at most 32
+# rows, one kernel call for each pair of groups on their rows stacked. Here
+# the calls are the emulation above.
+@pytest.mark.parametrize("W", [65, 128])
+def test_grouped_route_matches_reference_kernel(W):
+    """Within the reference's rtol 1e-5 / atol 1e-3, the rtol taken against
+    |X| |X|^T as on the card (tests/test_torch_cuda.py): fp32 rounding of a
+    dot product scales with sum_k |x_ik x_jk|, and among the 8,256 pairs at
+    W = 128 a few cancel to values of ~5 whose rounding in either order
+    exceeds 1e-5 of the value. The error against an fp64 Gram is no larger
+    than the reference's."""
+    x = _x(W, 2 * 2048 + 5, seed=W)
+    a = _x(W, W, seed=300 + W)
+    a = a + a.T
+    scale = np.abs(x).astype(np.float64) @ np.abs(x).T.astype(np.float64)
+    exact = x.astype(np.float64) @ x.T.astype(np.float64)
+    for acc in (None, a):
+        want = np.asarray(rgram(jnp.asarray(x), None if acc is None else jnp.asarray(acc)))
+        got = grouped_gram(torch.tensor(x), None if acc is None else torch.tensor(acc),
+                           emulate).numpy()
+        assert (np.abs(got - want) <= 1e-3 + 1e-5 * scale).all()
+        np.testing.assert_array_equal(got, got.T)
+        if acc is None:
+            assert np.abs(got - exact).max() <= np.abs(want - exact).max()
+
+
+@pytest.mark.parametrize("W,cuts", [(65, [2048]), (128, [2048, 2 * 2048])])
+def test_grouped_chain_equals_one_call_bitwise(W, cuts):
+    """2048-aligned cuts: each group pair's call chains as the kernel does,
+    and every block is read from the same pair's call in both."""
+    d = 3 * 2048 + 7
+    x = torch.tensor(_x(W, d, seed=W + d))
+    whole = grouped_gram(x, None, emulate)
+    acc = None
+    for lo, hi in zip([0] + cuts, cuts + [d]):
+        acc = grouped_gram(x[:, lo:hi].contiguous(), acc, emulate)
+    assert torch.equal(acc, whole)
+    assert torch.equal(grouped_gram(x, None, emulate), whole)
+
+
+@pytest.mark.parametrize("W", [65, 96, 97, 128, 129, 300])
+def test_row_groups_fit_one_call_per_pair(W):
+    """Groups cover the rows once, in order, at most GROUP_ROWS each, so a
+    pair stacked is at most MAX_ROWS, one call of the kernel."""
+    groups = row_groups(W)
+    assert groups[0][0] == 0 and groups[-1][1] == W
+    assert all(hi == lo2 for (_, hi), (lo2, _) in zip(groups[:-1], groups[1:]))
+    sizes = [hi - lo for lo, hi in groups]
+    assert max(sizes) <= GROUP_ROWS and max(sizes) - min(sizes) <= 1
+    assert 2 * GROUP_ROWS == MAX_ROWS
