@@ -10,8 +10,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    (one ``nvcc`` per source, all at once), and print the registers and spills
    ``ptxas`` reports for each instance of the tensor-core attention kernel
    (``flash_attention_wgmma.cu``), the Gram kernel (``pairwise_gram.cu``),
-   ``bucket_mix.cu``, ``residual_norms.cu``, ``cclip.cu`` and the selection
-   kernels at W = 65 and 128; a spill fails the phase.
+   ``bucket_mix.cu``, ``residual_norms.cu``, ``cclip.cu`` and every instance
+   of the selection kernels it builds (W = 5 .. 128); a spill fails the
+   phase.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (cohort W = 10, m = 5 buckets, d = 106,496: the
    784-128-10 MLP packed) and at the paper's n (W = 25, m = 13) with
@@ -23,9 +24,13 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    shapes (``VARIANT_LAUNCHES``), and by predicated loads at an unaligned
    X[10, 100,003], whose Gram equals bit for bit the TMA call on the same
    columns padded to 2048. Above 64 workers (W = 65 and 128, d = 106,496)
-   the mix and combine, the Gram (one launch per pair of 32-row groups:
-   symmetric, bitwise repeatable), CM and TM are held, timed and bounded
-   the same way.
+   the mix and combine and the Gram (one launch per pair of 32-row groups:
+   symmetric, bitwise repeatable) are held, timed and bounded the same way.
+   CM and TM (``SELECTION_SHAPES``: X[5, 106,496] with b = 1, 2; a rank's
+   X[5, 26,624]; X[13, 16.7 M] and X[27, 16.7 M] with b = 5; X[65 / 128,
+   106,496] with b = W // 4) are held bit for bit, on random values and on
+   the same values with NaN, signed-zero and infinite columns, and bounded
+   by min / max and add instruction rates (``selection_ops``).
 3. Drive the main path: ``CrossDeviceSim`` trains the MLP for 120 rounds
    under four rule/attack pairs. For each pair the kernel launch counts are
    set to 0 just before its run and read just after: each kernel of its
@@ -101,6 +106,13 @@ from pathlib import Path
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
+#: Instruction rates behind the fp32 peak (132 SMs x 128 FMA a clock x 2 flops
+#: x 1.98 GHz): the CUDA C++ Programming Guide's throughput table for
+#: compute capability 9.0 gives 128 results a clock an SM for fp32 add /
+#: multiply / FMA and 64 for compare / minimum / maximum, so a min or a max
+#: costs two fp32 flops' time and an add one.
+PEAK_FADD_PER_S = PEAK_FP32_PER_S / 2
+PEAK_MINMAX_PER_S = PEAK_FP32_PER_S / 4
 
 MAIN_D = 106_496          # the MLP's packed width (4 leaves padded to 2048)
 PAPER_D = 16_777_216      # 1.68 GB at W = 25: above launch latency
@@ -109,6 +121,13 @@ SYNC_RANKS = 4            # ranks of the sharded sync, all on cuda:0
 RANK_D = MAIN_D // SYNC_RANKS
 SYNC_REPS = 20
 WIDE_W = (65, 128)        # workers above the 64 the register arrays hold
+#: selection rows (W, d, n_trim values, (reps, batch)): the path (5 buckets of
+#: the W = 10 cohort), a rank's slice of the 4-rank sync, the paper's n = 25
+#: and n = 53 in buckets (13 / 27 rows), and the wide rows trimming W // 4;
+#: the path's own shape first
+SELECTION_SHAPES = [(5, MAIN_D, (1, 2), (20, 50)), (5, RANK_D, (1,), (20, 50)),
+                    (13, PAPER_D, (5,), (10, 1)), (27, PAPER_D, (5,), (10, 1))] + [
+    (W, MAIN_D, (W // 4,), (20, 10)) for W in WIDE_W]
 ATTN_S = 4096             # the attention and serving phases' sequence length
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
@@ -164,32 +183,68 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def selection_ops(W: int, d: int, n_trim=None) -> float:
+    """Operations of a CM (``n_trim`` None) or TM call, as min / max
+    instructions at ``PEAK_MINMAX_PER_S``: per column, each min or max of
+    the program whose result is read again (``live_minmax``), and the adds
+    and the multiply that form the result (TM's band, the even median's
+    midpoint) at ``PEAK_FADD_PER_S``. Min / max and add run on separate
+    pipes, so the larger of the two counts."""
+    from repro_torch.kernels.selection_network import median_ranks, trim_ranks
+
+    if n_trim is None:
+        ranks = median_ranks(W)
+        n_minmax, n_add = live_minmax(W, ranks), 2 * (len(ranks) - 1)
+    else:
+        n_minmax = live_minmax(W, trim_ranks(W, n_trim)) if n_trim else 0
+        n_add = W - 2 * n_trim
+    return max(n_minmax, n_add * PEAK_MINMAX_PER_S / PEAK_FADD_PER_S) * d
+
+
+def live_minmax(W: int, ranks) -> int:
+    """Mins and maxes of ``selection_program(W, ranks)`` whose result a later
+    comparator or the result reads: a comparator whose lower (upper) slot
+    is dead afterwards needs no min (max); ptxas drops those."""
+    from repro_torch.kernels.selection_network import selection_program
+
+    live, n = set(ranks), 0
+    for i, j in reversed(selection_program(W, tuple(ranks))):
+        need = (i in live) + (j in live)
+        n += need
+        if need:
+            live |= {i, j}
+    return n
+
+
 def build_phase():
     from repro_torch.kernels import (_build, bucket_mix, cclip_fused, cwise_median,
                                      flash_attention, pairwise_gram, trimmed_mean,
                                      weiszfeld_norms)
 
     # every library the ranks of phase 6 load is built here, before they start
-    wide = [src for W in WIDE_W
-            for src in cwise_median.sources(W) + trimmed_mean.sources(W, W // 4)]
-    sources = (bucket_mix.sources() + pairwise_gram.sources()
-               + cwise_median.sources(5) + cwise_median.sources(13)
-               + trimmed_mean.sources(5, 1) + trimmed_mean.sources(13, 5)
-               + trimmed_mean.sources(5, 2) + weiszfeld_norms.sources()
-               + cclip_fused.sources() + flash_attention.sources() + wide)
+    selection = {
+        "cwise_median": list(dict.fromkeys(
+            src for W, _, _, _ in SELECTION_SHAPES for src in cwise_median.sources(W))),
+        "cwise_trimmed_mean": list(dict.fromkeys(
+            src for W, _, trims, _ in SELECTION_SHAPES for b in trims
+            for src in trimmed_mean.sources(W, b)))}
+    sources = (bucket_mix.sources() + pairwise_gram.sources() + weiszfeld_norms.sources()
+               + cclip_fused.sources() + flash_attention.sources()
+               + selection["cwise_median"] + selection["cwise_trimmed_mean"])
     seconds = _build.build_all(sources)
     log(f"build: {len(sources)} CUDA sources for sm_90a ready in {seconds:.1f} s "
         f"({_build.BUILD_DIR})")
     ptxas = {}
     # each instance's registers and spills: the tensor-core attention and
-    # the Gram, bucket_mix and residual_norms, the CCLIP kernels and the
-    # selection kernels at W = 65 and 128. A spill fails the phase, but for
-    # the CCLIP kernels at W <= 64: cclip_fused_partial_kernel<32> and <64>
+    # the Gram, bucket_mix and residual_norms, the CCLIP kernels and every
+    # selection instance built here (all at W <= 128). A spill fails the
+    # phase, but for the CCLIP kernels at W <= 64: cclip_fused_partial_kernel<32> and <64>
     # spill a few bytes (8 and 40 B of stores), as they did when they were
     # written, and keep their code; their route above 64 rows is held to it.
     old_cclip = ("cclip_fused_partial_kernel<32>", "cclip_fused_partial_kernel<64>")
     checked = [("flash_attention_wgmma", "DH"), ("pairwise_gram", "L"), ("bucket_mix", ""),
-               ("residual_norms", ""), ("cclip", "")] + [(n, "") for n, _ in wide]
+               ("residual_norms", ""), ("cclip", "")] + [
+        (n, "") for srcs in selection.values() for n, _ in srcs]
     for name, param in checked:
         (text,) = [t for n, t in sources if n == name]
         ptxas[name] = res = ptxas_resources(_build.build_log(name, text), param)
@@ -199,6 +254,8 @@ def build_phase():
         held = {i: r for i, r in res.items() if i not in old_cclip}
         if not res or any(r["spill_stores"] or r["spill_loads"] for r in held.values()):
             raise AssertionError(f"{name}: ptxas resources {res} (a spill, or no report)")
+    for kernel, srcs in selection.items():
+        ptxas[kernel] = {n: ptxas[n] for n, _ in srcs}
     return ptxas
 
 
@@ -234,12 +291,12 @@ def ptxas_resources(text: str, param: str = ""):
 
 
 def measure(results, name, label, kernel, plain, library, n_bytes, n_ops, timing, check,
-            peak_ops=PEAK_FP32_PER_S):
+            peak_ops=PEAK_FP32_PER_S, extra=None):
     """Hold ``kernel()`` against ``plain()`` with ``check``, time kernel, plain
-    version and library call, and append the row to ``results[name]``. A
-    kernel with several outputs returns a tuple, checked by a tuple of checks;
-    the error is the largest. ``peak_ops`` is the card's peak for the inputs'
-    type (fp32 on the CUDA cores unless given)."""
+    version and library call, and append the row (with ``extra``'s keys) to
+    ``results[name]``. A kernel with several outputs returns a tuple, checked
+    by a tuple of checks; the error is the largest. ``peak_ops`` is the
+    card's peak for the inputs' type (fp32 on the CUDA cores unless given)."""
     import torch
 
     got, want = kernel(), plain()
@@ -253,7 +310,8 @@ def measure(results, name, label, kernel, plain, library, n_bytes, n_ops, timing
     row = dict(shape=label, max_abs_err=err, ms=time_ms(kernel, *timing),
                plain_ms=time_ms(plain, *timing),
                library_ms=None if library is None else time_ms(library, *timing),
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by, bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
+               ops_ms=n_ops / peak_ops * 1e3, **(extra or {}))
     results[name].append(row)
     lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
     log(f"kernel {name} [{label}]: max_abs_err {err:.3g}  ms {row['ms']:.4f}  "
@@ -274,8 +332,7 @@ def kernel_cases(dev):
 
     cases = []
     # (reps, batch) for time_ms: many calls per graph where a call is short
-    for W, m_rows, b, d, timing in [(10, 5, 1, MAIN_D, (20, 50)),
-                                    (25, 13, 5, PAPER_D, (10, 1))]:
+    for W, m_rows, d, timing in [(10, 5, MAIN_D, (20, 50)), (25, 13, PAPER_D, (10, 1))]:
         gen = torch.Generator(dev).manual_seed(W)
         x = torch.randn((W, d), device=dev, generator=gen)
         perm = torch.randperm(W, generator=torch.Generator().manual_seed(W))
@@ -283,8 +340,7 @@ def kernel_cases(dev):
         assert mix.shape == (m_rows, W)
         weights = torch.rand((1, W), device=dev, generator=gen)
         weights = weights / weights.sum()
-        cases.append(dict(W=W, m=m_rows, b=b, d=d, timing=timing, x=x, mix=mix,
-                          weights=weights))
+        cases.append(dict(W=W, d=d, timing=timing, x=x, mix=mix, weights=weights))
     return cases
 
 
@@ -293,11 +349,7 @@ def kernel_phase(dev):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.bucket_mix import bucket_mix
-    from repro_torch.kernels.cwise_median import cwise_median
     from repro_torch.kernels.pairwise_gram import TILE_D, pairwise_gram
-    from repro_torch.kernels.selection_network import (median_ranks, selection_program,
-                                                       trim_ranks)
-    from repro_torch.kernels.trimmed_mean import cwise_trimmed_mean
 
     results = {name: [] for name in ("bucket_mix", "pairwise_gram", "cwise_median",
                                      "cwise_trimmed_mean")}
@@ -317,12 +369,8 @@ def kernel_phase(dev):
                                      "beyond 1e-3 + 1e-5 |X||X|^T")
         return check
 
-    def bitwise(got, want):
-        if not torch.equal(got, want):
-            raise AssertionError("kernel and plain version differ bitwise")
-
     for case in kernel_cases(dev):
-        W, m, b, d = case["W"], case["m"], case["b"], case["d"]
+        W, d = case["W"], case["d"]
         timing = case["timing"]
         x, mix, weights = case["x"], case["mix"], case["weights"]
         for what, M in (("mix", mix), ("combine", weights)):
@@ -358,31 +406,7 @@ def kernel_phase(dev):
             raise AssertionError("pairwise_gram acc chain differs from one call")
         log(f"check pairwise_gram X[{W},{d}]: {kind}, bitwise repeatable, symmetric, "
             f"{len(cuts) - 1}-call acc chain == one call")
-
-        mixed = bucket_mix(mix, x)
-        n_med = len(selection_program(m, median_ranks(m)))
-        record("cwise_median", f"X[{m},{d}]", lambda: cwise_median(mixed),
-               lambda: ref.cwise_median(mixed),
-               lambda: torch.median(mixed, dim=0).values,
-               (m + 1) * d * 4, 2 * n_med * d, timing, bitwise)
-        band = trim_ranks(m, b)
-        n_tm = len(selection_program(m, band))
-        record("cwise_trimmed_mean", f"X[{m},{d}] b={b}",
-               lambda: cwise_trimmed_mean(mixed, b),
-               lambda: ref.cwise_trimmed_mean(mixed, b),
-               lambda: torch.sort(mixed, dim=0).values[b:m - b].mean(dim=0),
-               (m + 1) * d * 4, (2 * n_tm + len(band)) * d, timing, bitwise)
-
-        if d == MAIN_D:
-            poisoned = mixed.clone()
-            poisoned[2, 7] = float("nan")
-            med, want = cwise_median(poisoned), ref.cwise_median(poisoned)
-            if not (torch.isnan(med[7]) and torch.isnan(want[7])
-                    and torch.equal(torch.cat([med[:7], med[8:]]),
-                                    torch.cat([want[:7], want[8:]]))):
-                raise AssertionError("cwise_median does not propagate a NaN column")
-            log("check cwise_median: a NaN column comes out NaN, the rest bitwise")
-        del x, mixed
+        del x
         torch.cuda.empty_cache()
 
     # the Gram at a rank's slice of the 4-rank sync (krum, acclip)
@@ -409,23 +433,102 @@ def kernel_phase(dev):
     log(f"check pairwise_gram X[10,{d_odd}]: gram_ldg, within tolerance, bitwise equal to "
         "the TMA call on the same columns padded to 2048")
     del x, padded
-    wide_kernel_rows(dev, record, gram_close, bitwise)
+    wide_kernel_rows(dev, record, gram_close)
+    selection_rows(dev, record)
     return results
 
 
-def wide_kernel_rows(dev, record, gram_close, bitwise):
+def plant_specials(x):
+    """A copy of ``x`` [W, d] with a NaN in one row of a column, eight NaN
+    columns among one warp's columns and an all-NaN one, columns of mixed
+    +0 / -0 (alone and among other values), and +-inf (with a NaN in one
+    column)."""
+    import torch
+
+    W, d = x.shape
+    x = x.clone()
+    nan, inf = float("nan"), float("inf")
+    even = torch.arange(W, device=x.device) % 2 == 0
+    signed_zeros = torch.where(even, -0.0, 0.0)
+    x[W // 2, 7 % d] = nan
+    for j in range(8):
+        x[(3 * j) % W, (32 + j) % d] = nan
+    x[:, 40 % d] = nan
+    x[:, 64 % d] = signed_zeros
+    x[: (W + 1) // 2, 65 % d] = signed_zeros[: (W + 1) // 2]
+    x[0, 96 % d] = inf
+    x[W - 1, 97 % d] = -inf
+    x[:, 98 % d] = inf
+    x[:, 99 % d] = torch.where(even, -inf, inf)
+    x[:, 100 % d] = torch.where(torch.arange(W, device=x.device) % 3 == 0, -inf, inf)
+    x[W - 1, 100 % d] = nan
+    return x
+
+
+def same_bits(got, want) -> bool:
+    """Bit-for-bit equality, NaN payloads and signed zeros included."""
+    import torch
+
+    return got.shape == want.shape and torch.equal(got.view(torch.int32),
+                                                   want.view(torch.int32))
+
+
+def selection_rows(dev, record):
+    """Phase 2's CM and TM rows (``SELECTION_SHAPES``): bit for bit against
+    the plain version, timed beside ``torch.median`` and a sort with the band's
+    mean, bounded by ``selection_ops``; then the same values with
+    ``plant_specials``' NaN, signed-zero and infinite columns, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.cwise_median import cwise_median, threads_for
+    from repro_torch.kernels.trimmed_mean import cwise_trimmed_mean
+
+    def bitwise(got, want):
+        if not same_bits(got, want):
+            raise AssertionError("kernel and plain version differ bitwise")
+
+    for W, d, trims, timing in SELECTION_SHAPES:
+        x = torch.randn((W, d), device=dev, generator=torch.Generator(dev).manual_seed(W + d))
+        # one column a thread, in blocks of the wrapper's size
+        geometry = dict(threads=threads_for(W, d, _build.sm_count(torch.cuda.current_device())))
+        record("cwise_median", f"X[{W},{d}]", lambda: cwise_median(x),
+               lambda: ref.cwise_median(x), lambda: torch.median(x, dim=0).values,
+               (W + 1) * d * 4, selection_ops(W, d), timing, bitwise, PEAK_MINMAX_PER_S,
+               geometry)
+        rows = [("cwise_median", None)]
+        for b in trims:
+            record("cwise_trimmed_mean", f"X[{W},{d}] b={b}",
+                   lambda b=b: cwise_trimmed_mean(x, b), lambda b=b: ref.cwise_trimmed_mean(x, b),
+                   lambda b=b: torch.sort(x, dim=0).values[b:W - b].mean(dim=0),
+                   (W + 1) * d * 4, selection_ops(W, d, b), timing, bitwise, PEAK_MINMAX_PER_S,
+                   geometry)
+            rows.append(("cwise_trimmed_mean", b))
+        special = plant_specials(x)
+        del x
+        for name, b in rows:
+            got = cwise_median(special) if b is None else cwise_trimmed_mean(special, b)
+            want = ref.cwise_median(special) if b is None else ref.cwise_trimmed_mean(special, b)
+            bitwise(got, want)
+            if not bool(torch.isnan(got[7 % d])):
+                raise AssertionError(f"{name} X[{W},{d}]: a NaN column did not come out NaN")
+        log(f"check selection X[{W},{d}] ({geometry['threads']} threads a block): CM and TM "
+            f"b={list(trims)} bit for bit with the plain version, NaN, +-0 and +-inf "
+            "columns included")
+        del special, got, want
+        torch.cuda.empty_cache()
+
+
+def wide_kernel_rows(dev, record, gram_close):
     """Phase 2's rows above 64 workers (W = 65, 128) at the one-device d:
     mix (bucketing s = 2) and combine, the Gram (one launch per pair of
-    32-row groups), CM and TM (b = W // 4) on the W rows themselves."""
+    32-row groups); CM and TM there are ``selection_rows``'."""
     import torch
 
     from repro_torch.core.mixing import Bucketing
     from repro_torch.kernels import LAUNCHES, ref
     from repro_torch.kernels.bucket_mix import bucket_mix
-    from repro_torch.kernels.cwise_median import cwise_median
     from repro_torch.kernels.pairwise_gram import pairwise_gram, row_groups
-    from repro_torch.kernels.selection_network import median_ranks, selection_program, trim_ranks
-    from repro_torch.kernels.trimmed_mean import cwise_trimmed_mean
 
     d = MAIN_D
     for W in WIDE_W:
@@ -452,19 +555,8 @@ def wide_kernel_rows(dev, record, gram_close, bitwise):
         record("pairwise_gram", f"X[{W},{d}] ({calls} launches)", lambda: pairwise_gram(x),
                lambda: ref.pairwise_gram(x), lambda: torch.matmul(x, x.T),
                (W * d + W * W) * 4, W * (W + 1) * d, (20, 10), gram_close(x))
-        n_med = len(selection_program(W, median_ranks(W)))
-        record("cwise_median", f"X[{W},{d}]", lambda: cwise_median(x),
-               lambda: ref.cwise_median(x), lambda: torch.median(x, dim=0).values,
-               (W + 1) * d * 4, 2 * n_med * d, (20, 10), bitwise)
-        b = W // 4
-        band = trim_ranks(W, b)
-        n_tm = len(selection_program(W, band))
-        record("cwise_trimmed_mean", f"X[{W},{d}] b={b}",
-               lambda: cwise_trimmed_mean(x, b), lambda: ref.cwise_trimmed_mean(x, b),
-               lambda: torch.sort(x, dim=0).values[b:W - b].mean(dim=0),
-               (W + 1) * d * 4, (2 * n_tm + len(band)) * d, (20, 10), bitwise)
-        log(f"check W = {W}: every aggregation kernel of phase 2 ran and agreed with its "
-            f"plain version (the Gram in {calls} launches, symmetric, bitwise repeatable)")
+        log(f"check W = {W}: the mix, the combine and the Gram agreed with their plain "
+            f"versions (the Gram in {calls} launches, symmetric, bitwise repeatable)")
         del x, g
         torch.cuda.empty_cache()
 
@@ -1162,8 +1254,12 @@ def main() -> int:
     # flash_attention: the tensor-core kernel (bf16, the main path's rows) and
     # the CUDA-core one (fp32 and the bf16 inputs TMA refuses)
     # the two kernels redesigned last: every instance's ptxas report
+    # the selection kernels: each built instance's report (its name gives W
+    # and n_trim); each case row gives its block size
     other = {"bucket_mix": {"ptxas": ptxas["bucket_mix"]},
              "residual_norms": {"ptxas": ptxas["residual_norms"]},
+             "cwise_median": {"ptxas": ptxas["cwise_median"]},
+             "cwise_trimmed_mean": {"ptxas": ptxas["cwise_trimmed_mean"]},
              "flash_attention": {"sources": [
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro_torch/kernels/csrc/flash_attention.cu",

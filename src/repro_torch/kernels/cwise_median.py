@@ -6,20 +6,25 @@ worker count W carries the pruned Batcher program
 ``selection_program(W, median_ranks(W))`` unrolled into register
 compare-exchanges; for even W the result is ``0.5 * (a + b)`` of the two
 middle order statistics, in the reference's order of operations.
+``select`` launches a library built from that template (the trimmed
+mean's too) in blocks of ``threads_for`` threads.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, ref
 from repro_torch.kernels.selection_network import emit_cuda, median_ranks
 
-SELECT_ARGS = {"select_launch": (ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_longlong, ctypes.c_void_p)}
+SELECT_ARGS = {"select_launch": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_void_p)}
+#: widest W whose blocks are fitted to the card; wider W, whose threads hold
+#: more registers, takes WIDE_THREADS-thread blocks
+FITTED_MAX_W = 32
+WIDE_THREADS = 64
 
 
 def sources(W: int):
@@ -38,6 +43,25 @@ def _lib(W: int):
     return _build.load(name, text, SELECT_ARGS)
 
 
+def threads_for(W: int, d: int, n_sm: int) -> int:
+    """Threads a block (one column a thread): up to ``FITTED_MAX_W`` rows the
+    fewest that cover the columns with one block an SM; above, 64, so
+    blocks of many registers pack several to an SM."""
+    return _build.fitted_threads(d, n_sm) if W <= FITTED_MAX_W else WIDE_THREADS
+
+
+def select(kernel: str, lib, xs: torch.Tensor) -> torch.Tensor:
+    """Launch a selection library on ``xs`` [W, d] (checked by the caller,
+    d >= 1) in blocks of ``threads_for`` threads and return its ``[d]``
+    result."""
+    W, d = xs.shape
+    out = torch.empty((d,), dtype=torch.float32, device=xs.device)
+    threads = threads_for(W, d, _build.sm_count(xs.device.index))
+    code = lib.select_launch(xs.data_ptr(), out.data_ptr(), d, threads, _build.stream_of(xs))
+    _build.check_launch(kernel, code)
+    return out
+
+
 def cwise_median(xs: torch.Tensor) -> torch.Tensor:
     """xs: ``[W, d]`` -> median over workers ``[d]`` fp32. CPU tensors take the
     plain version; CUDA tensors launch the kernel (fp32, contiguous,
@@ -47,11 +71,8 @@ def cwise_median(xs: torch.Tensor) -> torch.Tensor:
         return ref.cwise_median(xs)
     _build.check_inputs("cwise_median", xs=xs)
     _build.check_rows("cwise_median", "W", W)
-    out = torch.empty((d,), dtype=torch.float32, device=xs.device)
     if d == 0:
-        return out
-    code = _lib(W).select_launch(xs.data_ptr(), out.data_ptr(), d,
-                                 _build.stream_of(xs))
-    _build.check_launch("cwise_median", code)
+        return torch.empty((0,), dtype=torch.float32, device=xs.device)
+    out = select("cwise_median", _lib(W), xs)
     LAUNCHES["cwise_median"] += 1
     return out

@@ -86,7 +86,8 @@ def selection_program(n_rows: int, ranks: Tuple[int, ...]) -> Tuple[Pair, ...]:
 def emit_cuda(template: str, n_rows: int, ranks: Tuple[int, ...], result: str) -> str:
     """Fill the ``csrc/selection.cu`` template: ``n_rows`` registers
     ``v[0..n_rows)``, the program for ``ranks`` as one ``CX(i, j)`` per
-    comparator, and ``result``, the statements that set ``res``."""
+    comparator (written once; the kernel runs it with and without NaN
+    handling), and ``result``, the statements that set ``res``."""
     program = "\n    ".join(f"CX({i}, {j})"
                            for i, j in selection_program(n_rows, tuple(ranks)))
     return (template.replace("@W@", str(n_rows))

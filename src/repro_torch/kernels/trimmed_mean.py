@@ -16,7 +16,7 @@ import functools
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, ref
-from repro_torch.kernels.cwise_median import SELECT_ARGS
+from repro_torch.kernels.cwise_median import SELECT_ARGS, select
 from repro_torch.kernels.selection_network import band_scale, emit_cuda, trim_ranks
 
 
@@ -54,11 +54,8 @@ def cwise_trimmed_mean(xs: torch.Tensor, n_trim: int) -> torch.Tensor:
         return ref.cwise_trimmed_mean(xs, n_trim)
     _build.check_inputs("cwise_trimmed_mean", xs=xs)
     _build.check_rows("cwise_trimmed_mean", "W", W)
-    out = torch.empty((d,), dtype=torch.float32, device=xs.device)
     if d == 0:
-        return out
-    code = _lib(W, n_trim).select_launch(xs.data_ptr(), out.data_ptr(), d,
-                                         _build.stream_of(xs))
-    _build.check_launch("cwise_trimmed_mean", code)
+        return torch.empty((0,), dtype=torch.float32, device=xs.device)
+    out = select("cwise_trimmed_mean", _lib(W, n_trim), xs)
     LAUNCHES["cwise_trimmed_mean"] += 1
     return out

@@ -10,7 +10,7 @@ Every test is marked ``cuda`` and skips where CUDA is unavailable.
 import pytest
 import torch
 
-from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, ref, reset_launches
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, _build, ref, reset_launches
 from repro_torch.kernels import bucket_mix, cwise_median, pairwise_gram, trimmed_mean
 from repro_torch.kernels.cclip_combine import cclip_combine
 from repro_torch.kernels.cclip_fused import cclip_fused_iter
@@ -284,6 +284,78 @@ def test_selection_past_128_rows_on_card(cuda, W):
     assert torch.equal(cwise_median.cwise_median(x), ref.cwise_median(x))
     assert torch.equal(trimmed_mean.cwise_trimmed_mean(x, (W - 1) // 2),
                        ref.cwise_trimmed_mean(x, (W - 1) // 2))
+
+
+# The selection kernels on both sides of the block-size rule (fitted blocks
+# up to 32 rows, 64 threads above) and at its edge, at widths with a ragged
+# tail and the path's width
+SEL_WS = [1, 2, 3, 5, 13, 27, 32, 33, 65, 128]
+SEL_DS = [3, 4097, 100_003, 106_496]
+
+
+def _trims(W):
+    return [b for b in sorted({0, 1, (W - 1) // 2}) if b <= (W - 1) // 2]
+
+
+@pytest.fixture(scope="module")
+def selection_built():
+    """Every selection library the tests below load, built in parallel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _build.build_all([src for W in SEL_WS for src in cwise_median.sources(W) + [
+        s for b in _trims(W) for s in trimmed_mean.sources(W, b)]])
+
+
+def _plant_specials(x):
+    """A copy of ``x`` with a NaN in one row of a column, eight NaN columns
+    among one warp's columns and an all-NaN one, columns of mixed +0 / -0
+    (alone and among other values), and +-inf (with a NaN in one column)."""
+    W, d = x.shape
+    x = x.clone()
+    nan, inf = float("nan"), float("inf")
+    even = torch.arange(W, device=x.device) % 2 == 0
+    signed_zeros = torch.where(even, -0.0, 0.0)
+    x[W // 2, 7 % d] = nan
+    for j in range(8):
+        x[(3 * j) % W, (32 + j) % d] = nan
+    x[:, 40 % d] = nan
+    x[:, 64 % d] = signed_zeros
+    x[: (W + 1) // 2, 65 % d] = signed_zeros[: (W + 1) // 2]
+    x[0, 96 % d] = inf
+    x[W - 1, 97 % d] = -inf
+    x[:, 98 % d] = inf
+    x[:, 99 % d] = torch.where(even, -inf, inf)
+    x[:, 100 % d] = torch.where(torch.arange(W, device=x.device) % 3 == 0, -inf, inf)
+    x[W - 1, 100 % d] = nan
+    return x
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", SEL_WS)
+@pytest.mark.parametrize("d", SEL_DS)
+def test_selection_bitwise_on_card(cuda, selection_built, W, d):
+    """CM and TM (n_trim 0, 1 and the widest band's) give the plain
+    version's bits, NaN payloads, signed zeros and infinities included, on
+    aligned rows and on the same values in a view whose rows start 4 bytes
+    off a 16-byte boundary."""
+    gen = torch.Generator(cuda).manual_seed(7 * W + d)
+    x = torch.randn((W, d), device=cuda, generator=gen)
+    buf = torch.empty(W * d + 1, device=cuda)
+    off = buf[1:].view(W, d)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    for inp in (x, _plant_specials(x)):
+        off.copy_(inp)
+        want = ref.cwise_median(inp)
+        for xs in (inp, off):
+            assert _same_bits(cwise_median.cwise_median(xs), want)
+        for b in _trims(W):
+            want = ref.cwise_trimmed_mean(inp, b)
+            for xs in (inp, off):
+                assert _same_bits(trimmed_mean.cwise_trimmed_mean(xs, b), want)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,8 @@ tolerances. The kernels themselves are tested on the card in
 tests/test_torch_cuda.py.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -218,16 +220,27 @@ def test_wide_norms_and_clip_match_reference(W):
                                rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("W", [1, 5, 64, 65, 128, 200, 1000, 2000])
-def test_selection_layout_by_width(W):
-    """Every W takes the one layout: a thread's column in a register array
-    of W values, the median program unrolled on literal indices, nothing
-    left of the template."""
+@pytest.mark.parametrize("W,threads", [(1, 256), (5, 256), (31, 256), (32, 256), (33, 64),
+                                       (64, 64), (65, 64), (128, 64), (129, 64), (200, 64),
+                                       (1000, 64), (2000, 64)])
+def test_selection_layout_by_width(W, threads):
+    """Every W keeps one column a thread in a register array of W values;
+    up to 32 rows the blocks are fitted to the card (256 threads at the
+    path's d on 132 SMs), above 32 rows they take 64 threads. The median
+    program is written once, on literal indices, in ``sel_program<NANS>``,
+    which the NaN-free and the NaN-aware path each run; nothing of the
+    template is left."""
     (_, text), = cwise_median.sources(W)
+    assert cwise_median.threads_for(W, 106_496, 132) == threads
     assert f"#define SEL_W {W}" in text and "float v[SEL_W];" in text
     assert "@" not in text.replace("@-placeholders", "")
-    n_cx = text.count("CX(") - text.count("#define CX(")
-    assert n_cx == len(tsel.selection_program(W, tsel.median_ranks(W)))
+    body = text[text.index("void sel_program("):text.index("float sel_select(")]
+    cx = re.findall(r"^    CX\((\d+), (\d+)\)$", body, re.M)
+    assert tuple((int(i), int(j)) for i, j in cx) == \
+        tsel.selection_program(W, tsel.median_ranks(W))
+    assert text.count("    CX(") == len(cx)
+    assert text.count("sel_program<false>(v);") == 1
+    assert text.count("sel_program<true>(v);") == 1
 
 
 @pytest.mark.parametrize("d,n_sm,want", [(26_624, 132, 64), (106_496, 132, 224),
