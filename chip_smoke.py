@@ -10,9 +10,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    (one ``nvcc`` per source, all at once), and print the registers and spills
    ``ptxas`` reports for each instance of the tensor-core attention kernel
    (``flash_attention_wgmma.cu``), the Gram kernel (``pairwise_gram.cu``),
-   ``bucket_mix.cu``, ``residual_norms.cu``, ``cclip.cu`` and every instance
-   of the selection kernels it builds (W = 5 .. 128); a spill fails the
-   phase.
+   ``bucket_mix.cu``, ``residual_norms.cu`` (which ``cclip_fused_iter``
+   launches too), ``cclip.cu`` and every instance of the selection kernels
+   it builds (W = 5 .. 128); a spill in any of them fails the phase.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (cohort W = 10, m = 5 buckets, d = 106,496: the
    784-128-10 MLP packed) and at the paper's n (W = 25, m = 13) with
@@ -41,8 +41,12 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 4. Hold the residual-norm and centered-clipping kernels (``residual_norms``,
    ``cclip_fused_iter``, ``cclip_combine``) against their plain versions at
    the per-rank shape of the sharded sync ([5, 26,624]), the one-device
-   main shape ([10, 106,496]), the paper's ([25, 16,777,216]) and above 64
-   workers ([65, 106,496], [128, 106,496]), timed and bounded as in phase 2.
+   main shape ([10, 106,496]), the paper's n = 25 and 53 ([25 / 53,
+   16,777,216]) and above 64 workers ([65, 106,496], [128, 106,496]),
+   timed and bounded as in phase 2. At each shape the v' of
+   ``cclip_fused_iter`` equals ``cclip_combine``'s bit for bit (the same
+   fmaf chain), every norm repeats bit for bit, and a ``cclip_fused_iter``
+   call is one CUDA kernel (profiler).
 5. Drive the one-device compositions ``ops.rfa_aggregate``, ``ops.cclip_aggregate``
    and ``ops.cclip_aggregate_unfused`` against their vector-space oracles,
    each with its exact launch counts, and time them at the paper's shape.
@@ -121,6 +125,10 @@ SYNC_RANKS = 4            # ranks of the sharded sync, all on cuda:0
 RANK_D = MAIN_D // SYNC_RANKS
 SYNC_REPS = 20
 WIDE_W = (65, 128)        # workers above the 64 the register arrays hold
+#: phase 4's (W, d, (reps, batch)): a rank's slice of the sync, the
+#: one-device path, the paper's n = 25 and 53, and the wide rows
+NORM_SHAPES = [(5, RANK_D, (20, 50)), (10, MAIN_D, (20, 50)), (25, PAPER_D, (10, 1)),
+               (53, PAPER_D, (5, 1))] + [(W, MAIN_D, (20, 20)) for W in WIDE_W]
 #: selection rows (W, d, n_trim values, (reps, batch)): the path (5 buckets of
 #: the W = 10 cohort), a rank's slice of the 4-rank sync, the paper's n = 25
 #: and n = 53 in buckets (13 / 27 rows), and the wide rows trimming W // 4;
@@ -217,9 +225,9 @@ def live_minmax(W: int, ranks) -> int:
 
 
 def build_phase():
-    from repro_torch.kernels import (_build, bucket_mix, cclip_fused, cwise_median,
-                                     flash_attention, pairwise_gram, trimmed_mean,
-                                     weiszfeld_norms)
+    from repro_torch.kernels import (_build, bucket_mix, cclip_combine, cclip_fused,
+                                     cwise_median, flash_attention, pairwise_gram,
+                                     trimmed_mean, weiszfeld_norms)
 
     # every library the ranks of phase 6 load is built here, before they start
     selection = {
@@ -228,20 +236,19 @@ def build_phase():
         "cwise_trimmed_mean": list(dict.fromkeys(
             src for W, _, trims, _ in SELECTION_SHAPES for b in trims
             for src in trimmed_mean.sources(W, b)))}
-    sources = (bucket_mix.sources() + pairwise_gram.sources() + weiszfeld_norms.sources()
-               + cclip_fused.sources() + flash_attention.sources()
-               + selection["cwise_median"] + selection["cwise_trimmed_mean"])
+    # cclip_fused_iter launches the residual_norms library: each source once
+    sources = list(dict.fromkeys(
+        bucket_mix.sources() + pairwise_gram.sources() + weiszfeld_norms.sources()
+        + cclip_fused.sources() + cclip_combine.sources() + flash_attention.sources()
+        + selection["cwise_median"] + selection["cwise_trimmed_mean"]))
     seconds = _build.build_all(sources)
     log(f"build: {len(sources)} CUDA sources for sm_90a ready in {seconds:.1f} s "
         f"({_build.BUILD_DIR})")
     ptxas = {}
     # each instance's registers and spills: the tensor-core attention and
-    # the Gram, bucket_mix and residual_norms, the CCLIP kernels and every
-    # selection instance built here (all at W <= 128). A spill fails the
-    # phase, but for the CCLIP kernels at W <= 64: cclip_fused_partial_kernel<32> and <64>
-    # spill a few bytes (8 and 40 B of stores), as they did when they were
-    # written, and keep their code; their route above 64 rows is held to it.
-    old_cclip = ("cclip_fused_partial_kernel<32>", "cclip_fused_partial_kernel<64>")
+    # the Gram, bucket_mix, residual_norms (all three centre forms), the
+    # combine and every selection instance built here (all at W <= 128).
+    # A spill in any instance fails the phase.
     checked = [("flash_attention_wgmma", "DH"), ("pairwise_gram", "L"), ("bucket_mix", ""),
                ("residual_norms", ""), ("cclip", "")] + [
         (n, "") for srcs in selection.values() for n, _ in srcs]
@@ -251,8 +258,7 @@ def build_phase():
         for inst, r in res.items():
             log(f"build {name} {inst}: {r['registers']} registers, spill "
                 f"stores {r['spill_stores']} B, spill loads {r['spill_loads']} B")
-        held = {i: r for i, r in res.items() if i not in old_cclip}
-        if not res or any(r["spill_stores"] or r["spill_loads"] for r in held.values()):
+        if not res or any(r["spill_stores"] or r["spill_loads"] for r in res.values()):
             raise AssertionError(f"{name}: ptxas resources {res} (a spill, or no report)")
     for kernel, srcs in selection.items():
         ptxas[kernel] = {n: ptxas[n] for n, _ in srcs}
@@ -651,7 +657,7 @@ def slice_phase(dev):
 
 def norm_kernel_phase(dev):
     """Phase 4: the residual-norm and centered-clipping kernels against their
-    plain versions, timed, at the three shapes. The path's own shape comes
+    plain versions, timed, at ``NORM_SHAPES``. The path's own shape comes
     first in each kernel's rows."""
     import torch
 
@@ -662,9 +668,7 @@ def norm_kernel_phase(dev):
 
     results = {name: [] for name in ("residual_norms", "cclip_fused_iter", "cclip_combine")}
     record = functools.partial(measure, results)
-    shapes = [(5, RANK_D, (20, 50)), (10, MAIN_D, (20, 50)), (25, PAPER_D, (10, 1))] + [
-        (W, MAIN_D, (20, 20)) for W in WIDE_W]
-    for W, d, timing in shapes:
+    for W, d, timing in NORM_SHAPES:
         gen = torch.Generator(dev).manual_seed(100 + W)
         x = torch.randn((W, d), device=dev, generator=gen)
         c = torch.softmax(torch.randn(W, device=dev, generator=gen), 0)
@@ -695,13 +699,40 @@ def norm_kernel_phase(dev):
                            ("fused", lambda: cclip_fused_iter(x, v, lam)[1])):
             if not torch.equal(call(), call()):
                 raise AssertionError(f"residual norms ({what}) not bitwise repeatable")
+        if not same_bits(cclip_fused_iter(x, v, lam)[0], cclip_combine(x, v, lam)):
+            raise AssertionError(f"cclip_fused_iter {label}: v' differs from cclip_combine's")
+        kernels = profile_kernels(lambda: cclip_fused_iter(x, v, lam), 3)
+        if [launches for _, launches in kernels.values()] != [1]:
+            raise AssertionError(f"cclip_fused_iter {label}: a call ran the CUDA kernels "
+                                 f"{kernels}, not one")
         log(f"check residual norms {label}: coefficient, centre and fused forms "
-            "bitwise repeatable")
+            "bitwise repeatable; the fused v' equals cclip_combine's bit for bit; a fused "
+            f"call is one CUDA kernel ({next(iter(kernels))[:60]})")
         del x, v, norms
         torch.cuda.empty_cache()
     # the combine's path is a one-device composition: its main shape first
     results["cclip_combine"].insert(0, results["cclip_combine"].pop(1))
     return results
+
+
+def profile_kernels(fn, calls: int = 20):
+    """Device microseconds and launches per call of each CUDA kernel ``fn``
+    launches (memsets included), from the profiler's device records over
+    ``calls`` calls after one call outside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / calls, e.count / calls)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0}
 
 
 def ops_phase(dev):
@@ -1249,15 +1280,22 @@ def main() -> int:
 
     src = {"bucket_mix": "bucket_mix.cu", "pairwise_gram": "pairwise_gram.cu",
            "cwise_median": "selection.cu", "cwise_trimmed_mean": "selection.cu",
-           "residual_norms": "residual_norms.cu", "cclip_fused_iter": "cclip.cu",
+           "residual_norms": "residual_norms.cu", "cclip_fused_iter": "residual_norms.cu",
            "cclip_combine": "cclip.cu", "flash_attention": "flash_attention_wgmma.cu"}
     # flash_attention: the tensor-core kernel (bf16, the main path's rows) and
     # the CUDA-core one (fp32 and the bf16 inputs TMA refuses)
-    # the two kernels redesigned last: every instance's ptxas report
+    # bucket_mix, residual_norms, cclip_fused_iter and cclip_combine: every
+    # instance's ptxas report (residual_norms_kernel<RC,NSUB,FORM,ALIGNED>:
+    # FORM 0 the given centre, 1 the coefficients, 2 the CCLIP update)
     # the selection kernels: each built instance's report (its name gives W
     # and n_trim); each case row gives its block size
+    norms = ptxas["residual_norms"]
     other = {"bucket_mix": {"ptxas": ptxas["bucket_mix"]},
-             "residual_norms": {"ptxas": ptxas["residual_norms"]},
+             "residual_norms": {"ptxas": {i: r for i, r in norms.items()
+                                          if i.split(",")[2] != "2"}},
+             "cclip_fused_iter": {"ptxas": {i: r for i, r in norms.items()
+                                            if i.split(",")[2] == "2"}},
+             "cclip_combine": {"ptxas": ptxas["cclip"]},
              "cwise_median": {"ptxas": ptxas["cwise_median"]},
              "cwise_trimmed_mean": {"ptxas": ptxas["cwise_trimmed_mean"]},
              "flash_attention": {"sources": [

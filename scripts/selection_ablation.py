@@ -208,9 +208,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(1, str(ROOT / "scripts"))
     from chip_smoke import (PEAK_BYTES_PER_S, PEAK_MINMAX_PER_S, SELECTION_SHAPES, bound_ms,
-                            plant_specials, ptxas_resources, same_bits, selection_ops,
-                            time_ms)
-    from mix_norms_ablation import digest, profile_kernels
+                            plant_specials, profile_kernels, ptxas_resources, same_bits,
+                            selection_ops, time_ms)
+    from mix_norms_ablation import digest
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import cwise_median as cm
     from repro_torch.kernels import trimmed_mean as tm

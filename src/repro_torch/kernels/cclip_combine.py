@@ -1,5 +1,4 @@
-"""Unfused centered-clipping update: the ``cclip_combine_launch`` entry of
-``csrc/cclip.cu``.
+"""Unfused centered-clipping update: CUDA kernel ``csrc/cclip.cu``.
 
 Replaces ``repro/kernels/cclip_combine.py::cclip_combine``,
 ``v' = v + (1/W) sum_i lam_i (x_i - v)`` with ``lam`` known; the combine
@@ -8,12 +7,28 @@ pass of ``ops.cclip_aggregate_unfused``, the fused schedule's baseline.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, ref
-from repro_torch.kernels.cclip_fused import _lib, check_update_args, sources
+from repro_torch.kernels.cclip_fused import check_update_args
 
 __all__ = ["cclip_combine", "sources"]
+
+_P = ctypes.c_void_p
+_ARGS = {"cclip_combine_launch": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P)}
+
+
+def sources():
+    return [("cclip", _build.read_source("cclip.cu"))]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    (name, text), = sources()
+    return _build.load(name, text, _ARGS)
 
 
 def cclip_combine(xs: torch.Tensor, v: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:

@@ -1,43 +1,31 @@
-"""Fused centered-clipping iteration: CUDA kernel ``csrc/cclip.cu`` (with
-``csrc/row_sums.cuh``).
+"""Fused centered-clipping iteration: the CLIP form of the residual-norms
+kernel, ``csrc/residual_norms.cu`` (entry ``cclip_fused_launch``).
 
 Replaces ``repro/kernels/cclip_fused.py::cclip_fused_iter``. With the clip
 weights ``lam`` known, one pass over the ``[W, d]`` stack writes
 
     v' = v + (1/W) sum_i lam_i (x_i - v)        and     r_i = ||x_i - v'||^2,
 
-the residuals the next iteration's ``lam`` needs. ``cclip_combine`` (the
-update alone) is a second entry of the same library.
+the residuals the next iteration's ``lam`` needs. It is one launch of the
+``residual_norms`` library, with that module's launch geometry and ticket
+counters (one library, launched on one stream, so launches serialise and
+a counter is back at zero after each). ``v'`` has the bits of
+``cclip_combine`` on the same inputs (the same fmaf chain).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, ref
-
-#: columns per block of the kernel (``RS_TILE`` in ``row_sums.cuh``)
-TILE_D = 2048
-
-_P = ctypes.c_void_p
-_ARGS = {
-    "cclip_fused_launch": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
-    "cclip_combine_launch": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
-}
+from repro_torch.kernels import weiszfeld_norms as wn
 
 
 def sources():
-    return [("cclip", _build.read_source("row_sums.cuh") + _build.read_source("cclip.cu"))]
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    (name, text), = sources()
-    return _build.load(name, text, _ARGS)
+    """The library this kernel launches: ``residual_norms``'s, built once."""
+    return wn.sources()
 
 
 def check_update_args(kernel: str, xs: torch.Tensor, v: torch.Tensor,
@@ -55,11 +43,28 @@ def check_update_args(kernel: str, xs: torch.Tensor, v: torch.Tensor,
     return False
 
 
+def launch(xs: torch.Tensor, v: torch.Tensor, lam: torch.Tensor, v_new: torch.Tensor,
+           r2: torch.Tensor) -> None:
+    """One launch of the kernel into ``v_new`` [d] and ``r2`` [W] (checked
+    CUDA tensors, d >= 1); ``v_new`` may be any contiguous slice, 16-byte
+    aligned or not."""
+    W, d = xs.shape
+    threads, blocks = wn.geometry(W, d, _build.sm_count(xs.device.index))
+    partial = torch.empty((W, blocks), dtype=torch.float32, device=xs.device)
+    stream = _build.stream_of(xs)
+    code = wn._lib().cclip_fused_launch(
+        xs.data_ptr(), v.data_ptr(), lam.data_ptr(), v_new.data_ptr(), r2.data_ptr(),
+        partial.data_ptr(), wn._ticket(xs.device, stream).data_ptr(), W, d, threads, blocks,
+        stream)
+    _build.check_launch("cclip_fused_iter", code)
+    LAUNCHES["cclip_fused_iter"] += 1
+
+
 def cclip_fused_iter(xs: torch.Tensor, v: torch.Tensor,
                      lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """xs: ``[W, d]``; v: ``[d]``; lam: ``[W]`` -> ``(v' [d], ||x_i - v'||^2
     [W])`` fp32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (fp32, contiguous, any W >= 1; above 64 rows a slower route)."""
+    kernel (fp32, contiguous, any W >= 1)."""
     if check_update_args("cclip_fused_iter", xs, v, lam):
         return ref.cclip_fused_iter(xs, v, lam)
     W, d = xs.shape
@@ -67,10 +72,5 @@ def cclip_fused_iter(xs: torch.Tensor, v: torch.Tensor,
     r2 = torch.empty((W,), dtype=torch.float32, device=xs.device)
     if d == 0:
         return v_new, r2.zero_()
-    partial = torch.empty((W, -(-d // TILE_D)), dtype=torch.float32, device=xs.device)
-    code = _lib().cclip_fused_launch(xs.data_ptr(), v.data_ptr(), lam.data_ptr(),
-                                     v_new.data_ptr(), r2.data_ptr(), partial.data_ptr(),
-                                     W, d, _build.stream_of(xs))
-    _build.check_launch("cclip_fused_iter", code)
-    LAUNCHES["cclip_fused_iter"] += 1
+    launch(xs, v, lam, v_new, r2)
     return v_new, r2

@@ -1,16 +1,23 @@
 // Per-worker residual norms r_i = ||x_i - v||^2 for X [W, d] fp32, any
-// W >= 1.
+// W >= 1, against a centre v in one of three forms (FORM):
 //
-// Replaces the Pallas TPU kernel repro/kernels/weiszfeld_norms.py::
-// residual_norms (pallas_call at weiszfeld_norms.py:91): the inner loop of
-// smoothed Weiszfeld (RFA) and the first norms pass of centered clipping.
-// The centre v is given either as coefficients c [W] (v = c^T X, formed
-// column by column in registers and never written out) or as an explicit
-// row center [d].
+// RN_GIVEN, RN_COEFF: replace the Pallas TPU kernel repro/kernels/
+//   weiszfeld_norms.py::residual_norms (pallas_call at weiszfeld_norms.py:91),
+//   the inner loop of smoothed Weiszfeld (RFA) and the first norms pass of
+//   centered clipping. The centre is an explicit row center [d] (GIVEN) or
+//   coefficients c [W] (COEFF: v = c^T X, formed column by column in
+//   registers and never written out). Entry: residual_norms_launch.
+// RN_CLIP: replaces repro/kernels/cclip_fused.py::cclip_fused_iter
+//   (pallas_call at cclip_fused.py:62), one iteration of centered clipping
+//   with the clip weights lam [W] known: the centre is the update
+//   v' = v + (1/W) sum_i lam_i (x_i - v) of the old centre v [d], written
+//   out to vout [d], and the norms are taken against it, so an iteration
+//   reads X once. Entry: cclip_fused_launch.
 //
 // Bound on the H100: memory. The call must read X once (W * d * 4 bytes,
-// plus d * 4 for an explicit centre) for 3 W d flops (2 W d more in the
-// coefficient form): under 2 flops per byte.
+// plus d * 4 for an explicit or old centre, and d * 4 written in the CLIP
+// form) for 3 W d flops (2 W d more in the coefficient form, 3 W d more in
+// the CLIP form): under 2 flops per byte.
 //
 // What held the previous kernel back (one 2048-column tile a block, one
 // column a thread at a time, the fold a second kernel): 13 blocks for 132
@@ -29,14 +36,17 @@
 //   and sizes the partials [W, G] by it.
 // - Rows go in passes over the block's columns, per-row sums acc[] in
 //   registers. Up to 32 rows, one pass of RC (8, 16 or 32, the smallest
-//   >= W) rows loaded together; in the coefficient form the centre comes
-//   from those rows. Above 32 rows the centre form takes passes of 32 rows,
-//   each reading its rows and the centre. The coefficient form takes passes
-//   of 64 rows: a column group first streams all W rows to form its centre
-//   (RN_WB rows at a time), then reads the pass's rows again, 16 at a time
-//   (NSUB = 4), from the caches the first read has just filled. So up to
-//   64 rows X leaves memory once, as with the previous kernel; above, once
-//   a pass.
+//   >= W) rows loaded together; in the coefficient and CLIP forms the
+//   centre comes from those rows ("held"). Above 32 rows the given centre
+//   takes passes of 32 rows, each reading its rows and the centre. The
+//   coefficient form takes passes of 64 rows: a column group first streams
+//   all W rows to form its centre (RN_WB rows at a time), then reads the
+//   pass's rows again, 16 at a time (NSUB = 4), from the caches the first
+//   read has just filled. So up to 64 rows X leaves memory once, as with
+//   the previous kernel; above, once a pass. The CLIP form takes the same
+//   64-row passes but streams the rows for its centre in the first pass
+//   only: it stores v' there, and later passes read back the v' the same
+//   thread stored (a thread owns the same column groups in every pass).
 // - A block adds its threads' sums in a fixed order (a warp butterfly,
 //   then the warps in index order) and writes one partial per row.
 // - The fold runs in the same launch: after its partials, each block
@@ -50,10 +60,12 @@
 // - Rows that are not 16-byte aligned (d % 4 != 0, or a base off 16 bytes)
 //   take predicated scalar loads (ALIGNED = false).
 // The centre of a column is the fmaf chain over w = 0 .. W-1 in order, as
-// before. The sums over columns run in another order than the TPU
-// kernel's (and the previous kernel's), so they agree to a tolerance, not
-// bit for bit; for a given card and shape the order is fixed, so a result
-// repeats bit for bit.
+// before. In the CLIP form that chain is upd = fmaf(lam_w, x_w - v, upd)
+// from upd = 0, then v' = v + upd * (1/W) with the fp32 reciprocal taken
+// once: cclip.cu's combine computes the same, so v' has its bits. The sums
+// over columns run in another order than the TPU kernel's (and the
+// previous kernels'), so they agree to a tolerance, not bit for bit; for a
+// given card and shape the order is fixed, so a result repeats bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -67,6 +79,10 @@
 // coefficient form needs more than the 128 registers of two blocks
 // (weiszfeld_norms.geometry mirrors it)
 #define RN_MIN_BLOCKS(RC) ((RC) <= 8 ? 2 : 1)
+// the centre's form (FORM)
+#define RN_GIVEN 0
+#define RN_COEFF 1
+#define RN_CLIP 2
 
 template <bool ALIGNED>
 __device__ __forceinline__ float4 rn_load4(const float* __restrict__ row, long long c0,
@@ -110,6 +126,84 @@ __device__ __forceinline__ float4 rn_stream_center(const float* __restrict__ xs,
     return v;
 }
 
+// The CLIP update at columns c0 .. c0 + 3: v + (1/W) sum_w lam_w (x_w - v),
+// the chain over w = 0 .. W-1 in order. rn_clip_held takes the rows held
+// in x (W <= RC); rn_stream_clip streams all W rows RN_WB at a time.
+__device__ __forceinline__ void rn_clip_fma4(float4& u, float l, const float4& x,
+                                             const float4& v) {
+    u.x = fmaf(l, x.x - v.x, u.x);
+    u.y = fmaf(l, x.y - v.y, u.y);
+    u.z = fmaf(l, x.z - v.z, u.z);
+    u.w = fmaf(l, x.w - v.w, u.w);
+}
+
+__device__ __forceinline__ float4 rn_clip_apply(const float4& v, const float4& u, float inv) {
+    return make_float4(v.x + u.x * inv, v.y + u.y * inv, v.z + u.z * inv, v.w + u.w * inv);
+}
+
+template <int RC>
+__device__ __forceinline__ float4 rn_clip_held(const float4 (&x)[RC],
+                                               const float* __restrict__ lam, int W,
+                                               const float4& v, float inv) {
+    float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int r = 0; r < RC; ++r) {
+        if (r < W) rn_clip_fma4(u, __ldg(lam + r), x[r], v);
+    }
+    return rn_clip_apply(v, u, inv);
+}
+
+template <bool ALIGNED>
+__device__ __forceinline__ float4 rn_stream_clip(const float* __restrict__ xs,
+                                                 const float* __restrict__ lam, int W,
+                                                 const float4& v, float inv, long long c0,
+                                                 long long d) {
+    float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int w0 = 0; w0 < W; w0 += RN_WB) {
+        float4 x[RN_WB];
+#pragma unroll
+        for (int j = 0; j < RN_WB; ++j) {
+            if (w0 + j < W) x[j] = rn_load4<ALIGNED>(xs + (long long)(w0 + j) * d, c0, d);
+        }
+#pragma unroll
+        for (int j = 0; j < RN_WB; ++j) {
+            if (w0 + j < W) rn_clip_fma4(u, __ldg(lam + w0 + j), x[j], v);
+        }
+    }
+    return rn_clip_apply(v, u, inv);
+}
+
+// v' stored at columns c0 .. c0 + 3 (a column past d is not), and read
+// back by the thread that stored it: by __ldcg, not by the read-only path,
+// since this launch wrote it
+template <bool ALIGNED>
+__device__ __forceinline__ void rn_store4(float* __restrict__ row, long long c0, long long d,
+                                          const float4& v) {
+    if constexpr (ALIGNED) {
+        *reinterpret_cast<float4*>(row + c0) = v;
+    } else {
+        if (c0 < d) row[c0] = v.x;
+        if (c0 + 1 < d) row[c0 + 1] = v.y;
+        if (c0 + 2 < d) row[c0 + 2] = v.z;
+        if (c0 + 3 < d) row[c0 + 3] = v.w;
+    }
+}
+
+template <bool ALIGNED>
+__device__ __forceinline__ float4 rn_reload4(const float* __restrict__ row, long long c0,
+                                             long long d) {
+    if constexpr (ALIGNED) {
+        return __ldcg(reinterpret_cast<const float4*>(row + c0));
+    } else {
+        float4 v;
+        v.x = c0 < d ? __ldcg(row + c0) : 0.0f;
+        v.y = c0 + 1 < d ? __ldcg(row + c0 + 1) : 0.0f;
+        v.z = c0 + 2 < d ? __ldcg(row + c0 + 2) : 0.0f;
+        v.w = c0 + 3 < d ? __ldcg(row + c0 + 3) : 0.0f;
+        return v;
+    }
+}
+
 // dst[r * stride] = the block's sum of acc[r] for r < rows: a butterfly in
 // each warp, then the warps in index order. The RC butterflies run
 // unconditionally (rows past `rows` hold zeros), so they interleave.
@@ -149,12 +243,14 @@ __device__ __forceinline__ unsigned rn_draw(unsigned* ticket) {
     return old;
 }
 
-template <int RC, int NSUB, bool COEFF, bool ALIGNED>
+// coeffs: c (COEFF) or lam (CLIP); center: the given (GIVEN) or the old
+// (CLIP) centre; vout: v' (CLIP only)
+template <int RC, int NSUB, int FORM, bool ALIGNED>
 __global__ void __launch_bounds__(RN_THREADS, RN_MIN_BLOCKS(RC))
 residual_norms_kernel(const float* __restrict__ xs, const float* __restrict__ coeffs,
-                      const float* __restrict__ center, float* __restrict__ out,
-                      float* __restrict__ partial, unsigned* __restrict__ ticket, int W,
-                      long long d, long long per_block) {
+                      const float* __restrict__ center, float* __restrict__ vout,
+                      float* __restrict__ out, float* __restrict__ partial,
+                      unsigned* __restrict__ ticket, int W, long long d, long long per_block) {
     __shared__ float fold[RN_FOLD];
     __shared__ bool s_last;
     const int G = gridDim.x;
@@ -162,8 +258,17 @@ residual_norms_kernel(const float* __restrict__ xs, const float* __restrict__ co
     const long long lo = (long long)blockIdx.x * per_block;
     const long long hi = lo + per_block < n_vec ? lo + per_block : n_vec;
     constexpr int RP = RC * NSUB;  // rows a pass sums
+    constexpr bool COEFF = FORM == RN_COEFF, CLIP = FORM == RN_CLIP;
     // the centre from the rows in registers (only instances of one chunk)
-    const bool held = COEFF && NSUB == 1 && W <= RC;
+    const bool held = (COEFF || CLIP) && NSUB == 1 && W <= RC;
+    float inv = 0.0f;
+    if constexpr (CLIP) inv = 1.0f / (float)W;
+    // The CLIP form's held, aligned rows step each row's address by d from
+    // the one before: with the update's four registers more than the
+    // coefficient form, its 32-row instance spills when each address is
+    // computed on its own. (Stepping in every form spills their unaligned
+    // 32-row instances instead.)
+    constexpr bool STEP_ROWS = CLIP && ALIGNED && NSUB == 1;
 
     for (int r0 = 0; r0 < W; r0 += RP) {
         const int rows = min(RP, W - r0);
@@ -175,21 +280,45 @@ residual_norms_kernel(const float* __restrict__ xs, const float* __restrict__ co
             float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             if constexpr (COEFF) {
                 if (!held) v = rn_stream_center<ALIGNED>(xs, coeffs, W, c0, d);
+            } else if constexpr (CLIP) {
+                if (held) {  // the old centre; v' is formed from the rows below
+                    v = rn_load4<ALIGNED>(center, c0, d);
+                } else if (r0 == 0) {
+                    v = rn_stream_clip<ALIGNED>(xs, coeffs, W, rn_load4<ALIGNED>(center, c0, d),
+                                                inv, c0, d);
+                    rn_store4<ALIGNED>(vout, c0, d, v);
+                } else {
+                    v = rn_reload4<ALIGNED>(vout, c0, d);
+                }
             } else {
                 v = rn_load4<ALIGNED>(center, c0, d);
             }
 #pragma unroll
             for (int s = 0; s < NSUB; ++s) {  // RC rows at a time
                 float4 x[RC];
-#pragma unroll
-                for (int r = 0; r < RC; ++r) {
-                    if (s * RC + r < rows)
-                        x[r] = rn_load4<ALIGNED>(xs + (long long)(r0 + s * RC + r) * d, c0, d);
-                }
-                if (held) {
+                if constexpr (STEP_ROWS) {
+                    const float* row = xs + (long long)(r0 + s * RC) * d;
 #pragma unroll
                     for (int r = 0; r < RC; ++r) {
-                        if (r < W) rn_fma4(v, __ldg(coeffs + r), x[r]);
+                        if (s * RC + r < rows) x[r] = rn_load4<ALIGNED>(row, c0, d);
+                        row += d;
+                    }
+                } else {
+#pragma unroll
+                    for (int r = 0; r < RC; ++r) {
+                        if (s * RC + r < rows)
+                            x[r] = rn_load4<ALIGNED>(xs + (long long)(r0 + s * RC + r) * d, c0, d);
+                    }
+                }
+                if (held) {
+                    if constexpr (COEFF) {
+#pragma unroll
+                        for (int r = 0; r < RC; ++r) {
+                            if (r < W) rn_fma4(v, __ldg(coeffs + r), x[r]);
+                        }
+                    } else if constexpr (CLIP) {
+                        v = rn_clip_held<RC>(x, coeffs, W, v, inv);
+                        rn_store4<ALIGNED>(vout, c0, d, v);
                     }
                 }
                 const float vk[4] = {v.x, v.y, v.z, v.w};
@@ -247,16 +376,17 @@ residual_norms_kernel(const float* __restrict__ xs, const float* __restrict__ co
     if (threadIdx.x == 0) *ticket = 0u;  // every block has drawn: zero for the next launch
 }
 
-template <int RC, int NSUB, bool COEFF>
+template <int RC, int NSUB, int FORM>
 static void rn_launch(bool aligned, unsigned blocks, int threads, cudaStream_t stream,
-                      const float* xs, const float* coeffs, const float* center, float* out,
-                      float* partial, unsigned* ticket, int W, long long d, long long per_block) {
+                      const float* xs, const float* coeffs, const float* center, float* vout,
+                      float* out, float* partial, unsigned* ticket, int W, long long d,
+                      long long per_block) {
     if (aligned) {
-        residual_norms_kernel<RC, NSUB, COEFF, true><<<blocks, threads, 0, stream>>>(
-            xs, coeffs, center, out, partial, ticket, W, d, per_block);
+        residual_norms_kernel<RC, NSUB, FORM, true><<<blocks, threads, 0, stream>>>(
+            xs, coeffs, center, vout, out, partial, ticket, W, d, per_block);
     } else {
-        residual_norms_kernel<RC, NSUB, COEFF, false><<<blocks, threads, 0, stream>>>(
-            xs, coeffs, center, out, partial, ticket, W, d, per_block);
+        residual_norms_kernel<RC, NSUB, FORM, false><<<blocks, threads, 0, stream>>>(
+            xs, coeffs, center, vout, out, partial, ticket, W, d, per_block);
     }
 }
 
@@ -278,17 +408,47 @@ extern "C" int residual_norms_launch(const float* xs, const float* coeffs, const
                          (center == nullptr || reinterpret_cast<uintptr_t>(center) % 16 == 0);
     const unsigned b = (unsigned)blocks;
 #define RN_ARGS \
-    aligned, b, threads, stream, xs, coeffs, center, out, partial, ticket, W, d, per_block
+    aligned, b, threads, stream, xs, coeffs, center, nullptr, out, partial, ticket, W, d, \
+        per_block
     if (W <= 8) {
-        if (coeffs) rn_launch<8, 1, true>(RN_ARGS); else rn_launch<8, 1, false>(RN_ARGS);
+        if (coeffs) rn_launch<8, 1, RN_COEFF>(RN_ARGS); else rn_launch<8, 1, RN_GIVEN>(RN_ARGS);
     } else if (W <= 16) {
-        if (coeffs) rn_launch<16, 1, true>(RN_ARGS); else rn_launch<16, 1, false>(RN_ARGS);
+        if (coeffs) rn_launch<16, 1, RN_COEFF>(RN_ARGS); else rn_launch<16, 1, RN_GIVEN>(RN_ARGS);
     } else if (W <= 32 || !coeffs) {
-        if (coeffs) rn_launch<32, 1, true>(RN_ARGS); else rn_launch<32, 1, false>(RN_ARGS);
+        if (coeffs) rn_launch<32, 1, RN_COEFF>(RN_ARGS); else rn_launch<32, 1, RN_GIVEN>(RN_ARGS);
     } else {
-        rn_launch<16, 4, true>(RN_ARGS);
+        rn_launch<16, 4, RN_COEFF>(RN_ARGS);
     }
 #undef RN_ARGS
+    return (int)cudaGetLastError();
+}
+
+// The CLIP form: xs [W, d] fp32 contiguous, W, d >= 1; v [d] the old
+// centre, lam [W] the clip weights; vout [d] gets v', out [W] the norms
+// against it; partial, ticket, threads and blocks as for
+// residual_norms_launch. Up to 32 rows held, above in 64-row passes (the
+// coefficient form's instances). Returns cudaGetLastError() after the
+// launch.
+extern "C" int cclip_fused_launch(const float* xs, const float* v, const float* lam,
+                                  float* vout, float* out, float* partial, unsigned* ticket,
+                                  int W, long long d, int threads, int blocks,
+                                  cudaStream_t stream) {
+    if (W < 1 || d < 1 || threads < 32 || threads > RN_THREADS || threads % 32 || blocks < 1 ||
+        blocks > RN_FOLD)
+        return (int)cudaErrorInvalidValue;
+    const long long n_vec = (d + 3) / 4;
+    const long long per_block = (n_vec + blocks - 1) / blocks;
+    const bool aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(vout) % 16 == 0;
+    const unsigned b = (unsigned)blocks;
+#define RN_CLIP_ARGS \
+    aligned, b, threads, stream, xs, lam, v, vout, out, partial, ticket, W, d, per_block
+    if (W <= 8) rn_launch<8, 1, RN_CLIP>(RN_CLIP_ARGS);
+    else if (W <= 16) rn_launch<16, 1, RN_CLIP>(RN_CLIP_ARGS);
+    else if (W <= 32) rn_launch<32, 1, RN_CLIP>(RN_CLIP_ARGS);
+    else rn_launch<16, 4, RN_CLIP>(RN_CLIP_ARGS);
+#undef RN_CLIP_ARGS
     return (int)cudaGetLastError();
 }
 

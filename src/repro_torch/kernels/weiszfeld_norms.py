@@ -5,7 +5,9 @@ Replaces ``repro/kernels/weiszfeld_norms.py::residual_norms``, the inner
 loop of smoothed Weiszfeld (RFA) and the first norms pass of centered
 clipping. The centre is given either as coefficients ``coeffs`` (``v =
 c^T X``, formed per column inside the kernel and never written out) or as an
-explicit row ``center``.
+explicit row ``center``. The same kernel has a third centre form, the
+centered-clipping update, which ``cclip_fused.cclip_fused_iter`` launches
+through this library (entry ``cclip_fused_launch``).
 
 The kernel folds its blocks' partial sums in the same launch: the block
 that draws the last ticket of a counter adds them, and sets the counter
@@ -28,6 +30,8 @@ _P = ctypes.c_void_p
 _ARGS = {
     "residual_norms_launch": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                               ctypes.c_int, ctypes.c_int, _P),
+    "cclip_fused_launch": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, _P),
     "rn_capture_id": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
 }
 #: (device, stream, under capture) -> (capture id, ticket counter)

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, _build, ref, reset_launches
-from repro_torch.kernels import bucket_mix, cwise_median, pairwise_gram, trimmed_mean
+from repro_torch.kernels import (bucket_mix, cclip_fused, cwise_median, pairwise_gram,
+                                 trimmed_mean)
 from repro_torch.kernels.cclip_combine import cclip_combine
 from repro_torch.kernels.cclip_fused import cclip_fused_iter
 from repro_torch.kernels.flash_attention import flash_attention
@@ -188,6 +189,9 @@ def test_norm_and_clip_kernels_match_plain_on_card(cuda, W, d):
     torch.testing.assert_close(r2, r2_ref, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(cclip_combine(x, v, lam), ref.cclip_combine(x, v, lam),
                                rtol=1e-5, atol=1e-4)
+    # the fused v' is the combine's fmaf chain, and the norms repeat
+    assert torch.equal(v_new, cclip_combine(x, v, lam))
+    assert torch.equal(r2, cclip_fused_iter(x, v, lam)[1])
 
 
 @pytest.mark.cuda
@@ -256,6 +260,9 @@ def test_wide_kernels_match_plain_on_card(cuda, W, d):
     torch.testing.assert_close(r2, r2_ref, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(cclip_combine(x, v, lam), ref.cclip_combine(x, v, lam),
                                rtol=1e-5, atol=1e-4)
+    # the fused v' is the combine's fmaf chain, and the norms repeat
+    assert torch.equal(v_new, cclip_combine(x, v, lam))
+    assert torch.equal(r2, cclip_fused_iter(x, v, lam)[1])
 
 
 @pytest.mark.cuda
@@ -434,6 +441,81 @@ def test_residual_norms_is_one_kernel_and_captures_on_card(cuda):
         torch.cuda.synchronize()
         assert all(torch.equal(o, want) for o in outs)
     assert torch.equal(residual_norms(x, c), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [5, 26, 53])
+@pytest.mark.parametrize("d", [4096, 100_003])
+@pytest.mark.parametrize("offset", ["xs", "v", "out"])
+def test_cclip_fused_unaligned_on_card(cuda, W, d, offset):
+    """One of xs, v and v' 4 bytes off 16 (a contiguous slice of a flat
+    buffer) takes the predicated loads and stores: the same bits as the call
+    on aligned copies (the same columns a thread, summed in the same order),
+    v' that of the combine, and nothing written past the d columns."""
+    gen = torch.Generator(cuda).manual_seed(W + d)
+    x = torch.randn((W, d), device=cuda, generator=gen) * 3
+    v = torch.randn(d, device=cuda, generator=gen)
+    lam = torch.rand(W, device=cuda, generator=gen)
+    want_v, want_r = cclip_fused_iter(x, v, lam)
+
+    def off(t):  # the same values at a base 4 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        got = buf[1:].view(t.shape)
+        got.copy_(t)
+        assert got.data_ptr() % 16 == 4
+        return got
+
+    xs_in, v_in = (off(x), v) if offset == "xs" else (x, off(v) if offset == "v" else v)
+    buf = torch.full((d + 2,), 7.0, device=cuda)
+    v_out = buf[1:d + 1] if offset == "out" else torch.empty(d, device=cuda)
+    r2 = torch.empty(W, device=cuda)
+    cclip_fused.launch(xs_in, v_in, lam, v_out, r2)
+    assert torch.equal(v_out, want_v) and torch.equal(r2, want_r)
+    assert torch.equal(v_out, cclip_combine(x, v, lam))
+    torch.testing.assert_close(r2, ref.cclip_fused_iter(x, v, lam)[1], rtol=1e-4, atol=1e-3)
+    if offset == "out":
+        assert float(buf[0]) == 7.0 and float(buf[-1]) == 7.0
+
+
+@pytest.mark.cuda
+def test_cclip_fused_is_one_kernel_and_captures_on_card(cuda):
+    """A fused CCLIP iteration is one launch of the residual-norms kernel
+    (the fold inside, no memset); two calls in one CUDA graph (its own
+    ticket counter) replay to the eager bits, and eager calls after it
+    still agree."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(cuda).manual_seed(7)
+    x = torch.randn((5, 26_624), device=cuda, generator=gen)
+    v = torch.randn(26_624, device=cuda, generator=gen)
+    lam = torch.rand(5, device=cuda, generator=gen)
+    want = cclip_fused_iter(x, v, lam)
+    want2 = cclip_fused_iter(x, want[0], lam)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            cclip_fused_iter(x, v, lam)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    assert sum(e.count for e in kernels) == 5, [(e.key, e.count) for e in kernels]
+    assert all("residual_norms_kernel" in e.key for e in kernels)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cclip_fused_iter(x, v, lam)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        first = cclip_fused_iter(x, v, lam)
+        second = cclip_fused_iter(x, first[0], lam)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, expect in zip(first + second, want + want2):
+            assert torch.equal(got, expect)
+    assert all(torch.equal(a, b) for a, b in zip(cclip_fused_iter(x, v, lam), want))
 
 
 # fp32 at the reference's 2e-4; bf16 at torch's bf16 default (rtol 1.6e-2,

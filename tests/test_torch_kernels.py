@@ -18,7 +18,8 @@ import repro.kernels as rkernels
 from repro.kernels import ops as rops
 from repro.kernels import selection_network as rsel
 from repro_torch.kernels import LAUNCHES, _build, reset_launches
-from repro_torch.kernels import cwise_median, trimmed_mean
+from repro_torch.kernels import (cclip_combine, cclip_fused, cwise_median, trimmed_mean,
+                                 weiszfeld_norms)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import selection_network as tsel
 
@@ -252,3 +253,42 @@ def test_fitted_threads(d, n_sm, want):
     threads = _build.fitted_threads(-(-d // 4), n_sm)
     assert threads == want
     assert threads * n_sm * 4 >= d or threads == 256
+
+
+@pytest.mark.parametrize("W,d,blocks,rows", [(5, 26_624, 26, 8), (25, 16_777_216, 132, 32),
+                                             (53, 16_777_216, 132, 64),
+                                             (128, 106_496, 104, 64)])
+def test_cclip_fused_launch_geometry(W, d, blocks, rows):
+    """``cclip_fused_iter`` launches the residual-norms kernel's CLIP form
+    with that module's geometry on 132 SMs: 256-thread blocks, at most two
+    an SM up to 8 rows and one above, each a contiguous range of 4-column
+    groups. Its C entry picks the instance: up to 32 rows the smallest
+    chunk of 8 / 16 / 32 rows that holds them all (one pass, the centre
+    formed from the rows held), above that passes of 64 rows in chunks of
+    16."""
+    assert weiszfeld_norms.geometry(W, d, 132) == (256, blocks)
+    assert blocks <= 132 * (2 if W <= 8 else 1)
+    (_, text), = cclip_fused.sources()
+    entry = text[text.index('extern "C" int cclip_fused_launch('):]
+    dispatch = re.findall(r"(?:if \(W <= (\d+)\) |else )rn_launch<(\d+), (\d+), RN_CLIP>", entry)
+    assert len(dispatch) == 4
+    rc, nsub = next((int(rc), int(nsub)) for bound, rc, nsub in dispatch
+                    if not bound or W <= int(bound))
+    assert rc * nsub == rows
+    assert (nsub == 1 and rc >= W) == (W <= 32)
+
+
+def test_cclip_fused_builds_the_residual_norms_library():
+    """The fused CCLIP iteration is the third centre form of
+    ``csrc/residual_norms.cu``: its sources are that library's (built
+    once), with no ``row_sums.cuh``; the combine alone is ``csrc/cclip.cu``."""
+    assert cclip_fused.sources() == weiszfeld_norms.sources()
+    (name, text), = cclip_fused.sources()
+    assert name == "residual_norms" and "row_sums" not in text
+    assert 'extern "C" int cclip_fused_launch(' in text and "#define RN_CLIP 2" in text
+    assert "cclip_fused_launch" in weiszfeld_norms._ARGS
+    (name, text), = cclip_combine.sources()
+    assert name == "cclip" and "row_sums" not in text and "RS_" not in text
+    assert "cclip_combine_kernel" in text and "cclip_fused" not in text
+    assert not (_build.CSRC / "row_sums.cuh").exists()
+    assert not hasattr(cclip_fused, "TILE_D")
