@@ -89,6 +89,31 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    prompt position's logits of the prefill and of token-by-token decode
    agree within the reference's bar (rtol and atol 2e-3). The serving
    path's own modules launch no kernel, as in the reference (counted).
+9. Drive the paper's experiment loop, ``ByzantineSim``, at the benchmark's
+   scale: the 784-128-10 MLP on SynthMNIST (4,000 train / 1,000 test) split
+   non-iid over n = 25 workers, f = 5 Byzantine (0 in the unattacked runs),
+   batch 32, 300 steps (``PAPER_RUNS``: mean; Krum without and with
+   bucketing; CM under mimic without and with bucketing; RFA under
+   bit-flipping; CCLIP under IPM with worker momentum 0.9, lr 0.5). One
+   step of each on the card equals the same step on the CPU with the same
+   draws (rtol 1e-4, atol 1e-6); the accuracies must pass the thresholds of
+   ``tests/test_sim.py``, which the JAX reference meets at this scale
+   (``PAPER_REFERENCE``, from ``scripts/paper_loop_reference.py``, printed
+   beside them). Each run is counted on its own and launches no kernel, as
+   in the reference; steps/s and the profiled busy share are printed beside
+   the card's name and power limit.
+10. Telemetry on the card: (a) ``ByzantineSim(telemetry=True)`` under ALIE
+   (n = 25, f = 5, 15 steps): the Byzantine rows' ``cm_worker_dev`` is
+   below 0.6 times the honest rows' and their Krum scores are lower; (b)
+   for each of phase 3's pairs, 20 ``CrossDeviceSim`` rounds with telemetry
+   on and off from the same draws launch the same kernels and end on the
+   same parameters bit for bit, every metric finite and catalogued; (c) in
+   each rank of phase 6, ``robust_gradient_sync(telemetry=True)`` for RFA
+   and CCLIP launches what off did and keeps its bits, the metrics are
+   equal bit for bit on every rank, and ``rfa_resid_norms`` /
+   ``cclip_lam`` are within 1e-4 of the one-device engine's; (d) phase
+   8(c)'s engine writes one ``serve`` event a step to a log on disk that
+   ``validate_jsonl`` accepts.
 
 The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
@@ -99,9 +124,11 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -136,6 +163,35 @@ NORM_SHAPES = [(5, RANK_D, (20, 50)), (10, MAIN_D, (20, 50)), (25, PAPER_D, (10,
 SELECTION_SHAPES = [(5, MAIN_D, (1, 2), (20, 50)), (5, RANK_D, (1,), (20, 50)),
                     (13, PAPER_D, (5,), (10, 1)), (27, PAPER_D, (5,), (10, 1))] + [
     (W, MAIN_D, (W // 4,), (20, 10)) for W in WIDE_W]
+#: phase 3's rule/attack pairs and their accuracy thresholds
+SLICE_RUNS = [("rfa", "bitflip", 0.7), ("acclip", "ipm", 0.7), ("cm", "bitflip", None),
+              ("tm", "alie", None)]
+#: phase 9: the paper's experiment loop at benchmarks/common.py's scale,
+#: (label, f, lr, ByzConfig fields) with n = 25 workers, batch 32, 300 steps;
+#: scripts/paper_loop_reference.py runs the same list through the JAX
+#: reference on the CPU
+PAPER_N, PAPER_STEPS = 25, 300
+PAPER_RUNS = [
+    ("mean/none", 0, 0.1, dict(aggregator="mean", attack="none")),
+    ("krum/none vanilla", 0, 0.1, dict(aggregator="krum", mixing="none", attack="none")),
+    ("krum/none s=2", 0, 0.1, dict(aggregator="krum", mixing="bucketing", s=2,
+                                   attack="none")),
+    ("cm+mimic vanilla", 5, 0.1, dict(aggregator="cm", mixing="none", attack="mimic")),
+    ("cm+mimic s=2", 5, 0.1, dict(aggregator="cm", mixing="bucketing", s=2, attack="mimic")),
+    ("rfa+bitflip s=2", 5, 0.1, dict(aggregator="rfa", mixing="bucketing", s=2,
+                                     attack="bitflip")),
+    ("cclip+ipm s=2", 5, 0.5, dict(aggregator="cclip", mixing="bucketing", s=2,
+                                   worker_momentum=0.9, attack="ipm",
+                                   attack_kwargs=(("eps", 0.1),))),
+]
+#: the JAX reference's test accuracy for each run, on the CPU with the same
+#: n, f, steps and seeds (scripts/paper_loop_reference.py); printed beside
+#: the card's, the gates are tests/test_sim.py's (``paper_gates``)
+PAPER_REFERENCE = {"mean/none": 1.0, "krum/none vanilla": 0.2, "krum/none s=2": 0.806,
+                   "cm+mimic vanilla": 0.938, "cm+mimic s=2": 0.989,
+                   "rfa+bitflip s=2": 0.994, "cclip+ipm s=2": 1.0}
+#: phase 10(c): the sync rules run again with telemetry on, in each rank
+SYNC_TELEMETRY = {"rfa": "rfa_resid_norms", "cclip": "cclip_lam"}
 ATTN_S = 4096             # the attention and serving phases' sequence length
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
@@ -579,36 +635,44 @@ def gram_variant(call):
     return out, ran[0]
 
 
-def slice_phase(dev):
-    import numpy as np
+def slice_task(dev):
+    """The slice's pool: SynthMNIST (3,000 train / 500 test) split non-iid
+    over 50 clients, 5 of them Byzantine, on the card."""
     import torch
 
-    from repro_torch.configs.base import ByzConfig
     from repro_torch.data.partition import worker_datasets
     from repro_torch.data.synthetic import make_train_test
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models.mlp import accuracy, init_mlp, nll_loss
-    from repro_torch.training.cross_device import CrossDeviceSim
 
     X, Y, Xt, Yt = make_train_test(torch.Generator().manual_seed(0), n_train=3000,
                                    n_test=500, device=dev)
     wx, wy = worker_datasets(X.cpu().numpy(), Y.cpu().numpy(), n_good=45, n_byz=5,
                              noniid=True)
-    wx, wy = torch.tensor(wx, device=dev), torch.tensor(wy, device=dev)
-    runs = [("rfa", "bitflip", 0.7), ("acclip", "ipm", 0.7), ("cm", "bitflip", None),
-            ("tm", "alie", None)]
+    return torch.tensor(wx, device=dev), torch.tensor(wy, device=dev), Xt, Yt
 
-    def make_sim(agg, attack, device):
-        kwargs = (("n", 10), ("f", 2)) if attack == "alie" else ()
-        byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2, attack=attack,
-                        attack_kwargs=kwargs, n_byzantine=0)
-        return CrossDeviceSim(loss_fn=nll_loss, byz=byz, n_clients=50, byz_frac=0.1,
-                              clients_per_round=10, lr=1.0, batch_size=16,
-                              server_momentum=0.9, device=device)
 
+def slice_sim(agg, attack, device, telemetry=False):
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.models.mlp import nll_loss
+    from repro_torch.training.cross_device import CrossDeviceSim
+
+    kwargs = (("n", 10), ("f", 2)) if attack == "alie" else ()
+    byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2, attack=attack,
+                    attack_kwargs=kwargs, n_byzantine=0)
+    return CrossDeviceSim(loss_fn=nll_loss, byz=byz, n_clients=50, byz_frac=0.1,
+                          clients_per_round=10, lr=1.0, batch_size=16,
+                          server_momentum=0.9, telemetry=telemetry, device=device)
+
+
+def slice_phase(dev):
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.mlp import accuracy, init_mlp
+
+    wx, wy, Xt, Yt = slice_task(dev)
     # one round on the card against the same round on the CPU (plain versions)
-    for agg, attack, _ in runs:
-        sim_gpu, sim_cpu = make_sim(agg, attack, dev), make_sim(agg, attack, "cpu")
+    for agg, attack, _ in SLICE_RUNS:
+        sim_gpu, sim_cpu = slice_sim(agg, attack, dev), slice_sim(agg, attack, "cpu")
         params = init_mlp(torch.Generator().manual_seed(1), device="cpu")
         draws = sim_cpu.draw(torch.Generator().manual_seed(5), wx.shape[1])
         s_cpu, _ = sim_cpu.step(sim_cpu.init_state(params), wx.cpu(), wy.cpu(), draws)
@@ -626,9 +690,9 @@ def slice_phase(dev):
     route = {"rfa": ("pairwise_gram", "bucket_mix"), "acclip": ("pairwise_gram", "bucket_mix"),
              "cm": ("bucket_mix", "cwise_median"), "tm": ("bucket_mix", "cwise_trimmed_mean")}
     round_us, launches = {}, {}
-    for agg, attack, threshold in runs:
+    for agg, attack, threshold in SLICE_RUNS:
         label = f"{agg}+{attack}"
-        sim = make_sim(agg, attack, dev)
+        sim = slice_sim(agg, attack, dev)
         params = init_mlp(torch.Generator().manual_seed(1), device=dev)
         torch.cuda.synchronize()
         reset_launches()
@@ -651,7 +715,7 @@ def slice_phase(dev):
         if threshold is not None and not acc > threshold:
             raise AssertionError(f"{label}: accuracy {acc} <= {threshold}")
     for (agg, attack), us in round_us.items():
-        profile_rounds(make_sim(agg, attack, dev), wx, wy, dev, f"{agg}+{attack}", us)
+        profile_rounds(slice_sim(agg, attack, dev), wx, wy, dev, f"{agg}+{attack}", us)
     return launches
 
 
@@ -807,6 +871,7 @@ def sync_rank(rank, group, device):
     from repro_torch.configs.base import ByzConfig
     from repro_torch.distributed.robust_sync import robust_gradient_sync
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.telemetry import get_metric
 
     tree = mlp_worker_grads(device)
     out = {}
@@ -848,6 +913,31 @@ def sync_rank(rank, group, device):
             torch.cuda.synchronize()
             ms[label] = (time.perf_counter() - t0) / SYNC_REPS * 1e3
         out[rule] = dict(result=got, counts=counts, max_abs_err=err, ms=ms)
+        if rule in SYNC_TELEMETRY:
+            # phase 10(c): telemetry on over the group launches what off did,
+            # keeps off's bits, and reads the kernels' own outputs
+            torch.cuda.synchronize()
+            dist.barrier(group)
+            reset_launches()
+            on, info = robust_gradient_sync(tree, ra, mix=mix, mesh=group, telemetry=True)
+            torch.cuda.synchronize()
+            tele_counts = dict(LAUNCHES)
+            if tele_counts != counts:
+                raise AssertionError(f"rank {rank} {rule} telemetry on: launches "
+                                     f"{tele_counts}, off {counts}")
+            if not all(torch.equal(on[k], got[k]) for k in got):
+                raise AssertionError(f"rank {rank} {rule}: telemetry on changed the result")
+            tele = info["telemetry"]
+            for name, v in tele.items():
+                get_metric(name)
+                if not bool(torch.isfinite(torch.as_tensor(v, dtype=torch.float32)).all()):
+                    raise AssertionError(f"rank {rank} {rule}: {name} not finite")
+            name = SYNC_TELEMETRY[rule]
+            single = robust_gradient_sync(tree, ra, mix=mix, mesh=None,
+                                          telemetry=True)[1]["telemetry"][name]
+            torch.testing.assert_close(tele[name], single, rtol=1e-4, atol=1e-4)
+            out[rule].update(telemetry=tele, telemetry_counts=tele_counts,
+                             telemetry_err=float((tele[name] - single).abs().max()))
     return out
 
 
@@ -872,6 +962,21 @@ def sync_phase():
                     raise AssertionError(f"sync {rule}: rank {rank} differs from rank 0 in {k}")
         counts = [r[rule]["counts"] for r in ranks]
         launches[f"sync.{rule}"] = {k: sum(c[k] for c in counts) for k in counts[0]}
+        if rule in SYNC_TELEMETRY:
+            first_t = ranks[0][rule]["telemetry"]
+            for rank, r in enumerate(ranks):
+                tele = r[rule]["telemetry"]
+                if sorted(tele) != sorted(first_t) or not all(
+                        np.array_equal(np.asarray(v), np.asarray(first_t[k]))
+                        for k, v in tele.items()):
+                    raise AssertionError(f"sync {rule} telemetry: rank {rank} differs from rank 0")
+            tcounts = [r[rule]["telemetry_counts"] for r in ranks]
+            launches[f"telemetry.sync.{rule}"] = {k: sum(c[k] for c in tcounts)
+                                                  for k in tcounts[0]}
+            log(f"check sync {rule} telemetry on ({len(first_t)} metrics): launches and result "
+                "bits as off in every rank; the metrics equal bit for bit on every rank; "
+                f"{SYNC_TELEMETRY[rule]} within 1e-4 of the one-device engine's, max |diff| "
+                f"{max(r[rule]['telemetry_err'] for r in ranks):.3g}")
         log(f"sync {rule}: every rank bitwise equal; launches per rank "
             f"{json.dumps(SYNC_ROUTE[rule])}; max |group - one device| "
             f"{max(r[rule]['max_abs_err'] for r in ranks):.3g}; host ms per sync, "
@@ -1054,6 +1159,7 @@ def serve_phase(dev, results):
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import rmsnorm
     from repro_torch.serving import Request, ServeEngine
+    from repro_torch.telemetry import EventLog, validate_jsonl
     from repro_torch.utils.tree import tree_flatten, tree_map
 
     cfg = get_config("tinyllama-1.1b")
@@ -1140,15 +1246,28 @@ def serve_phase(dev, results):
     rng = torch.Generator().manual_seed(3)
     lens = torch.randint(16, 97, (6,), generator=rng).tolist()
     prompts = [torch.randint(0, V, (n,), generator=rng).tolist() for n in lens]
-    eng = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
-    for uid, prompt in enumerate(prompts):
-        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=16))
-    t0 = time.perf_counter()
-    done = counted("serve.engine", eng.run_until_drained)
-    wall = time.perf_counter() - t0
+    # phase 10(d): the engine writes one serve event a step to a log on disk
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log_path = os.path.join(tmp, "serve.jsonl")
+        with EventLog(log_path, run_id="chip_smoke") as event_log:
+            eng = ServeEngine(cfg, params, batch_slots=4, max_len=256, event_log=event_log,
+                              device=dev)
+            for uid, prompt in enumerate(prompts):
+                eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=16))
+            t0 = time.perf_counter()
+            done = counted("serve.engine", eng.run_until_drained)
+            wall = time.perf_counter() - t0
+        events = validate_jsonl(log_path)
     if sorted(done) != list(range(6)) or any(len(r.output) != 16 for r in done.values()):
         raise AssertionError(f"engine: finished {sorted(done)}, outputs "
                              f"{[len(r.output or []) for r in done.values()]}")
+    if len(events) != eng.steps_total or any(e["kind"] != "serve" for e in events):
+        raise AssertionError(f"engine event log: {len(events)} events of kinds "
+                             f"{sorted({e['kind'] for e in events})} for {eng.steps_total} steps")
+    if events[-1]["metrics"]["serve_tokens_total"] != 6 * 16:
+        raise AssertionError(f"engine event log: last event {events[-1]}")
+    log(f"check serve event log: validate_jsonl accepts {len(events)} serve events on disk, "
+        f"one a step ({eng.steps_total} steps), the last counting {6 * 16} tokens")
     stats = eng.stats()
     log(f"serve engine: 6 requests (prompts {lens}) x 16 new tokens in {eng.steps_total} steps, "
         f"{wall:.2f} s; decode ms per step mean {stats['serve_decode_step_s'] * 1e3:.2f}, "
@@ -1203,8 +1322,184 @@ def serve_phase(dev, results):
     return launches
 
 
-def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20) -> None:
-    """Profile ``rounds`` rounds of ``sim`` after 5 warm-up rounds."""
+def paper_task(dev):
+    """Phase 9's data: SynthMNIST at benchmarks/common.py's scale (4,000
+    train / 1,000 test), split non-iid over ``PAPER_N`` workers with f of
+    them Byzantine, for each f of ``PAPER_RUNS``; on the card."""
+    import torch
+
+    from repro_torch.data.partition import worker_datasets
+    from repro_torch.data.synthetic import make_train_test
+
+    X, Y, Xt, Yt = make_train_test(torch.Generator().manual_seed(0), n_train=4000,
+                                   n_test=1000, device=dev)
+    split = {}
+    for f in sorted({f for _, f, _, _ in PAPER_RUNS}):
+        wx, wy = worker_datasets(X.cpu().numpy(), Y.cpu().numpy(), n_good=PAPER_N - f,
+                                 n_byz=f, noniid=True)
+        split[f] = (torch.tensor(wx, device=dev), torch.tensor(wy, device=dev))
+    return split, Xt, Yt
+
+
+def paper_sim(fields, f, lr, device, telemetry=False):
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.models.mlp import nll_loss
+    from repro_torch.training.byzantine import ByzantineSim
+
+    return ByzantineSim(loss_fn=nll_loss, byz=ByzConfig(n_byzantine=f, **fields),
+                        n_workers=PAPER_N, n_byzantine=f, lr=lr, batch_size=32,
+                        telemetry=telemetry, device=device)
+
+
+def paper_gates(acc) -> None:
+    """tests/test_sim.py's thresholds, which the reference meets at this
+    scale (``PAPER_REFERENCE``)."""
+    gates = [
+        ("mean/none > 0.75", acc["mean/none"] > 0.75),
+        ("krum s=2 > vanilla + 0.05", acc["krum/none s=2"] > acc["krum/none vanilla"] + 0.05),
+        ("cm+mimic s=2 > vanilla - 0.07", acc["cm+mimic s=2"] > acc["cm+mimic vanilla"] - 0.07),
+        ("cm+mimic s=2 > 0.5", acc["cm+mimic s=2"] > 0.5),
+        ("rfa+bitflip s=2 > 0.6", acc["rfa+bitflip s=2"] > 0.6),
+        ("cclip+ipm s=2 > 0.6", acc["cclip+ipm s=2"] > 0.6),
+    ]
+    failed = [name for name, ok in gates if not ok]
+    if failed:
+        raise AssertionError(f"paper loop: accuracies {acc} miss {failed}")
+    log("check paper loop gates (tests/test_sim.py): " + "; ".join(n for n, _ in gates))
+
+
+def paper_phase(dev, smi: str):
+    """Phase 9: the paper's experiment loop, ``ByzantineSim``, at the
+    benchmark's scale on the card."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.mlp import accuracy, init_mlp
+
+    split, Xt, Yt = paper_task(dev)
+    # one step on the card against the same step on the CPU, same draws
+    for label, f, lr, fields in PAPER_RUNS:
+        wx, wy = split[f]
+        sim_gpu, sim_cpu = paper_sim(fields, f, lr, dev), paper_sim(fields, f, lr, "cpu")
+        params = init_mlp(torch.Generator().manual_seed(1), device="cpu")
+        draws = sim_cpu.draw(torch.Generator().manual_seed(5), wx.shape[1])
+        s_cpu, _ = sim_cpu.step(sim_cpu.init_state(params), wx.cpu(), wy.cpu(), draws)
+        s_gpu, _ = sim_gpu.step(sim_gpu.init_state({k: v.to(dev) for k, v in params.items()}),
+                                wx, wy, draws._replace(mix=draws.mix.to(dev)))
+        for k in params:
+            torch.testing.assert_close(s_gpu.params[k].cpu(), s_cpu.params[k],
+                                       rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(s_gpu.momentum.cpu(), s_cpu.momentum, rtol=1e-4, atol=1e-6)
+    log(f"check paper loop: one step on the card == the step on the CPU with the same draws "
+        f"(parameters and momenta, rtol 1e-4, atol 1e-6), for all {len(PAPER_RUNS)} runs")
+
+    # each run counted on its own: ByzantineSim aggregates through
+    # RobustAggregator, as the reference does, and launches no kernel
+    acc, step_us, launches = {}, {}, {}
+    for label, f, lr, fields in PAPER_RUNS:
+        wx, wy = split[f]
+        sim = paper_sim(fields, f, lr, dev)
+        params = init_mlp(torch.Generator().manual_seed(1), device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, _ = sim.run(params, wx, wy, PAPER_STEPS, torch.Generator().manual_seed(2))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[f"paper.{label}"] = counts = dict(LAUNCHES)
+        if any(counts.values()):
+            raise AssertionError(f"paper {label}: launched {counts}; the loop runs no kernel")
+        flat = torch.cat([p.reshape(-1) for p in state.params.values()])
+        if not bool(torch.isfinite(flat).all()) or not bool(torch.isfinite(state.momentum).all()):
+            raise AssertionError(f"paper {label}: non-finite parameters or momenta")
+        acc[label] = float(accuracy(state.params, Xt, Yt))
+        step_us[label] = seconds / PAPER_STEPS * 1e6
+        log(f"paper {label}: n {PAPER_N}, f {f}, lr {lr}, {PAPER_STEPS} steps: test accuracy "
+            f"{acc[label]:.4f} (the JAX reference on the CPU: {PAPER_REFERENCE[label]:.4f}); "
+            f"{PAPER_STEPS / seconds:.1f} steps/s on {smi}")
+    paper_gates(acc)
+    for label, f, lr, fields in PAPER_RUNS:
+        wx, wy = split[f]
+        profile_rounds(paper_sim(fields, f, lr, dev), wx, wy, dev, f"paper {label} ({smi})",
+                       step_us[label], unit="step")
+    return launches, split
+
+
+def telemetry_phase(dev, split):
+    """Phase 10(a) and (b): the simulators with telemetry on."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.mlp import init_mlp
+    from repro_torch.telemetry import get_metric
+
+    def checked(label, tele):
+        for name, v in tele.items():
+            get_metric(name)
+            if not np.isfinite(np.asarray(v, dtype=np.float32)).all():
+                raise AssertionError(f"{label}: telemetry {name} not finite")
+
+    # (a) ALIE is visible in ByzantineSim's traces (tests/test_telemetry.py)
+    n, f = PAPER_N, 5
+    wx, wy = split[f]
+    launches, hist = {}, {}
+    for agg in ("cm", "krum"):
+        fields = dict(aggregator=agg, mixing="none", attack="alie",
+                      attack_kwargs=(("n", n), ("f", f)), worker_momentum=0.9, delta=f / n)
+        sim = paper_sim(fields, f, 0.1, dev, telemetry=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        _, hist[agg] = sim.run(init_mlp(torch.Generator().manual_seed(1), device=dev), wx, wy,
+                               15, torch.Generator().manual_seed(2))
+        torch.cuda.synchronize()
+        launches[f"telemetry.paper.{agg}+alie"] = counts = dict(LAUNCHES)
+        if any(counts.values()):
+            raise AssertionError(f"telemetry {agg}+alie: launched {counts}")
+        checked(f"telemetry {agg}+alie", hist[agg]["telemetry"])
+    cm_dev = hist["cm"]["telemetry"]["cm_worker_dev"][5:]
+    scores = hist["krum"]["telemetry"]["krum_scores"][5:]
+    mask = hist["cm"]["telemetry"]["byz_mask"][0]
+    byz_dev, good_dev = float(cm_dev[:, :f].mean()), float(cm_dev[:, f:].mean())
+    byz_s, good_s = float(scores[:, :f].mean()), float(scores[:, f:].mean())
+    if cm_dev.shape != (10, n) or not mask[:f].all() or mask[f:].any():
+        raise AssertionError(f"telemetry cm+alie: cm_worker_dev {cm_dev.shape}, mask {mask}")
+    if not byz_dev < 0.6 * good_dev or not byz_s < good_s:
+        raise AssertionError(f"telemetry: ALIE not visible: cm_worker_dev {byz_dev} vs "
+                             f"{good_dev}, krum_scores {byz_s} vs {good_s}")
+    log(f"check ALIE visible in ByzantineSim telemetry (n {n}, f {f}, steps 6-15): "
+        f"cm_worker_dev Byzantine {byz_dev:.4g} < 0.6 x honest {good_dev:.4g}; "
+        f"krum_scores Byzantine {byz_s:.4g} < honest {good_s:.4g}")
+
+    # (b) CrossDeviceSim with telemetry on and off from the same draws
+    wx, wy, _, _ = slice_task(dev)
+    for agg, attack, _ in SLICE_RUNS:
+        label, runs = f"{agg}+{attack}", {}
+        for telemetry in (False, True):
+            sim = slice_sim(agg, attack, dev, telemetry=telemetry)
+            torch.cuda.synchronize()
+            reset_launches()
+            state, hist_ = sim.run(init_mlp(torch.Generator().manual_seed(1), device=dev),
+                                   wx, wy, 20, torch.Generator().manual_seed(2))
+            torch.cuda.synchronize()
+            runs[telemetry] = (state, hist_, dict(LAUNCHES))
+        (off, _, c_off), (on, hist_on, c_on) = runs[False], runs[True]
+        launches[f"telemetry.slice.{label}"] = c_on
+        if c_on != c_off:
+            raise AssertionError(f"telemetry {label}: launches on {c_on}, off {c_off}")
+        if not all(torch.equal(on.params[k], off.params[k]) for k in off.params):
+            raise AssertionError(f"telemetry {label}: parameters differ from telemetry off")
+        tele = hist_on["telemetry"]
+        checked(f"telemetry {label}", tele)
+        log(f"check CrossDeviceSim {label} telemetry on vs off, 20 rounds: launches "
+            f"{json.dumps(c_on)} both; parameters equal bit for bit; {len(tele)} metrics "
+            f"catalogued and finite ({', '.join(sorted(tele))})")
+    return launches
+
+
+def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20,
+                   unit: str = "round") -> None:
+    """Profile ``rounds`` rounds (steps) of ``sim`` after 5 warm-up rounds."""
     import torch
 
     from repro_torch.models.mlp import init_mlp
@@ -1218,7 +1513,7 @@ def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20) -
         nonlocal state
         state, _ = sim.step(state, wx, wy, sim.draw(gen, wx.shape[1]))
 
-    profile_steps(one_round, label, round_us, rounds, "round")
+    profile_steps(one_round, label, round_us, rounds, unit)
 
 
 def profile_steps(step, label, step_us: float, steps: int, unit: str = "step") -> None:
@@ -1264,6 +1559,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
@@ -1277,6 +1573,9 @@ def main() -> int:
     launches.update(sync_phase())
     results.update(attention_phase(dev))
     launches.update(serve_phase(dev, results))
+    paper, split = paper_phase(dev, smi)
+    launches.update(paper)
+    launches.update(telemetry_phase(dev, split))
 
     src = {"bucket_mix": "bucket_mix.cu", "pairwise_gram": "pairwise_gram.cu",
            "cwise_median": "selection.cu", "cwise_trimmed_mean": "selection.cu",
@@ -1330,6 +1629,7 @@ def main() -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
             **other.get(name, {})))
+    log(f"chip_smoke: phases 1-10 passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

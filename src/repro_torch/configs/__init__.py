@@ -3,8 +3,8 @@
 ``get_config(name)`` returns the full (paper-scale) ``ModelConfig`` of a
 ported architecture; ``smoke_config(name)`` the reduced same-family variant
 the CPU tests use. The port carries the dense configs whose attention
-shapes the serving slice runs; the other families of the reference are
-queued in ``ROADMAP.md`` (Queue 1).
+shapes the serving slice runs and the paper's own MNIST MLP; the other
+families of the reference are queued in ``ROADMAP.md`` (Queue 1).
 """
 
 from __future__ import annotations
@@ -12,11 +12,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import gemma_7b, qwen2_5_14b, tinyllama_1_1b
+from repro_torch.configs import gemma_7b, paper_mnist, qwen2_5_14b, tinyllama_1_1b
 from repro_torch.configs.base import INPUT_SHAPES, ByzConfig, InputShape, ModelConfig
 
 _CONFIGS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, qwen2_5_14b, gemma_7b)
+    m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, qwen2_5_14b, gemma_7b, paper_mnist)
 }
 
 
@@ -27,8 +27,11 @@ def get_config(name: str) -> ModelConfig:
     return _CONFIGS[name]
 
 
-def list_archs() -> List[str]:
-    return sorted(_CONFIGS)
+def list_archs(include_paper: bool = False) -> List[str]:
+    out = sorted(n for n in _CONFIGS if n != "paper-mnist-mlp")
+    if include_paper:
+        out.append("paper-mnist-mlp")
+    return out
 
 
 def smoke_config(name: str) -> ModelConfig:

@@ -11,14 +11,20 @@ Every aggregator supports two equivalent forms:
    mean: uniform). Mixing composes as ``G_mixed = M G M^T`` with final
    worker weights ``M^T w``.
 
-The ``*_and_stats`` forms of the reference belong to the telemetry slice.
+The ``*_and_stats`` forms add the telemetry stats dict
+(``repro_torch/telemetry``). They run the tensor operations of the plain
+forms, so their aggregate equals the plain one bit for bit, except where
+the plain form takes a shortcut of its own (``Mean.aggregate``).
 """
 
 from __future__ import annotations
 
 import abc
+from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.telemetry import probes
 
 
 def pairwise_sq_dists_from_gram(gram: torch.Tensor) -> torch.Tensor:
@@ -50,10 +56,26 @@ class Aggregator(abc.ABC):
         w = self.coeffs(x32 @ x32.T)
         return (w.to(xs.dtype) @ xs)
 
+    def aggregate_and_stats(self, xs: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """``aggregate`` plus the telemetry stats dict (telemetry-on paths
+        only)."""
+        if self.coordinatewise:
+            out = self.combine_leaf(xs)
+            return out, probes.coordinatewise_stats(self, xs, out)
+        x32 = xs.float()
+        gram = x32 @ x32.T
+        w, stats = self.coeffs_and_stats(gram)
+        stats["bucket_dispersion"] = probes.bucket_dispersion_from_gram(gram)
+        return w.to(xs.dtype) @ xs, stats
+
     def coeffs(self, gram: torch.Tensor) -> torch.Tensor:
         """Combination coefficients ``[n]`` from the Gram matrix ``[n, n]``."""
         raise NotImplementedError(
             f"{type(self).__name__} does not implement the Gram-space form")
+
+    def coeffs_and_stats(self, gram: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """``coeffs`` plus the telemetry stats dict. Default: no stats."""
+        return self.coeffs(gram), {}
 
     def combine_leaf(self, xs_leaf: torch.Tensor) -> torch.Tensor:
         """Exact leaf-local aggregation ``[n, ...] -> [...]`` (coordinatewise only)."""

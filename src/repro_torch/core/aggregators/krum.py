@@ -33,13 +33,22 @@ class Krum(Aggregator):
         smallest = torch.topk(dists, k, dim=1, largest=False).values
         return torch.sum(smallest, dim=1)
 
-    def coeffs(self, gram):
-        n = gram.shape[0]
-        s = self.scores(gram)
-        w = torch.zeros((n,), dtype=torch.float32, device=gram.device)
+    def _weights(self, s: torch.Tensor) -> torch.Tensor:
+        w = torch.zeros(s.shape, dtype=torch.float32, device=s.device)
         if self.m <= 1:
             w[torch.argmin(s)] = 1.0
             return w
         # multi-krum: average of the m best
         w[torch.argsort(s)[: self.m]] = 1.0 / self.m
         return w
+
+    def coeffs(self, gram):
+        return self._weights(self.scores(gram))
+
+    def coeffs_and_stats(self, gram):
+        s = self.scores(gram)
+        stats = {
+            "krum_scores": s,
+            "krum_selected": torch.argmin(s).to(torch.int32),
+        }
+        return self._weights(s), stats

@@ -13,12 +13,13 @@ is used (the reference's ``key=None``).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.aggregators import Aggregator, get_aggregator
 from repro_torch.core.mixing import Mixer, NoMix, get_mixer
+from repro_torch.telemetry import probes
 
 #: Theorem-I breakdown points per base rule.
 DELTA_MAX = {
@@ -87,10 +88,16 @@ class RobustAggregator:
         m = self._mix_for(xs.shape[0], mix, xs.device)
         return self.base.aggregate(self.mixer.apply(m, xs))
 
-    def worker_weights_from_gram(self, gram: torch.Tensor,
-                                 mix: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Exact per-worker combination weights ``[n]`` for non-coordinatewise
-        base rules: ``w = M^T coeffs(M G M^T)``."""
+    def aggregate_with_stats(self, xs: torch.Tensor, mix: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, Dict]:
+        """``__call__`` plus the base rule's telemetry stats dict. Stats are
+        keyed per *mixed row* (post-bucketing); with ``mixing="none"`` they
+        attribute directly to workers."""
+        m = self._mix_for(xs.shape[0], mix, xs.device)
+        return self.base.aggregate_and_stats(self.mixer.apply(m, xs))
+
+    def _bucket_gram(self, gram: torch.Tensor, mix) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The mixing matrix and the mixed Gram ``M G M^T``."""
         if self.base.coordinatewise:
             raise ValueError("coordinatewise base rules do not use Gram weights")
         m = self._mix_for(gram.shape[0], mix, gram.device)
@@ -99,8 +106,27 @@ class RobustAggregator:
         # mirrored, keeps the exact ties of the rules' scores (two buckets
         # that are each other's nearest neighbour have the same Krum score),
         # so the lower index wins them whichever path made the Gram.
-        gram_y = torch.triu(gram_y) + torch.triu(gram_y, 1).T
+        return m, torch.triu(gram_y) + torch.triu(gram_y, 1).T
+
+    def worker_weights_from_gram(self, gram: torch.Tensor,
+                                 mix: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Exact per-worker combination weights ``[n]`` for non-coordinatewise
+        base rules: ``w = M^T coeffs(M G M^T)``."""
+        m, gram_y = self._bucket_gram(gram, mix)
         return m.T @ self.base.coeffs(gram_y)
+
+    def worker_weights_and_stats_from_gram(self, gram: torch.Tensor,
+                                           mix: Optional[torch.Tensor] = None
+                                           ) -> Tuple[torch.Tensor, Dict]:
+        """``worker_weights_from_gram`` (the same weights, bit for bit) plus
+        the base rule's stats, the per-bucket dispersion from the mixed Gram
+        and the final per-worker weights ``M^T c``."""
+        m, gram_y = self._bucket_gram(gram, mix)
+        c, stats = self.base.coeffs_and_stats(gram_y)
+        w = m.T @ c
+        stats["bucket_dispersion"] = probes.bucket_dispersion_from_gram(gram_y)
+        stats["worker_weights"] = w
+        return w, stats
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"RobustAggregator({self.base!r}, {self.mixer!r})"

@@ -1,8 +1,8 @@
 """Packed flat-buffer robust-aggregation engine, on one device or over a
 group of ranks.
 
-Port of ``repro/distributed/packing.py`` without its param-sharded egress
-and telemetry. Mixing, the Gram stats phase and the combine are linear, so
+Port of ``repro/distributed/packing.py`` without its param-sharded egress.
+Mixing, the Gram stats phase and the combine are linear, so
 the whole stats -> coeff -> combine pipeline runs on one packed
 ``[W, n_pad]`` fp32 buffer.
 
@@ -18,8 +18,14 @@ On one device the engine launches four kernels: ``bucket_mix`` (mix and
 final combine), ``cwise_median`` (CM), ``cwise_trimmed_mean`` (TM) and
 ``pairwise_gram`` (every other rule). ``use_kernels=False`` runs the plain
 PyTorch contractions instead. The phases are marked with
-``torch.profiler.record_function`` under the reference's names (``pack``,
+``telemetry.phase`` under the reference's names (``telemetry/pack``,
 ``mix``, ``kernel``, ``gram``, ``coeff``, ``combine``, ``unpack``).
+
+``telemetry=True`` adds ``info["telemetry"]``: the layout counters and the
+rule's statistics, read from what the route already holds (the kernels'
+outputs, ``mixed``, the Gram matrix) with plain PyTorch. It launches no
+kernel more and leaves the result's bits as they are; with the default
+False the engine does no tensor work for telemetry.
 
 Over a group of ranks (``mesh``: a ``torch.distributed`` process group of
 more than one rank; ``launch/mesh.py``) the engine follows the reference's
@@ -40,13 +46,14 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.aragg import RobustAggregator
 from repro_torch.distributed import shard_kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels.pairwise_gram import TILE_D
 from repro_torch.launch.mesh import n_devices
+from repro_torch.telemetry import InflightMetrics, phase
+from repro_torch.telemetry import probes as _probes
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
@@ -139,6 +146,7 @@ def packed_robust_sync(
     mesh=None,
     use_kernels: bool = True,
     out_shardings: Any = None,
+    telemetry: bool = False,
 ) -> Tuple[Any, dict]:
     """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
     gradient tree on a single packed buffer. Returns ``(grads, info)``.
@@ -156,7 +164,9 @@ def packed_robust_sync(
     (module docstring), and every rank gets the whole result. The
     param-sharded egress (``out_shardings``) is not ported and raises.
     On the Gram route ``info`` holds ``agg_weights`` and
-    ``gram_diag_mean``."""
+    ``gram_diag_mean``; with ``telemetry=True`` ``info["telemetry"]``
+    holds the metrics (module docstring), the same on every rank of a
+    group."""
     if out_shardings is not None:
         raise NotImplementedError("the param-sharded egress (out_shardings) is not ported")
     sharded = not _mesh_is_trivial(mesh) and use_kernels
@@ -170,23 +180,36 @@ def packed_robust_sync(
         mix = aggregator.mixer.matrix(W, device=device)
     mix = mix.to(device=device, dtype=torch.float32).contiguous()
     info: dict = {}
+    tm = InflightMetrics(telemetry)
+    if tm:
+        tm.put("sync_n_workers", W)
+        tm.put("sync_n_params", packer.n_params)
+        tm.put("sync_n_pad", packer.n_pad)
+        tm.put("sync_ingress_bytes", W * packer.n_pad * 4)
+        tm.put("sync_egress_bytes", packer.n_pad * 4)
 
-    with record_function("pack"):
+    def col_sum(t: torch.Tensor) -> torch.Tensor:
+        """A probe's sum over this rank's columns -> over all columns."""
+        return t if group is None else shard_kernels.all_reduced(t, group)
+
+    with phase("pack"):
         buf = reshard_in(packer.pack(grads_w), group)  # [W, n_pad / R] fp32
 
     def finish(out):
-        with record_function("unpack"):
+        if tm:
+            info["telemetry"] = tm.tree()
+        with phase("unpack"):
             return packer.unpack(reshard_out(out, packer.n_pad, group)), info
 
     base = aggregator.base
     if base.coordinatewise:
-        with record_function("mix"):
+        with phase("mix"):
             if not use_kernels:
                 mixed = mix @ buf
             else:
                 mixed = (shard_kernels.mix_apply(mix, buf, group) if sharded
                          else ops.mix_apply(mix, buf))
-        with record_function("kernel"):
+        with phase("kernel"):
             if not use_kernels:
                 out = base.combine_leaf(mixed)
             elif base.name == "cm":
@@ -200,6 +223,15 @@ def packed_robust_sync(
                 out = shard_kernels.coordinatewise_combine(mixed, group, base.combine_leaf)
             else:
                 out = base.combine_leaf(mixed)
+        if tm:
+            # the probes read the mixed rows and the kernel's output
+            tm.put("bucket_dispersion", lambda: col_sum(_probes.bucket_dispersion(mixed)))
+            if base.name == "cm":
+                tm.put("cm_worker_dev", lambda: col_sum(_probes.cm_worker_dev(
+                    mixed, out, packer.n_params)))
+            elif base.name == "tm":
+                tm.put("tm_trim_frac", lambda: col_sum(_probes.tm_trim_frac(
+                    mixed, base.n_trim, packer.n_params)))
         return finish(out)
 
     if sharded and base.name in ("rfa", "cclip"):
@@ -208,29 +240,38 @@ def packed_robust_sync(
         # one [W]-sized all-reduce per iteration instead of the [W, W] Gram
         # detour. ACClip stays on the Gram route (its adaptive tau needs the
         # whole norm vector).
-        with record_function("mix"):
+        with phase("mix"):
             mixed = shard_kernels.mix_apply(mix, buf, group)
-        with record_function("kernel"):
+        with phase("kernel"):
             if base.name == "cclip":
                 out = shard_kernels.cclip_aggregate(mixed, base.tau, group,
-                                                    n_iters=base.n_iters, eps=base.eps)
+                                                    n_iters=base.n_iters, eps=base.eps,
+                                                    with_stats=telemetry)
             else:
                 out = shard_kernels.rfa_aggregate(mixed, group, n_iters=base.n_iters,
-                                                  eps=base.eps)
+                                                  eps=base.eps, with_stats=telemetry)
+        if tm:
+            out, stats = out
+            tm.update(stats)
+            tm.put("bucket_dispersion", lambda: col_sum(_probes.bucket_dispersion(mixed)))
         return finish(out)
 
-    with record_function("gram"):
+    with phase("gram"):
         if not use_kernels:
             gram = buf @ buf.T
         elif sharded:
             gram = shard_kernels.gram(buf, group)
         else:
             gram = ops.gram(buf)
-    with record_function("coeff"):
-        weights = aggregator.worker_weights_from_gram(gram, mix=mix)
+    with phase("coeff"):
+        if tm:
+            weights, stats = aggregator.worker_weights_and_stats_from_gram(gram, mix=mix)
+            tm.update(stats)
+        else:
+            weights = aggregator.worker_weights_from_gram(gram, mix=mix)
     info["agg_weights"] = weights
     info["gram_diag_mean"] = torch.mean(torch.diagonal(gram))
-    with record_function("combine"):
+    with phase("combine"):
         if not use_kernels:
             out = weights @ buf
         elif sharded:
@@ -245,14 +286,15 @@ def packed_aggregate(
     aggregator: RobustAggregator,
     mix: Optional[torch.Tensor] = None,
     use_kernels: bool = True,
+    telemetry: bool = False,
     with_info: bool = False,
 ):
     """Packed engine on an already-stacked ``[W, d]`` matrix -> ``[d]``; the
     counterpart of ``RobustAggregator.__call__`` for callers that hold a
     flat stack (the cross-device server). ``with_info=True`` returns
-    ``(out, info)``."""
+    ``(out, info)``; with ``telemetry=True`` the info carries the metrics."""
     out_tree, info = packed_robust_sync(
-        [xs], aggregator, mix=mix, use_kernels=use_kernels)
+        [xs], aggregator, mix=mix, use_kernels=use_kernels, telemetry=telemetry)
     if with_info:
         return out_tree[0], info
     return out_tree[0]

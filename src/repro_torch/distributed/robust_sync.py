@@ -83,8 +83,13 @@ def tree_mix(grads_w: Any, mix_matrix: torch.Tensor, use_kernels: bool = False) 
 
 
 def _per_leaf_sync(grads_w: Any, aggregator: RobustAggregator, mix: torch.Tensor,
-                   use_kernels: bool) -> Tuple[Any, dict]:
-    """The per-leaf engine (module docstring)."""
+                   use_kernels: bool, telemetry: bool = False) -> Tuple[Any, dict]:
+    """The per-leaf engine (module docstring).
+
+    ``telemetry=True`` adds ``info["telemetry"]`` from the Gram-space probes
+    (non-coordinatewise rules only — the coordinatewise route has no stacked
+    buffer to probe without materializing one; use the packed engine for
+    CM/TM telemetry)."""
     leaves, _ = tree_flatten(grads_w)
     n_workers = leaves[0].shape[0]
     info: dict = {}
@@ -111,7 +116,10 @@ def _per_leaf_sync(grads_w: Any, aggregator: RobustAggregator, mix: torch.Tensor
         return _tree_map(one, grads_w), info
 
     gram = tree_gram(grads_w, n_workers, use_kernels=use_kernels)
-    weights = aggregator.worker_weights_from_gram(gram, mix=mix)
+    if telemetry:
+        weights, info["telemetry"] = aggregator.worker_weights_and_stats_from_gram(gram, mix=mix)
+    else:
+        weights = aggregator.worker_weights_from_gram(gram, mix=mix)
     info["agg_weights"] = weights
     info["gram_diag_mean"] = torch.mean(torch.diagonal(gram))
     return tree_combine(grads_w, weights, use_kernels=use_kernels), info
@@ -125,6 +133,7 @@ def robust_gradient_sync(
     engine: str = "packed",
     use_kernels: Optional[bool] = None,
     out_shardings: Any = None,
+    telemetry: bool = False,
 ) -> Tuple[Any, dict]:
     """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
     gradient tree, using mixing + the robust rule. Returns ``(grads, info)``.
@@ -134,12 +143,13 @@ def robust_gradient_sync(
     ``None`` or a ``torch.distributed`` process group (``launch/mesh.py``).
     ``use_kernels=None`` resolves to the kernels for the packed engine and
     to plain PyTorch for the per-leaf engine. ``out_shardings`` (the
-    param-sharded egress) is not ported and raises."""
+    param-sharded egress) is not ported and raises. ``telemetry=True``
+    adds the metrics as ``info["telemetry"]`` (``packing.py``)."""
     if engine == "packed":
         return packing.packed_robust_sync(
             grads_w, aggregator, mix=mix, mesh=mesh,
             use_kernels=True if use_kernels is None else use_kernels,
-            out_shardings=out_shardings)
+            out_shardings=out_shardings, telemetry=telemetry)
     if engine != "per_leaf":
         raise ValueError(f"unknown sync engine {engine!r}")
     if not packing._mesh_is_trivial(mesh) or out_shardings is not None:
@@ -148,4 +158,4 @@ def robust_gradient_sync(
     device = leaves[0].device
     mix = (aggregator.mixer.matrix(leaves[0].shape[0], device=device) if mix is None
            else mix.to(device=device, dtype=torch.float32).contiguous())
-    return _per_leaf_sync(grads_w, aggregator, mix, bool(use_kernels))
+    return _per_leaf_sync(grads_w, aggregator, mix, bool(use_kernels), telemetry=telemetry)

@@ -69,7 +69,8 @@ def unshard_cols(local: torch.Tensor, n: int, group) -> torch.Tensor:
     return full[..., :n]
 
 
-def _all_reduced(t: torch.Tensor, group) -> torch.Tensor:
+def all_reduced(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the group, in place (every rank gets the sum)."""
     dist.all_reduce(t, group=group)
     return t
 
@@ -77,7 +78,7 @@ def _all_reduced(t: torch.Tensor, group) -> torch.Tensor:
 # ------------------------------------------------------------------ kernels
 def gram(local: torch.Tensor, group) -> torch.Tensor:
     """Sharded stats phase: local ``[W, n/R]`` Gram + all-reduce -> ``[W, W]``."""
-    return _all_reduced(ops.gram(local), group)
+    return all_reduced(ops.gram(local), group)
 
 
 def mix_apply(mix: torch.Tensor, local: torch.Tensor, group) -> torch.Tensor:
@@ -116,7 +117,7 @@ def residual_norms(local: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *
     rank) or as this rank's slice of an explicit ``center`` row."""
     if (coeffs is None) == (center is None):
         raise ValueError("provide exactly one of coeffs / center")
-    return _all_reduced(ops.norms(local, coeffs, center=center), group)
+    return all_reduced(ops.norms(local, coeffs, center=center), group)
 
 
 def cclip_fused_iter(local: torch.Tensor, v: torch.Tensor, lam: torch.Tensor,
@@ -125,34 +126,62 @@ def cclip_fused_iter(local: torch.Tensor, v: torch.Tensor, lam: torch.Tensor,
     new centre stays column-sharded; one pass over the local slice); the
     next iteration's residuals finish with an all-reduce."""
     v_new, r2 = ops.cclip_iter(local, v, lam)
-    return v_new, _all_reduced(r2, group)
+    return v_new, all_reduced(r2, group)
 
 
 # ------------------------------------------------------------- compositions
 def rfa_aggregate(local: torch.Tensor, group, *, n_iters: int = 8,
-                  eps: float = 1e-6) -> torch.Tensor:
+                  eps: float = 1e-6, with_stats: bool = False):
     """Counterpart of ``ops.rfa_aggregate`` over the group: smoothed
     Weiszfeld with one sharded norms pass (+ all-reduce of ``[W]``) per
-    iteration. Returns this rank's slice of the aggregate."""
+    iteration. Returns this rank's slice of the aggregate.
+
+    ``with_stats=True`` also returns the telemetry stats dict: each
+    iteration's smoothed residual norms, ``sqrt(r2 + eps^2)`` of the
+    ``residual_norms`` output the iteration uses (no pass of its own)."""
     W = local.shape[0]
     c = torch.full((W,), 1.0 / W, dtype=torch.float32, device=local.device)
+    rs = []
     for _ in range(n_iters):
-        r2 = residual_norms(local, c, group=group)
-        w = 1.0 / torch.sqrt(r2 + eps**2)
+        r = torch.sqrt(residual_norms(local, c, group=group) + eps**2)
+        rs.append(r)
+        w = 1.0 / r
         c = w / torch.sum(w)
-    return mix_apply(c[None, :], local, group)[0]
+    out = mix_apply(c[None, :], local, group)[0]
+    if not with_stats:
+        return out
+    r_seq = torch.stack(rs)
+    stats = {
+        "rfa_resid_norms": r_seq,                  # [T, W]
+        "rfa_residual": torch.sum(r_seq, dim=1),   # [T]
+        "rfa_iters": n_iters,
+    }
+    return out, stats
 
 
 def cclip_aggregate(local: torch.Tensor, tau: float, group, *, n_iters: int = 3,
-                    eps: float = 1e-12) -> torch.Tensor:
+                    eps: float = 1e-12, with_stats: bool = False):
     """Counterpart of ``ops.cclip_aggregate`` over the group: one fused
     sharded pass per iteration (combine column-local, norms all-reduced).
-    Returns this rank's slice of the aggregate."""
+    Returns this rank's slice of the aggregate.
+
+    ``with_stats=True`` also returns the telemetry stats dict: the clip
+    weights ``lam`` each iteration feeds ``cclip_fused_iter``."""
     W = local.shape[0]
     uniform = torch.full((1, W), 1.0 / W, dtype=torch.float32, device=local.device)
     v = mix_apply(uniform, local, group)[0]
     r2 = residual_norms(local, center=v, group=group)
+    lams = []
     for _ in range(n_iters):
         lam = torch.clamp(tau / torch.sqrt(r2 + eps), max=1.0)
+        lams.append(lam)
         v, r2 = cclip_fused_iter(local, v, lam, group)
-    return v
+    if not with_stats:
+        return v
+    lam32 = torch.stack(lams)
+    stats = {
+        "cclip_lam": lam32,                        # [T, W]
+        "cclip_clip_frac": torch.mean((lam32 < 1.0).float(), dim=1),
+        "cclip_tau": torch.full((n_iters,), tau, dtype=torch.float32, device=local.device),
+    }
+    return v, stats

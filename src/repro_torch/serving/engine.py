@@ -35,7 +35,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.telemetry import RingTimer
+from repro_torch.telemetry import EventLog, RingTimer
 from repro_torch.utils.tree import tree_flatten
 
 
@@ -64,15 +64,16 @@ class _Slot:
 
 
 class ServeEngine:
+    """``event_log`` (a ``telemetry.EventLog``) receives one ``serve`` event
+    with ``stats()`` after every decode step."""
+
     def __init__(self, cfg, params, batch_slots: int = 4, max_len: int = 256,
-                 sample: str = "greedy", event_log=None, device=None):
+                 sample: str = "greedy", event_log: Optional[EventLog] = None,
+                 device=None):
         if cfg.n_codebooks:
             raise NotImplementedError("engine currently serves plain-LM archs")
         if sample != "greedy":
             raise ValueError(f"unknown sampling {sample!r}; the engine decodes greedily")
-        if event_log is not None:
-            raise NotImplementedError("the event log comes with the telemetry slice "
-                                      "(ROADMAP.md, Queue 1 item 5)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -83,7 +84,8 @@ class ServeEngine:
         self.slots = [_Slot() for _ in range(batch_slots)]
         self.queue: deque[Request] = deque()
         self.finished: Dict[int, Request] = {}
-        # -- telemetry (host-side counters)
+        # -- telemetry (host-side counters; one ``serve`` event per step)
+        self.event_log = event_log
         self.tokens_total = 0
         self.steps_total = 0
         self.step_timer = RingTimer(256)      # decode step wall time
@@ -180,6 +182,8 @@ class ServeEngine:
                     self.slots[i] = _Slot()
         self.tokens_total += n_new
         self._token_window.append((time.perf_counter(), n_new))
+        if self.event_log is not None:
+            self.event_log.serve(self.stats())
 
     # ------------------------------------------------------------ telemetry
     def stats(self) -> Dict[str, float]:

@@ -1,0 +1,53 @@
+"""Phase markers and one-call profiler trace capture (port of
+``repro/telemetry/profiling.py``).
+
+``phase("pack")`` wraps a region in ``torch.profiler.record_function``
+under the reference's name ``telemetry/pack``: a named span on the host
+timeline while a profiler is active, a cheap no-op otherwise. It changes
+no computation, which is why the markers are always on, even with
+``telemetry=False``.
+
+``trace_capture`` is the one-call helper: run any callable under
+``torch.profiler.profile`` with the device synchronised before the
+capture stops, so the timeline holds the device work the call queued, and
+write it as a Chrome trace (open with Perfetto or ``chrome://tracing``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Any, Callable
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+_PREFIX = "telemetry"
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Mark a pipeline phase (pack / gram / mix / kernel / unpack / ...)."""
+    with record_function(f"{_PREFIX}/{name}"):
+        yield
+
+
+def trace_capture(logdir: str, fn: Callable[..., Any], *args: Any,
+                  **kwargs: Any) -> Any:
+    """Run ``fn(*args, **kwargs)`` under a profiler trace of the host and,
+    where CUDA is available, the card.
+
+    Synchronises the card before the trace stops so asynchronously queued
+    kernels are inside the capture window. Returns ``fn``'s result; the
+    trace lands in ``logdir`` as ``trace_<pid>_<ns>.json``."""
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        out = fn(*args, **kwargs)
+        if cuda:
+            torch.cuda.synchronize()
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    return out

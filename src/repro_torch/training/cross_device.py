@@ -14,6 +14,9 @@ Randomness: a round's draws (cohort, batch indices, mixing matrix) are a
 ``Draws`` that ``step`` takes as an argument; ``run`` draws them from its
 ``torch.Generator`` with ``draw``. A test can hand ``step`` the reference's
 draws instead.
+
+``telemetry=True`` adds the packed engine's metrics (``packing.py``) to the
+step metrics and, stacked over the rounds, to the run history.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ByzConfig
 from repro_torch.core.attacks import get_attack
 from repro_torch.distributed.packing import packed_aggregate
+from repro_torch.telemetry.inflight import stack_series
 from repro_torch.training.byzantine import stack_flatten_workers, unflatten_like
 
 
@@ -53,6 +57,7 @@ class CrossDeviceSim:
     lr: float = 0.1
     batch_size: int = 32
     server_momentum: float = 0.9
+    telemetry: bool = False     # the packed engine's metrics in metrics / history
     device: Any = None          # None means "cuda"; raises without a GPU
 
     def __post_init__(self):
@@ -93,7 +98,11 @@ class CrossDeviceSim:
 
         # attacks are stateless here (no persistent cohort across rounds)
         sent, _ = self.attack(g_flat, byz_mask, None)
-        agg = packed_aggregate(sent, self.aggregator, mix=draws.mix)
+        if self.telemetry:
+            agg, info = packed_aggregate(sent, self.aggregator, mix=draws.mix,
+                                         telemetry=True, with_info=True)
+        else:
+            agg = packed_aggregate(sent, self.aggregator, mix=draws.mix)
 
         # Remark 7: SERVER momentum on the robust aggregate
         beta = self.server_momentum
@@ -106,20 +115,35 @@ class CrossDeviceSim:
             "byz_in_cohort": torch.sum(byz_mask),
             "agg_norm": torch.linalg.norm(agg),
         }
+        if self.telemetry:
+            tmtree = dict(info.get("telemetry", {}))
+            tmtree["byz_mask"] = byz_mask
+            tmtree["byz_in_cohort"] = metrics["byz_in_cohort"]
+            tmtree["agg_norm"] = metrics["agg_norm"]
+            metrics["telemetry"] = tmtree
         return CrossDeviceState(new_params, server_m, state.step + 1), metrics
 
     def run(self, params0, data_x, data_y, n_rounds: int,
             generator: torch.Generator,
             eval_fn: Optional[Callable] = None, eval_every: int = 50):
         """Run ``n_rounds``, drawing each round from ``generator``. Returns
-        ``(state, history)`` with the eval rounds and values."""
+        ``(state, history)`` with the eval rounds and values; with
+        ``telemetry=True`` also ``history["telemetry"]``, each metric
+        stacked across rounds into one numpy array (leading round axis),
+        copied from the device once, at the end."""
         state = self.init_state(params0)
         history: Dict[str, Any] = {"round": [], "eval": []}
+        per_round: Dict[str, list] = {}
         for t in range(n_rounds):
-            state, _ = self.step(state, data_x, data_y,
-                                 self.draw(generator, data_x.shape[1]))
+            state, metrics = self.step(state, data_x, data_y,
+                                       self.draw(generator, data_x.shape[1]))
+            if self.telemetry:
+                for name, v in metrics["telemetry"].items():
+                    per_round.setdefault(name, []).append(v)
             if eval_fn is not None and ((t + 1) % eval_every == 0
                                         or t == n_rounds - 1):
                 history["round"].append(t + 1)
                 history["eval"].append(float(eval_fn(state.params)))
+        if self.telemetry:
+            history["telemetry"] = stack_series(per_round)
         return state, history

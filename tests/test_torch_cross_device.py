@@ -29,6 +29,17 @@ SIM = dict(n_clients=50, byz_frac=0.1, clients_per_round=10, lr=1.0, batch_size=
 RULES = ["mean", "krum", "cm", "tm", "rfa", "cclip", "acclip"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs its files in parallel worker
+    processes, and torch's default of one thread a core oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pool():
     X, Y, Xt, Yt = make_train_test(jax.random.PRNGKey(0), n_train=3000, n_test=500)

@@ -98,8 +98,8 @@ def test_eos_early_stop(setup):
 
 def test_engine_refuses_what_it_does_not_serve(setup):
     cfg, params, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, params, event_log=object(), device="cpu")
+    with pytest.raises(ValueError, match="greedily"):
+        ServeEngine(cfg, params, sample="topk", device="cpu")
     eng = ServeEngine(cfg, params, batch_slots=1, max_len=8, device="cpu")
     eng.submit(Request(uid=1, prompt=[1, 2, 3], max_new_tokens=6))
     with pytest.raises(ValueError, match="max_len"):

@@ -2,10 +2,13 @@
 
 ``run_all`` runs in every process of a gloo group on the CPU
 (``repro_torch.launch.mesh.spawn_ranks``). This module imports torch and
-the port only, so the rank processes never import jax; the test module
-computes the JAX side and hands the ranks the same numpy inputs and the
-reference's mixing matrices.
+the port only, so the rank processes never import jax; the test modules
+compute the JAX side and hand the ranks the same numpy inputs and the
+reference's mixing matrices. ``run_telemetry`` serves
+tests/test_torch_telemetry.py.
 """
+
+import contextlib
 
 import torch
 
@@ -46,8 +49,9 @@ def _primitives(group, p):
     }
 
 
-def _routes(group, tree, specs):
-    """Which shard_kernels functions each rule's sync calls, and how often."""
+@contextlib.contextmanager
+def _counted():
+    """Counts, in the dict it yields, the calls of each ``ROUTED`` function."""
     hits = {}
     originals = {name: getattr(shard_kernels, name) for name in ROUTED}
 
@@ -57,18 +61,23 @@ def _routes(group, tree, specs):
             return originals[name](*args, **kwargs)
         return wrapper
 
-    out = {}
     try:
         for name in ROUTED:
             setattr(shard_kernels, name, counting(name))
-        for label, (agg, kwargs) in specs.items():
-            hits.clear()
-            ra = RobustAggregator.from_spec(agg, mixing="bucketing", s=2, **kwargs)
-            packing.packed_robust_sync(tree, ra, mesh=group)
-            out[label] = dict(hits)
+        yield hits
     finally:
         for name, fn in originals.items():
             setattr(shard_kernels, name, fn)
+
+
+def _routes(group, tree, specs):
+    """Which shard_kernels functions each rule's sync calls, and how often."""
+    out = {}
+    for label, (agg, kwargs) in specs.items():
+        ra = RobustAggregator.from_spec(agg, mixing="bucketing", s=2, **kwargs)
+        with _counted() as hits:
+            packing.packed_robust_sync(tree, ra, mesh=group)
+        out[label] = hits
     return out
 
 
@@ -87,6 +96,23 @@ def run_all(rank, group, device, payload):
         "syncs": syncs,
         "routes": _routes(group, tree, payload["routes"]),
     }
+
+
+def run_telemetry(rank, group, device, payload):
+    """Each rule's sync over the group with telemetry off and then on: both
+    results, the metrics, and the shard_kernels calls of each."""
+    tree = {k: torch.tensor(v, device=device) for k, v in payload["tree"].items()}
+    out = {}
+    for label, (agg, kwargs, mix) in payload["syncs"].items():
+        ra = RobustAggregator.from_spec(agg, mixing="bucketing", s=2, **kwargs)
+        runs = {}
+        for telemetry in (False, True):
+            with _counted() as hits:
+                res, info = robust_gradient_sync(tree, ra, mix=torch.tensor(mix, device=device),
+                                                 mesh=group, telemetry=telemetry)
+            runs[telemetry] = dict(result=res, routes=hits, info=info)
+        out[label] = {"off": runs[False], "on": runs[True]}
+    return out
 
 
 def fail_on_rank_one(rank, group, device):
