@@ -114,6 +114,29 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    ``cclip_lam`` are within 1e-4 of the one-device engine's; (d) phase
    8(c)'s engine writes one ``serve`` event a step to a log on disk that
    ``validate_jsonl`` accepts.
+11. LLM training (``distributed/steps.py::make_train_step``): (a)
+   TinyLlama-1.1B at full width (22 layers, bf16, 1,100,048,384 random
+   parameters from a seed) trained by W = 4 workers, one 1024-token
+   sequence each from ``make_token_stream`` (one affine-bigram law a
+   worker), sgdm lr 1e-2, worker momentum 0.9: RFA with bucketing s = 2
+   for 3 steps, 3 more under the profiler (device busy share), then CM for
+   1 step. Each step launches exactly ``TRAIN_ROUTE``'s kernels at
+   X[4, n_pad], n_pad = 1,100,048,384 + padding; its loss is finite and the
+   parameters move; its aggregate, recomputed on the same worker momenta,
+   equals the plain route's (``TRAIN_AGG_RTOL`` of the largest row norm),
+   and the kernel's Gram agrees with an fp64 Gram (``TRAIN_GRAM_RTOL`` of
+   sqrt(G_ii G_jj)). Host ms a step, tokens/s, device ms by phase (CUDA
+   events: forward + backward, worker momentum, pack, each kernel's phase,
+   the optimizer) and each step's peak memory are printed; then
+   ``pairwise_gram``, ``bucket_mix`` (mix [2, 4], combine [1, 4]) and
+   ``cwise_median`` (X[2, n_pad]) are held and timed on the packed momenta,
+   as in phase 2. (b) ``tests/test_system.py``'s run at smoke width (30
+   steps, RFA + bucketing, lr 0.3) at W = 1 and 4 meets its gate (last loss
+   below 0.8 x the first). (c) 4 gloo ranks on the card run the
+   worker-sharded step (one worker a rank; the rows go to column slices
+   through one ``all_to_all``) for 3 steps of RFA and of CM: launches per
+   rank as phase 6's, every rank's parameters equal rank 0's bit for bit
+   and the one-device step's within rtol 1e-4 / atol 1e-6.
 
 The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
@@ -193,6 +216,24 @@ PAPER_REFERENCE = {"mean/none": 1.0, "krum/none vanilla": 0.2, "krum/none s=2": 
 #: phase 10(c): the sync rules run again with telemetry on, in each rank
 SYNC_TELEMETRY = {"rfa": "rfa_resid_norms", "cclip": "cclip_lam"}
 ATTN_S = 4096             # the attention and serving phases' sequence length
+#: phase 11: TinyLlama-1.1B trained at full width by TRAIN_W workers, one
+#: TRAIN_S-token sequence each; (rule, steps) in order, the state carried on
+TRAIN_W, TRAIN_S, TRAIN_LR = 4, 1024, 1e-2
+TRAIN_RUNS = [("rfa", 3), ("cm", 1)]
+TRAIN_M = 2               # buckets of W = 4 at s = 2: CM's selection rows
+#: exact launches of one one-device train step (the Gram route folds the
+#: mixing into the combine weights; CM mixes, then selects)
+TRAIN_ROUTE = {"rfa": {"pairwise_gram": 1, "bucket_mix": 1},
+               "cm": {"bucket_mix": 1, "cwise_median": 1}}
+#: the kernel aggregate against the plain route's, on the same worker
+#: momenta, relative to the largest row norm; the Gram against an fp64
+#: Gram relative to sqrt(G_ii G_jj). At n_pad = 1.1e9 the kernel's fold of
+#: ~537,000 unit partials in column order (the reference's order) is off by
+#: 2.4e-4, torch.matmul by 2.3e-3 (NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_AGG_RTOL, TRAIN_GRAM_RTOL = 1e-4, 1e-3
+#: phase 11(b)/(c): tests/test_system.py's run at smoke width (30 steps, lr
+#: 0.3, global batch 8 x 64 tokens), and the group's steps
+SMOKE_STEPS, SMOKE_LR, GROUP_STEPS = 30, 0.3, 3
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
 SYNC_ROUTE = {
@@ -288,7 +329,8 @@ def build_phase():
     # every library the ranks of phase 6 load is built here, before they start
     selection = {
         "cwise_median": list(dict.fromkeys(
-            src for W, _, _, _ in SELECTION_SHAPES for src in cwise_median.sources(W))),
+            src for W in [w for w, _, _, _ in SELECTION_SHAPES] + [TRAIN_M]
+            for src in cwise_median.sources(W))),
         "cwise_trimmed_mean": list(dict.fromkeys(
             src for W, _, trims, _ in SELECTION_SHAPES for b in trims
             for src in trimmed_mean.sources(W, b)))}
@@ -1497,6 +1539,267 @@ def telemetry_phase(dev, split):
     return launches
 
 
+def bigram_batch(gen, V, batch, seq_len, dev):
+    """tests/test_system.py's learnable stream: random first tokens, then
+    ``next = (3 tok + 7) mod V``; inputs and next-token labels."""
+    import torch
+
+    seq = [torch.randint(0, V, (batch, 1), generator=gen)]
+    for _ in range(seq_len):
+        seq.append((seq[-1] * 3 + 7) % V)
+    toks = torch.cat(seq, dim=1).to(dev)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def smoke_train(dev, n_workers, agg, steps, mesh=None):
+    """Phase 11(b) / (c): ``make_train_step`` at ``smoke_config`` width on
+    tests/test_system.py's stream, each step's mix drawn from one seeded
+    generator (so every rank and the one-device run see the same ones).
+    Returns the parameters, the losses and the launches of each step."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg = smoke_config("tinyllama-1.1b")
+    byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2, worker_momentum=0.9)
+    step_fn, state = make_train_step(cfg, byz, mesh=mesh, lr=SMOKE_LR, n_workers=n_workers,
+                                     device=dev)
+    params = state["init_params"](torch.Generator().manual_seed(0))
+    opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
+    gen = torch.Generator().manual_seed(1)
+    losses, counts = [], []
+    for _ in range(steps):
+        batch = bigram_batch(gen, cfg.vocab_size, 8, 64, dev)
+        mix = state["aggregator"].mixing_matrix(n_workers, gen, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        params, opt_state, worker_m, metrics = step_fn(params, opt_state, worker_m, mix, batch)
+        torch.cuda.synchronize()
+        counts.append(dict(LAUNCHES))
+        losses.append(float(metrics["loss"]))
+    return params, losses, counts
+
+
+def train_rank(rank, group, device):
+    """Phase 11(c), in each rank: the worker-sharded train step over the
+    group (this rank's worker only), RFA and CM, ``GROUP_STEPS`` steps."""
+    out = {}
+    for agg in ("rfa", "cm"):
+        params, losses, counts = smoke_train(device, SYNC_RANKS, agg, GROUP_STEPS, mesh=group)
+        want = [{k: SYNC_ROUTE[agg].get(k, 0) for k in c} for c in counts]
+        if counts != want:
+            raise AssertionError(f"rank {rank} train {agg}: launches {counts}, expected {want}")
+        out[agg] = dict(params=params, losses=losses, counts=counts)
+    return out
+
+
+def train_phase(dev, smi):
+    """Phase 11: LLM training. (a) TinyLlama-1.1B at full width on the
+    card; (b) the reference test's run at smoke width; (c) the
+    worker-sharded step over 4 ranks. Returns the launch counts by path and
+    the kernels' rows at the training shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.distributed.packing import packer_for
+    from repro_torch.distributed.robust_sync import robust_gradient_sync
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels.bucket_mix import bucket_mix
+    from repro_torch.kernels.cwise_median import cwise_median
+    from repro_torch.kernels.pairwise_gram import pairwise_gram
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.telemetry import phase_times
+    from repro_torch.utils.tree import tree_flatten
+
+    # (a) full width: W = 4 heterogeneous workers, one sequence each
+    torch.cuda.empty_cache()
+    cfg = get_config("tinyllama-1.1b")
+    toks = make_token_stream(torch.Generator().manual_seed(11), TRAIN_W, TRAIN_S, 1,
+                             cfg.vocab_size, device=dev)[:, 0]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}  # global batch W x S
+    steppers = {agg: make_train_step(
+        cfg, ByzConfig(aggregator=agg, mixing="bucketing", s=2, worker_momentum=0.9),
+        lr=TRAIN_LR, n_workers=TRAIN_W, device=dev) for agg, _ in TRAIN_RUNS}
+    state = steppers["rfa"][1]
+    params = state["init_params"](torch.Generator(dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
+    torch.cuda.synchronize()
+    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, {cfg.dtype}): {n_params:,} parameters; "
+        f"W {TRAIN_W} workers x 1 sequence of {TRAIN_S} tokens (make_token_stream, one law "
+        f"each), sgdm lr {TRAIN_LR}, worker momentum 0.9; state on the card "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    gen = torch.Generator().manual_seed(12)
+    total = {k: 0 for k in LAUNCHES}
+    steps_ms, peaks = [], []
+    probe = tree_flatten(params)[0][0].flatten()[:4096].clone()
+
+    def agreement(agg, aggregator, mix):
+        """The step's aggregate (kernel route) against the plain route on
+        the same worker momenta; the Gram of the packed momenta, kernel
+        and ``torch.matmul``, against an fp64 Gram summed in chunks."""
+        buf = packer_for(worker_m).pack(worker_m)
+        exact = sum(c.double() @ c.double().T for c in buf.split(1 << 26, dim=1))
+        diag = torch.diagonal(exact)
+        scale = torch.sqrt(torch.outer(diag, diag))
+        gram_err = {name: float(((g.double() - exact).abs() / scale).max())
+                    for name, g in (("kernel", pairwise_gram(buf)), ("matmul", buf @ buf.T))}
+        row_norm = float(torch.sqrt(diag.max()))
+        del buf, exact
+        got = robust_gradient_sync(worker_m, aggregator, mix=mix)[0]
+        k_row = torch.cat([t.reshape(-1) for t in tree_flatten(got)[0]])
+        del got
+        want = robust_gradient_sync(worker_m, aggregator, mix=mix, use_kernels=False)[0]
+        p_row = torch.cat([t.reshape(-1) for t in tree_flatten(want)[0]])
+        del want
+        comb_err = float(torch.linalg.vector_norm(k_row - p_row)) / row_norm
+        del k_row, p_row
+        torch.cuda.empty_cache()
+        log(f"check train {agg} aggregate, kernel route vs plain route on the same worker "
+            f"momenta: |agg_kernel - agg_plain|_2 / max_i |x_i|_2 = {comb_err:.3g} "
+            f"(bar {TRAIN_AGG_RTOL}); Gram of the packed momenta against fp64, max "
+            f"|G - G64|_ij / sqrt(G64_ii G64_jj): kernel {gram_err['kernel']:.3g} (bar "
+            f"{TRAIN_GRAM_RTOL}), torch.matmul {gram_err['matmul']:.3g}")
+        if not comb_err <= TRAIN_AGG_RTOL or not gram_err["kernel"] <= TRAIN_GRAM_RTOL:
+            raise AssertionError(f"train {agg}: kernel aggregate off the plain route's, or "
+                                 "its Gram off the fp64 Gram")
+
+    def one_step(agg, step_fn, aggregator):
+        nonlocal params, opt_state, worker_m
+        mix = aggregator.mixing_matrix(TRAIN_W, gen, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with phase_times() as ms:
+            params, opt_state, worker_m, metrics = step_fn(params, opt_state, worker_m, mix,
+                                                          batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peaks.append(torch.cuda.max_memory_allocated())
+        counts = dict(LAUNCHES)
+        want = {k: TRAIN_ROUTE[agg].get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"train {agg}: launches {counts}, expected {want}")
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"train {agg}: loss {loss}")
+        return mix, wall, ms, counts, loss
+
+    for agg, n_steps in TRAIN_RUNS:
+        step_fn, st = steppers[agg]
+        for i in range(n_steps):
+            mix, wall, ms, counts, loss = one_step(agg, step_fn, st["aggregator"])
+            for k, v in counts.items():
+                total[k] += v
+            steps_ms.append(wall)
+            fb = ms.get("forward_backward", 0.0)
+            split = {k: round(v, 3) for k, v in ms.items()}
+            log(f"train {agg} step {i + 1}: loss {loss:.5f}; host ms {wall:.1f}, "
+                f"{TRAIN_W * TRAIN_S / wall * 1e3:.0f} tokens/s; device ms by phase (CUDA "
+                f"events) {json.dumps(split)}; forward + backward per worker "
+                f"{fb / TRAIN_W:.1f}; launches {json.dumps({k: v for k, v in counts.items() if v})}")
+            if i == 0:
+                moved = float((tree_flatten(params)[0][0].flatten()[:4096].float()
+                               - probe.float()).abs().max())
+                if not moved > 0:
+                    raise AssertionError(f"train {agg}: the parameters did not move")
+                agreement(agg, st["aggregator"], mix)
+        if agg == "rfa":
+            rfa_ms = statistics.median(steps_ms)
+            profile_steps(lambda: one_step("rfa", step_fn, st["aggregator"]),
+                          f"train rfa {cfg.name} W{TRAIN_W} S{TRAIN_S} ({smi})",
+                          rfa_ms * 1e3, n_steps)
+    log(f"train {cfg.name}: host ms per step {', '.join(f'{t:.1f}' for t in steps_ms)} "
+        f"(rfa median {rfa_ms:.1f}, {TRAIN_W * TRAIN_S / rfa_ms * 1e3:.0f} tokens/s); peak "
+        f"device memory in a step {', '.join(f'{b / 1e9:.2f}' for b in peaks)} GB "
+        f"(max_memory_allocated) on {smi}")
+
+    # the kernels at the training shape: X[W, n_pad], the packed momenta
+    x = packer_for(worker_m).pack(worker_m)
+    del params, opt_state, worker_m
+    torch.cuda.empty_cache()
+    W_, d = x.shape
+    kernel_rows = {"bucket_mix": [], "pairwise_gram": [], "cwise_median": []}
+    record = functools.partial(measure, kernel_rows)
+    mix = steppers["cm"][1]["aggregator"].mixing_matrix(TRAIN_W, gen, device=dev)
+    weights = torch.full((1, W_), 1.0 / W_, device=dev)
+    timing = (2, 1)  # the plain Gram loops over ~537,000 tiles a call
+    for what, M in (("mix", mix), ("combine", weights)):
+        m = M.shape[0]
+        record("bucket_mix", f"train {what} M[{m},{W_}] X[{W_},{d}]",
+               lambda M=M: bucket_mix(M, x), lambda M=M: ref.bucket_mix(M, x),
+               lambda M=M: torch.matmul(M, x), (W_ * d + m * W_ + m * d) * 4,
+               2 * m * W_ * d, timing, close(1e-5, 1e-4))
+    record("pairwise_gram", f"train X[{W_},{d}]", lambda: pairwise_gram(x),
+           lambda: ref.pairwise_gram(x), lambda: torch.matmul(x, x.T),
+           (W_ * d + W_ * W_) * 4, W_ * (W_ + 1) * d, timing,
+           lambda got, want: torch.testing.assert_close(
+               got, want, rtol=0, atol=TRAIN_GRAM_RTOL * float(torch.diagonal(want).max())))
+    mixed = bucket_mix(mix, x)
+    del x
+    torch.cuda.empty_cache()
+    record("cwise_median", f"train X[{TRAIN_M},{d}]", lambda: cwise_median(mixed),
+           lambda: ref.cwise_median(mixed), lambda: torch.median(mixed, dim=0).values,
+           3 * d * 4, selection_ops(TRAIN_M, d), timing, close(0, 0))
+    del mixed
+    torch.cuda.empty_cache()
+
+    # (b) smoke width, tests/test_system.py's gate, W = 1 and 4
+    launches = {"train": total}
+    smoke = {}
+    for n in (1, TRAIN_W):
+        t0 = time.perf_counter()
+        params_b, losses, counts = smoke_train(dev, n, "rfa", SMOKE_STEPS)
+        sec = time.perf_counter() - t0
+        launches[f"train.smoke W{n}"] = {k: sum(c[k] for c in counts) for k in counts[0]}
+        if any(c != {k: TRAIN_ROUTE["rfa"].get(k, 0) for k in c} for c in counts):
+            raise AssertionError(f"train smoke W{n}: launches {counts}")
+        if not all(np.isfinite(losses)) or not losses[-1] < 0.8 * losses[0]:
+            raise AssertionError(f"train smoke W{n}: losses {losses[::10]} miss the gate")
+        smoke[n] = params_b
+        log(f"train smoke W{n} (smoke_config, rfa + bucketing, lr {SMOKE_LR}, "
+            f"{SMOKE_STEPS} steps): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"(gate < 0.8 x first); {SMOKE_STEPS / sec:.1f} steps/s")
+
+    # (c) the worker-sharded step over 4 ranks on cuda:0, against one device
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(train_rank, SYNC_RANKS, backend="gloo",
+                        devices=["cuda:0"] * SYNC_RANKS, timeout_s=600)
+    log(f"train group: {SYNC_RANKS} ranks on cuda:0 under gloo ran in "
+        f"{time.perf_counter() - t0:.1f} s, spawn included")
+    launches["train_group"] = {k: 0 for k in LAUNCHES}
+    for agg in ("rfa", "cm"):
+        one_params, one_losses, _ = smoke_train(dev, SYNC_RANKS, agg, GROUP_STEPS)
+        one = [t.cpu().numpy() for t in tree_flatten(one_params)[0]]
+        first = tree_flatten(ranks[0][agg]["params"])[0]
+        err = 0.0
+        for rank, r in enumerate(ranks):
+            leaves = tree_flatten(r[agg]["params"])[0]
+            if not all(np.array_equal(a, b) for a, b in zip(leaves, first)):
+                raise AssertionError(f"train group {agg}: rank {rank} differs from rank 0")
+            for c in r[agg]["counts"]:
+                for k, v in c.items():
+                    launches["train_group"][k] += v
+        for a, b in zip(first, one):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+            err = max(err, float(np.abs(a - b).max()))
+        log(f"check train group {agg}, {GROUP_STEPS} steps: every rank bitwise equal; "
+            f"launches per rank and step {json.dumps(SYNC_ROUTE[agg])}; max |group - one "
+            f"device| of the parameters {err:.3g} (bar rtol 1e-4, atol 1e-6); losses "
+            f"{[round(x, 5) for x in ranks[0][agg]['losses']]} vs one device "
+            f"{[round(x, 5) for x in one_losses]}")
+    return launches, kernel_rows
+
+
 def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20,
                    unit: str = "round") -> None:
     """Profile ``rounds`` rounds (steps) of ``sim`` after 5 warm-up rounds."""
@@ -1576,6 +1879,10 @@ def main() -> int:
     paper, split = paper_phase(dev, smi)
     launches.update(paper)
     launches.update(telemetry_phase(dev, split))
+    train, train_rows = train_phase(dev, smi)
+    launches.update(train)
+    for name, rows in train_rows.items():
+        results[name].extend(rows)
 
     src = {"bucket_mix": "bucket_mix.cu", "pairwise_gram": "pairwise_gram.cu",
            "cwise_median": "selection.cu", "cwise_trimmed_mean": "selection.cu",
@@ -1629,7 +1936,7 @@ def main() -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
             **other.get(name, {})))
-    log(f"chip_smoke: phases 1-10 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-11 passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,8 @@ import dataclasses
 from typing import Dict, List
 
 from repro_torch.configs import gemma_7b, paper_mnist, qwen2_5_14b, tinyllama_1_1b
-from repro_torch.configs.base import INPUT_SHAPES, ByzConfig, InputShape, ModelConfig
+from repro_torch.configs.base import (INPUT_SHAPES, ByzConfig, InputShape, MeshConfig,
+                                      ModelConfig, TrainConfig)
 
 _CONFIGS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, qwen2_5_14b, gemma_7b, paper_mnist)
@@ -73,6 +74,8 @@ __all__ = [
     "ByzConfig",
     "InputShape",
     "INPUT_SHAPES",
+    "MeshConfig",
+    "TrainConfig",
     "get_config",
     "smoke_config",
     "list_archs",

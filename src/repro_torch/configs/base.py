@@ -4,7 +4,9 @@
 reference's, so a config file copies across as data); the dense decoder in
 ``repro_torch/models/transformer.py`` consumes it. ``ByzConfig`` configures
 the paper's technique. ``InputShape`` names the reference's input shapes.
-The mesh and training configs come with the training slice.
+``MeshConfig`` and ``TrainConfig`` are the reference's, as data: the port
+has no GSPMD mesh, and the ``mesh`` its entry points take is a
+``torch.distributed`` process group or ``None`` (``launch/mesh.py``).
 """
 
 from __future__ import annotations
@@ -154,6 +156,24 @@ class ByzConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        out = 1
+        for s in self.shape:
+            out *= s
+        return out
+
+    @property
+    def worker_axes(self) -> Tuple[str, ...]:
+        """Mesh axes that enumerate Byzantine 'workers' (= DP groups)."""
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+
+@dataclasses.dataclass(frozen=True)
 class InputShape:
     name: str
     seq_len: int
@@ -167,3 +187,19 @@ INPUT_SHAPES = {
     "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    byz: ByzConfig = dataclasses.field(default_factory=ByzConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    seq_len: int = 4096
+    global_batch: int = 256
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    optimizer: str = "sgdm"  # sgdm | adamw
+    beta1: float = 0.9
+    beta2: float = 0.95
+    steps: int = 100
+    seed: int = 0

@@ -32,6 +32,10 @@ more than one rank; ``launch/mesh.py``) the engine follows the reference's
 multi-device route. ``reshard_in`` keeps this rank's column slice of the
 packed buffer, the phases run the sharded kernels of ``shard_kernels.py``
 on it, and ``reshard_out`` replicates the combined row (one all-reduce).
+With ``worker_sharded=True`` each rank holds only its own workers' rows
+(the train step over a group: rank r runs workers ``r W/R .. (r+1) W/R -
+1``), and ``reshard_in`` turns them into the column slice with one
+``all_to_all`` (``shard_kernels.rows_to_cols``).
 CM/TM mix and select column-locally; RFA and CCLIP skip the ``[W, W]``
 Gram and run the fused compositions (one ``residual_norms`` or
 ``cclip_fused_iter`` pass plus an all-reduce of ``[W]`` per iteration);
@@ -120,12 +124,17 @@ def packer_for(grads_w: Any) -> GradPacker:
 
 
 # -------------------------------------------------------------- collectives
-def reshard_in(buf: torch.Tensor, mesh) -> torch.Tensor:
+def reshard_in(buf: torch.Tensor, mesh, worker_sharded: bool = False) -> torch.Tensor:
     """The ingress: this rank's column slice of the packed ``[W, n_pad]``
-    buffer (zero-padded to a multiple of the group's size). Every rank holds
-    the whole global stack, as in the reference, so no collective is
-    needed. No-op without a group."""
-    return buf if mesh is None else shard_kernels.shard_cols(buf, mesh)
+    buffer (zero-padded to a multiple of the group's size). Where every rank
+    holds the whole global stack no collective is needed; with
+    ``worker_sharded`` ``buf`` is this rank's ``[W/R, n_pad]`` rows and one
+    ``all_to_all`` gathers the slice. No-op without a group."""
+    if mesh is None:
+        return buf
+    if worker_sharded:
+        return shard_kernels.rows_to_cols(buf, mesh)
+    return shard_kernels.shard_cols(buf, mesh)
 
 
 def reshard_out(vec: torch.Tensor, n: int, mesh) -> torch.Tensor:
@@ -147,6 +156,7 @@ def packed_robust_sync(
     use_kernels: bool = True,
     out_shardings: Any = None,
     telemetry: bool = False,
+    worker_sharded: bool = False,
 ) -> Tuple[Any, dict]:
     """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
     gradient tree on a single packed buffer. Returns ``(grads, info)``.
@@ -163,6 +173,9 @@ def packed_robust_sync(
     replicated ``key`` is in the reference), the kernel route runs sharded
     (module docstring), and every rank gets the whole result. The
     param-sharded egress (``out_shardings``) is not ported and raises.
+    ``worker_sharded=True`` (over a group, kernel route only) means each
+    rank passes only its own workers' rows, ``[W/R, ...]`` leaves, rank r
+    holding workers ``r W/R .. (r+1) W/R - 1``; ``mix`` stays ``[m, W]``.
     On the Gram route ``info`` holds ``agg_weights`` and
     ``gram_diag_mean``; with ``telemetry=True`` ``info["telemetry"]``
     holds the metrics (module docstring), the same on every rank of a
@@ -171,9 +184,14 @@ def packed_robust_sync(
         raise NotImplementedError("the param-sharded egress (out_shardings) is not ported")
     sharded = not _mesh_is_trivial(mesh) and use_kernels
     group = mesh if sharded else None
+    worker_sharded = worker_sharded and not _mesh_is_trivial(mesh)
+    if worker_sharded and not use_kernels:
+        raise NotImplementedError("worker-sharded rows go through the kernel route only")
     packer = packer_for(grads_w)
     leaves, _ = tree_flatten(grads_w)
     W, device = leaves[0].shape[0], leaves[0].device
+    if worker_sharded:
+        W *= n_devices(group)
     if packer.n_params == 0:  # degenerate all-empty tree
         return packer.unpack(torch.zeros((packer.n_pad,), device=device)), {}
     if mix is None:
@@ -193,7 +211,7 @@ def packed_robust_sync(
         return t if group is None else shard_kernels.all_reduced(t, group)
 
     with phase("pack"):
-        buf = reshard_in(packer.pack(grads_w), group)  # [W, n_pad / R] fp32
+        buf = reshard_in(packer.pack(grads_w), group, worker_sharded)  # [W, n_pad / R] fp32
 
     def finish(out):
         if tm:

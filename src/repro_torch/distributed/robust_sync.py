@@ -134,6 +134,7 @@ def robust_gradient_sync(
     use_kernels: Optional[bool] = None,
     out_shardings: Any = None,
     telemetry: bool = False,
+    worker_sharded: bool = False,
 ) -> Tuple[Any, dict]:
     """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
     gradient tree, using mixing + the robust rule. Returns ``(grads, info)``.
@@ -144,15 +145,18 @@ def robust_gradient_sync(
     ``use_kernels=None`` resolves to the kernels for the packed engine and
     to plain PyTorch for the per-leaf engine. ``out_shardings`` (the
     param-sharded egress) is not ported and raises. ``telemetry=True``
-    adds the metrics as ``info["telemetry"]`` (``packing.py``)."""
+    adds the metrics as ``info["telemetry"]`` (``packing.py``).
+    ``worker_sharded=True``: over a group each rank passes only its own
+    workers' rows (``packing.packed_robust_sync``)."""
     if engine == "packed":
         return packing.packed_robust_sync(
             grads_w, aggregator, mix=mix, mesh=mesh,
             use_kernels=True if use_kernels is None else use_kernels,
-            out_shardings=out_shardings, telemetry=telemetry)
+            out_shardings=out_shardings, telemetry=telemetry,
+            worker_sharded=worker_sharded)
     if engine != "per_leaf":
         raise ValueError(f"unknown sync engine {engine!r}")
-    if not packing._mesh_is_trivial(mesh) or out_shardings is not None:
+    if not packing._mesh_is_trivial(mesh) or out_shardings is not None or worker_sharded:
         raise NotImplementedError("the per-leaf engine runs on one device only")
     leaves, _ = tree_flatten(grads_w)
     device = leaves[0].device

@@ -16,7 +16,9 @@ reference's ``shard_map`` body receives:
 
 ``shard_cols`` lays a global ``[..., n]`` tensor out this way (``_pad_cols``
 first zero-pads ``n`` up to a multiple of the group's size, so slices are
-equal; zero columns add 0 to every reduction) and ``unshard_cols``
+equal; zero columns add 0 to every reduction); ``rows_to_cols`` does it for
+a stack whose worker rows are spread over the ranks (one ``all_to_all``:
+the reference's ``_colshard`` of a worker-sharded stack); ``unshard_cols``
 replicates a column-sharded result: one ``all_reduce`` of a zero-filled row
 into which each rank has written its own slice (gloo has no CUDA
 ``all_gather``; adding zeros is exact). The collectives run on the tensors'
@@ -55,6 +57,29 @@ def shard_cols(x: torch.Tensor, group) -> torch.Tensor:
     n_local = x.shape[-1] // n_devices(group)
     r = dist.get_rank(group)
     return x[..., r * n_local:(r + 1) * n_local].contiguous()
+
+
+def rows_to_cols(rows: torch.Tensor, group) -> torch.Tensor:
+    """The worker-sharded ingress: from this rank's rows ``[W/R, n]`` of a
+    global ``[W, n]`` stack (rank r holds rows ``r W/R .. (r+1) W/R - 1``)
+    to its column slice ``[W, n_up/R]`` of the zero-padded stack, bit for
+    bit ``shard_cols`` of the global stack, through one ``all_to_all``:
+    column block d of this rank's rows goes to rank d.
+
+    gloo's ``all_to_all`` takes CPU tensors only: handed a CUDA tensor it
+    writes the device pointer to its socket and the process aborts
+    (``writev ... Bad address``; torch 2.11 with CUDA 12.8 on an H100). So
+    under gloo the exchange always runs on a host copy of the blocks; any
+    other backend exchanges on the tensors' own device."""
+    R = n_devices(group)
+    rows, _ = _pad_cols(rows, group)
+    w, n = rows.shape
+    send = rows.reshape(w, R, n // R).transpose(0, 1).contiguous()  # [R, w, n/R]
+    if dist.get_backend(group) == "gloo":
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.reshape(R * w, n // R).to(rows.device)
 
 
 def unshard_cols(local: torch.Tensor, n: int, group) -> torch.Tensor:

@@ -14,7 +14,8 @@ over that axis here; the decode cache keeps the same axis.
 Entry points:
   init_params(cfg, generator, device)         -> params tree
   forward(params, cfg, tokens, ...)           -> logits, aux
-  loss_fn(params, cfg, batch)                 -> scalar loss, aux (value only)
+  loss_fn(params, cfg, batch)                 -> scalar loss, aux (autograd
+                                                 differentiates it)
   init_cache(cfg, batch, seq_len, device)     -> decode cache
   decode_step(params, cfg, cache, token, pos) -> logits, new cache
 """
@@ -29,7 +30,7 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (dense_init, embed_init, init_mlp_block,
                                        init_rmsnorm, mlp_block, rmsnorm)
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 _DENSE = (("attn", "mlp"),)
 
@@ -96,6 +97,15 @@ def _period(tree, p: int):
     return tree_map(lambda x: x[p], tree)
 
 
+def _periods(tree, n_periods: int):
+    """Every period's parameters, views from one ``unbind`` a stacked leaf:
+    the backward pass then writes each stacked leaf's gradient once, where
+    ``x[p]`` would add a zero-filled leaf-sized gradient for every period."""
+    leaves, treedef = tree_flatten(tree)
+    split = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [s[p] for s in split]) for p in range(n_periods)]
+
+
 def forward_hidden(
     params,
     cfg,
@@ -112,8 +122,8 @@ def forward_hidden(
     S = h.shape[1]
     if positions is None:
         positions = torch.arange(S, device=h.device)[None, :]
-    for p in range(cfg.n_periods):
-        lp = _period(params["blocks"], p)["0"]
+    for period in _periods(params["blocks"], cfg.n_periods):
+        lp = period["0"]
         h = h + attn_mod.attention(lp["mixer"], rmsnorm(lp["norm1"], h, cfg.norm_eps), cfg,
                                    positions)
         h = h + mlp_block(lp["ff"], rmsnorm(lp["norm2"], h, cfg.norm_eps), cfg.mlp_kind)
@@ -135,8 +145,8 @@ def forward(
 
 def loss_fn(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy. batch: dict with "tokens", "labels"; labels
-    use -100 as the ignore index. The value only: gradients come with the
-    training slice."""
+    use -100 as the ignore index. Every op is out of place, so autograd
+    gives the reference's ``jax.grad`` (``tests/test_torch_train.py``)."""
     logits, aux = forward(params, cfg, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"))
     labels = batch["labels"]
     valid = labels != -100

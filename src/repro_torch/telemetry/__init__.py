@@ -12,8 +12,9 @@ Krum selection scores, trim masks (TM), and per-bucket dispersion.
                 hot paths; its values are the tensors the path holds, left
                 on their device until a run stacks them (``stack_series``).
   probes.py     the probe math shared by the stacked and packed engines.
-  profiling.py  ``phase()`` markers (``torch.profiler.record_function``) and
-                the one-call ``trace_capture``.
+  profiling.py  ``phase()`` markers (``torch.profiler.record_function``),
+                ``phase_times()`` (their device ms by CUDA events) and the
+                one-call ``trace_capture``.
   events.py     host-side JSONL event log + ring-buffered step timing.
 
 With ``telemetry=False`` (the default everywhere) a path does the tensor
@@ -23,7 +24,7 @@ kernel launches (``repro_torch.kernels.LAUNCHES``).
 
 from repro_torch.telemetry.events import EventLog, RingTimer, validate_event, validate_jsonl
 from repro_torch.telemetry.inflight import InflightMetrics
-from repro_torch.telemetry.profiling import phase, trace_capture
+from repro_torch.telemetry.profiling import phase, phase_times, trace_capture
 from repro_torch.telemetry.registry import MetricSpec, catalogue, get_metric, register
 
 __all__ = [
@@ -34,6 +35,7 @@ __all__ = [
     "catalogue",
     "get_metric",
     "phase",
+    "phase_times",
     "register",
     "trace_capture",
     "validate_event",

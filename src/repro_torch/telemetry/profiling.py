@@ -7,6 +7,12 @@ timeline while a profiler is active, a cheap no-op otherwise. It changes
 no computation, which is why the markers are always on, even with
 ``telemetry=False``.
 
+``phase_times()`` times the phases on the card: inside its block every
+phase also records a pair of CUDA events on the current stream, and when
+the block ends (after a synchronise) the dict it yielded maps each phase
+name to its summed milliseconds. Outside such a block ``phase`` records no
+event.
+
 ``trace_capture`` is the one-call helper: run any callable under
 ``torch.profiler.profile`` with the device synchronised before the
 capture stops, so the timeline holds the device work the call queued, and
@@ -18,19 +24,47 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 _PREFIX = "telemetry"
+#: (name, start, end) CUDA events while a ``phase_times`` block is open
+_EVENTS: Optional[List[Tuple[str, Any, Any]]] = None
 
 
 @contextlib.contextmanager
 def phase(name: str):
     """Mark a pipeline phase (pack / gram / mix / kernel / unpack / ...)."""
     with record_function(f"{_PREFIX}/{name}"):
+        if _EVENTS is None:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
         yield
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        _EVENTS.append((name, start, end))
+
+
+@contextlib.contextmanager
+def phase_times():
+    """Yields a dict that, once the block ends, maps each phase run inside
+    it to its summed device milliseconds (CUDA events; module docstring)."""
+    global _EVENTS
+    if _EVENTS is not None:
+        raise RuntimeError("phase_times blocks do not nest")
+    times: Dict[str, float] = {}
+    _EVENTS = events = []
+    try:
+        yield times
+        torch.cuda.synchronize()
+        for name, start, end in events:
+            times[name] = times.get(name, 0.0) + start.elapsed_time(end)
+    finally:
+        _EVENTS = None
 
 
 def trace_capture(logdir: str, fn: Callable[..., Any], *args: Any,

@@ -28,6 +28,7 @@ from repro_torch.core.aragg import RobustAggregator
 from repro_torch.distributed import packing
 from repro_torch.distributed.robust_sync import robust_gradient_sync
 from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.utils.tree import tree_flatten
 
 W = 8
 TAU = 3.0
@@ -235,6 +236,89 @@ def test_what_is_not_ported_raises():
         robust_gradient_sync(tree, ra, engine="nope")
     with pytest.raises(TypeError):
         robust_gradient_sync(tree, ra, mesh=object(), engine="per_leaf")
+
+
+# ------------------------------------------- the worker-sharded train step
+TRAIN_W, TRAIN_STEPS = 4, 3
+TRAIN_CFG = {"n_layers": 1, "d_model": 64, "n_heads": 2, "n_kv_heads": 2, "d_ff": 128,
+             "vocab_size": 128}
+
+
+def _train_payload():
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, TRAIN_CFG["vocab_size"], (2 * TRAIN_W, 17))
+    mixes = {agg: [np.asarray(RRobustAggregator.from_spec(agg, mixing="bucketing", s=2)
+                              .mixing_matrix(jax.random.PRNGKey(30 + t), TRAIN_W))
+                   for t in range(TRAIN_STEPS)] for agg in ("rfa", "cm")}
+    return {"stack": _xs((TRAIN_W, 6001), seed=22), "cfg": TRAIN_CFG, "lr": 0.05,
+            "batch": {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+            "runs": {agg: (agg, m) for agg, m in mixes.items()}}
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["R2", "R4"])
+def train_ranks(request):
+    """Every rank's results of ``torch_shard_ranks.run_train``."""
+    R = request.param
+    return spawn_ranks(torch_shard_ranks.run_train, R, backend="gloo", devices=["cpu"] * R,
+                       args=(_train_payload(),), timeout_s=600)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_device_train(agg):
+    """The same steps by ``make_train_step`` on one device."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_train_step
+
+    p = _train_payload()
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **p["cfg"])
+    step_fn, state = make_train_step(cfg, ByzConfig(aggregator=agg, mixing="bucketing", s=2),
+                                     lr=p["lr"], n_workers=TRAIN_W, device="cpu")
+    params = state["init_params"](torch.Generator().manual_seed(0))
+    opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
+    batch = {k: torch.tensor(v) for k, v in p["batch"].items()}
+    losses = []
+    for mix in p["runs"][agg][1]:
+        params, opt_state, worker_m, metrics = step_fn(params, opt_state, worker_m,
+                                                       torch.tensor(mix), batch)
+        losses.append(float(metrics["loss"]))
+    return params, losses
+
+
+def test_worker_sharded_ingress_equals_shard_cols(train_ranks):
+    """One all_to_all of each rank's worker rows gives the column slice
+    that ``shard_cols`` cuts from the global stack, bit for bit."""
+    for r in train_ranks:
+        assert r["ingress"].shape == r["shard_cols"].shape
+        np.testing.assert_array_equal(r["ingress"], r["shard_cols"])
+
+
+@pytest.mark.parametrize("agg", ["rfa", "cm"])
+def test_worker_sharded_train_step(train_ranks, agg):
+    """Each rank runs its own workers; after three steps every rank holds
+    rank 0's parameters bit for bit, and they agree with the one-device
+    step within rtol 1e-4 / atol 1e-6 (RFA's group route runs Weiszfeld in
+    vector space, the one-device route in Gram space); the losses are the
+    mean over all workers. RFA goes through the sharded residual norms."""
+    R = len(train_ranks)
+    first = train_ranks[0]["runs"][agg]
+    want_params, want_losses = _one_device_train(agg)
+    want = [v.numpy() for v in tree_flatten(want_params)[0]]
+    for rank, r in enumerate(train_ranks):
+        run = r["runs"][agg]
+        assert tuple(run["workers"]) == (rank * TRAIN_W // R, (rank + 1) * TRAIN_W // R)
+        for a, b in zip(jax.tree_util.tree_leaves(run["params"]),
+                        jax.tree_util.tree_leaves(first["params"])):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(np.asarray(run["losses"], np.float32), want_losses,
+                                   rtol=1e-5, atol=1e-6)
+        for a, b in zip(jax.tree_util.tree_leaves(run["params"]), want):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+        want_route = ({"mix_apply": 2, "rfa_aggregate": 1, "residual_norms": 8} if agg == "rfa"
+                      else {"mix_apply": 1, "cm_aggregate": 1})
+        assert run["routes"] == {k: v * TRAIN_STEPS for k, v in want_route.items()}
 
 
 def test_a_failing_rank_fails_the_group():

@@ -5,7 +5,7 @@
 the port only, so the rank processes never import jax; the test modules
 compute the JAX side and hand the ranks the same numpy inputs and the
 reference's mixing matrices. ``run_telemetry`` serves
-tests/test_torch_telemetry.py.
+tests/test_torch_telemetry.py; ``run_train`` the worker-sharded train step.
 """
 
 import contextlib
@@ -112,6 +112,40 @@ def run_telemetry(rank, group, device, payload):
                                                  mesh=group, telemetry=telemetry)
             runs[telemetry] = dict(result=res, routes=hits, info=info)
         out[label] = {"off": runs[False], "on": runs[True]}
+    return out
+
+
+def run_train(rank, group, device, payload):
+    """The worker-sharded ingress on a random stack, then ``make_train_step``
+    over the group (this rank's workers only) for each rule's steps; the
+    parameters, losses and shard_kernels calls of each."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_train_step
+
+    stack = torch.tensor(payload["stack"], device=device)
+    R, W = torch.distributed.get_world_size(group), stack.shape[0]
+    rows = stack[rank * (W // R):(rank + 1) * (W // R)]
+    out = {"ingress": packing.reshard_in(rows, group, worker_sharded=True),
+           "shard_cols": shard_kernels.shard_cols(stack, group), "runs": {}}
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **payload["cfg"])
+    batch = {k: torch.tensor(v, device=device) for k, v in payload["batch"].items()}
+    for label, (agg, mixes) in payload["runs"].items():
+        byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2, worker_momentum=0.9)
+        step_fn, state = make_train_step(cfg, byz, mesh=group, lr=payload["lr"],
+                                         n_workers=W, device=device)
+        params = state["init_params"](torch.Generator().manual_seed(0))
+        opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
+        losses = []
+        with _counted() as hits:
+            for mix in mixes:
+                params, opt_state, worker_m, metrics = step_fn(
+                    params, opt_state, worker_m, torch.tensor(mix, device=device), batch)
+                losses.append(metrics["loss"])
+        out["runs"][label] = dict(params=params, losses=losses, routes=hits,
+                                  workers=state["workers"])
     return out
 
 
