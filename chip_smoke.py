@@ -137,6 +137,22 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    through one ``all_to_all``) for 3 steps of RFA and of CM: launches per
    rank as phase 6's, every rank's parameters equal rank 0's bit for bit
    and the one-device step's within rtol 1e-4 / atol 1e-6.
+12. The MoE family (``models/moe.py``): (a) OLMoE-1B-7B served at its
+   published width and depth (16 layers, 64 experts top-8, d_ff_expert
+   1024, bf16; 6,919,096,320 random parameters from a seed, the count
+   asserted): ``make_prefill_step`` on B = 2, S = 4096 (C = 1280) timed
+   and profiled, its drop fraction printed; phase 8's 6-request
+   ``ServeEngine`` run, request 0 equal to the greedy loop at the engine's
+   width (C = 8 >= 4 decode tokens: none dropped); 20 decode steps with 4
+   slots busy timed and profiled beside their bound (every expert's
+   weights are read each step); no kernel of ours launches (counted). (b)
+   phase 11(a)'s training at OLMoE's full width with the depth cut to 2
+   layers (d = 1,045,178,368): the same steps, exact launches, checks and
+   prints, then each worker's routing on the trained model (drop fraction,
+   experts that got no token from some worker). (c) The smoke-width gate
+   of phase 11(b) for OLMoE at W = 4, and one Kimi K2 smoke step of RFA
+   and of CM (fsdp on one rank, server momentum, bf16 optimizer momentum)
+   with exact launches.
 
 The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
@@ -234,6 +250,11 @@ TRAIN_AGG_RTOL, TRAIN_GRAM_RTOL = 1e-4, 1e-3
 #: phase 11(b)/(c): tests/test_system.py's run at smoke width (30 steps, lr
 #: 0.3, global batch 8 x 64 tokens), and the group's steps
 SMOKE_STEPS, SMOKE_LR, GROUP_STEPS = 30, 0.3, 3
+#: phase 12: OLMoE-1B-7B served at its published width and depth, and
+#: trained at its width with the depth cut to MOE_TRAIN_LAYERS, which puts
+#: d near phase 11's TinyLlama (1.1e9); Kimi K2 at smoke width only
+MOE_ARCH, MOE_PARAMS = "olmoe-1b-7b", 6_919_096_320
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS = 2, 1_045_178_368
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
 SYNC_ROUTE = {
@@ -1167,6 +1188,21 @@ def attention_phase(dev):
     return results
 
 
+def run_counted(launches, label, fn):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after, into ``launches[label]``."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[label] = dict(LAUNCHES)
+    return out
+
+
 def greedy_decode(cfg, params, prompt, max_new, batch, dev):
     """Sequential greedy decode of one request over ``decode_step`` (the
     loop of tests/test_serving.py::reference_decode), the request in row 0
@@ -1195,7 +1231,7 @@ def serve_phase(dev, results):
 
     from repro_torch.configs import get_config
     from repro_torch.distributed.steps import make_prefill_step
-    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, ref, reset_launches
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
@@ -1214,14 +1250,7 @@ def serve_phase(dev, results):
         f"{cfg.n_kv_heads} KV heads, {cfg.dtype}): {n_params:,} parameters on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     launches = {}
-
-    def counted(label, fn):
-        torch.cuda.synchronize()
-        reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        launches[label] = dict(LAUNCHES)
-        return out
+    counted = functools.partial(run_counted, launches)
 
     # (a) the serving prefill, B = 2, S = 4096 (auto -> blockwise attention)
     tokens = torch.randint(0, V, (2, S), device=dev, generator=torch.Generator(dev).manual_seed(1))
@@ -1551,11 +1580,12 @@ def bigram_batch(gen, V, batch, seq_len, dev):
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def smoke_train(dev, n_workers, agg, steps, mesh=None):
-    """Phase 11(b) / (c): ``make_train_step`` at ``smoke_config`` width on
-    tests/test_system.py's stream, each step's mix drawn from one seeded
-    generator (so every rank and the one-device run see the same ones).
-    Returns the parameters, the losses and the launches of each step."""
+def smoke_train(dev, n_workers, agg, steps, mesh=None, arch="tinyllama-1.1b"):
+    """Phase 11(b) / (c), 12(c): ``make_train_step`` at ``smoke_config``
+    width on tests/test_system.py's stream, each step's mix drawn from one
+    seeded generator (so every rank and the one-device run see the same
+    ones). Returns the parameters, the losses and the launches of each
+    step."""
     import torch
 
     from repro_torch.configs import smoke_config
@@ -1563,7 +1593,7 @@ def smoke_train(dev, n_workers, agg, steps, mesh=None):
     from repro_torch.distributed.steps import make_train_step
     from repro_torch.kernels import LAUNCHES, reset_launches
 
-    cfg = smoke_config("tinyllama-1.1b")
+    cfg = smoke_config(arch)
     byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2, worker_momentum=0.9)
     step_fn, state = make_train_step(cfg, byz, mesh=mesh, lr=SMOKE_LR, n_workers=n_workers,
                                      device=dev)
@@ -1596,31 +1626,29 @@ def train_rank(rank, group, device):
     return out
 
 
-def train_phase(dev, smi):
-    """Phase 11: LLM training. (a) TinyLlama-1.1B at full width on the
-    card; (b) the reference test's run at smoke width; (c) the
-    worker-sharded step over 4 ranks. Returns the launch counts by path and
-    the kernels' rows at the training shape."""
+def train_full_width(dev, smi, cfg, note: str = ""):
+    """Phase 11(a) / 12(b): ``make_train_step`` on ``cfg`` at its full width,
+    W = TRAIN_W heterogeneous workers with one TRAIN_S-token sequence each,
+    the steps of ``TRAIN_RUNS`` with exact launches, each step's loss,
+    device ms by phase and peak memory, the first step of each rule held
+    against the plain route, then the RFA steps again under the profiler.
+    ``note`` (a depth cut) goes into the log lines. Returns the launch
+    totals and the run's state: ``params``, ``worker_m``, ``batch``,
+    ``steppers`` and the generator ``gen`` of the mixing matrices."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ByzConfig
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.distributed.packing import packer_for
     from repro_torch.distributed.robust_sync import robust_gradient_sync
     from repro_torch.distributed.steps import make_train_step
-    from repro_torch.kernels import LAUNCHES, ref, reset_launches
-    from repro_torch.kernels.bucket_mix import bucket_mix
-    from repro_torch.kernels.cwise_median import cwise_median
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.pairwise_gram import pairwise_gram
-    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.telemetry import phase_times
     from repro_torch.utils.tree import tree_flatten
 
-    # (a) full width: W = 4 heterogeneous workers, one sequence each
     torch.cuda.empty_cache()
-    cfg = get_config("tinyllama-1.1b")
     toks = make_token_stream(torch.Generator().manual_seed(11), TRAIN_W, TRAIN_S, 1,
                              cfg.vocab_size, device=dev)[:, 0]
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}  # global batch W x S
@@ -1632,8 +1660,13 @@ def train_phase(dev, smi):
     n_params = sum(t.numel() for t in tree_flatten(params)[0])
     opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
     torch.cuda.synchronize()
-    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, {cfg.dtype}): {n_params:,} parameters; "
+    if n_params != cfg.param_count():
+        raise AssertionError(f"train {cfg.name}: {n_params:,} parameters, the config counts "
+                             f"{cfg.param_count():,}")
+    width = (f"{cfg.n_experts} experts, top-{cfg.experts_per_token}, d_ff_expert "
+             f"{cfg.d_ff_expert}" if cfg.n_experts else f"d_ff {cfg.d_ff}")
+    log(f"train: {cfg.name} ({cfg.n_layers} layers{note}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {width}, {cfg.dtype}): {n_params:,} parameters; "
         f"W {TRAIN_W} workers x 1 sequence of {TRAIN_S} tokens (make_token_stream, one law "
         f"each), sgdm lr {TRAIN_LR}, worker momentum 0.9; state on the card "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -1703,7 +1736,7 @@ def train_phase(dev, smi):
             steps_ms.append(wall)
             fb = ms.get("forward_backward", 0.0)
             split = {k: round(v, 3) for k, v in ms.items()}
-            log(f"train {agg} step {i + 1}: loss {loss:.5f}; host ms {wall:.1f}, "
+            log(f"train {cfg.name} {agg} step {i + 1}: loss {loss:.5f}; host ms {wall:.1f}, "
                 f"{TRAIN_W * TRAIN_S / wall * 1e3:.0f} tokens/s; device ms by phase (CUDA "
                 f"events) {json.dumps(split)}; forward + backward per worker "
                 f"{fb / TRAIN_W:.1f}; launches {json.dumps({k: v for k, v in counts.items() if v})}")
@@ -1718,14 +1751,39 @@ def train_phase(dev, smi):
             profile_steps(lambda: one_step("rfa", step_fn, st["aggregator"]),
                           f"train rfa {cfg.name} W{TRAIN_W} S{TRAIN_S} ({smi})",
                           rfa_ms * 1e3, n_steps)
-    log(f"train {cfg.name}: host ms per step {', '.join(f'{t:.1f}' for t in steps_ms)} "
+    log(f"train {cfg.name}{note}: host ms per step {', '.join(f'{t:.1f}' for t in steps_ms)} "
         f"(rfa median {rfa_ms:.1f}, {TRAIN_W * TRAIN_S / rfa_ms * 1e3:.0f} tokens/s); peak "
         f"device memory in a step {', '.join(f'{b / 1e9:.2f}' for b in peaks)} GB "
         f"(max_memory_allocated) on {smi}")
+    return total, dict(params=params, worker_m=worker_m, batch=batch, steppers=steppers,
+                       gen=gen)
+
+
+def train_phase(dev, smi):
+    """Phase 11: LLM training. (a) TinyLlama-1.1B at full width on the
+    card; (b) the reference test's run at smoke width; (c) the
+    worker-sharded step over 4 ranks. Returns the launch counts by path and
+    the kernels' rows at the training shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.packing import packer_for
+    from repro_torch.kernels import LAUNCHES, ref
+    from repro_torch.kernels.bucket_mix import bucket_mix
+    from repro_torch.kernels.cwise_median import cwise_median
+    from repro_torch.kernels.pairwise_gram import pairwise_gram
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.utils.tree import tree_flatten
+
+    # (a) full width: W = 4 heterogeneous workers, one sequence each
+    total, run = train_full_width(dev, smi, get_config("tinyllama-1.1b"))
+    worker_m, steppers, gen = run["worker_m"], run["steppers"], run["gen"]
+    del run
 
     # the kernels at the training shape: X[W, n_pad], the packed momenta
     x = packer_for(worker_m).pack(worker_m)
-    del params, opt_state, worker_m
+    del worker_m
     torch.cuda.empty_cache()
     W_, d = x.shape
     kernel_rows = {"bucket_mix": [], "pairwise_gram": [], "cwise_median": []}
@@ -1798,6 +1856,216 @@ def train_phase(dev, smi):
             f"{[round(x, 5) for x in ranks[0][agg]['losses']]} vs one device "
             f"{[round(x, 5) for x in one_losses]}")
     return launches, kernel_rows
+
+
+def decode_bytes(params, cache, batch: int, vocab: int) -> int:
+    """Bytes one decode step must move: every parameter but the embedding
+    table read once (a MoE layer's products read every expert's weights),
+    ``batch`` embedding rows, the cache read once and the logits written."""
+    from repro_torch.utils.tree import tree_flatten
+
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])  # noqa: E731
+    embed = params["embed"]
+    return (nbytes(params) - nbytes(embed) + batch * embed.shape[1] * embed.element_size()
+            + nbytes(cache) + batch * vocab * 4)
+
+
+def moe_routing(params, cfg, batch):
+    """Each worker's routing on the trained model: the top-k assignments
+    per expert of each MoE layer ([W, n_layers, E], from the router as the
+    layer computes it) and the drop fraction per layer, from one forward of
+    each worker's rows."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    counts, drops = [], []
+    layer = moe_mod.moe_layer
+
+    def recording(p, x, c):
+        gates = torch.softmax(x.reshape(-1, c.d_model).float() @ p["router"], dim=-1)
+        top = torch.sort(gates, dim=-1, descending=True, stable=True).indices
+        counts.append(torch.bincount(top[:, :c.experts_per_token].reshape(-1),
+                                     minlength=c.n_experts))
+        return layer(p, x, c)
+
+    moe_mod.moe_layer = recording
+    try:
+        with torch.no_grad():
+            for w in range(batch["tokens"].shape[0]):
+                _, aux = tfm.forward(params, cfg, batch["tokens"][w:w + 1])
+                drops.append(float(aux["moe_drop_frac"]) / cfg.n_layers)
+    finally:
+        moe_mod.moe_layer = layer
+    return torch.stack(counts).reshape(len(drops), cfg.n_layers, cfg.n_experts), drops
+
+
+def moe_phase(dev, smi):
+    """Phase 12: the MoE family. (a) OLMoE-1B-7B served at full width and
+    depth; (b) trained at full width, depth cut to MOE_TRAIN_LAYERS; (c)
+    the smoke-width gate for OLMoE and one Kimi K2 step (fsdp on one rank,
+    server momentum, bf16 optimizer momentum). Returns the launch counts by
+    path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_prefill_step, make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.utils.tree import tree_flatten
+
+    launches = {}
+    counted = functools.partial(run_counted, launches)
+
+    # (a) serving at full width and depth
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH)
+    V, S = cfg.vocab_size, ATTN_S
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    if not n_params == cfg.param_count() == MOE_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n_params:,} parameters on the card, the config "
+                             f"counts {cfg.param_count():,}, expected {MOE_PARAMS:,}")
+    log(f"moe serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token}, d_ff_expert {cfg.d_ff_expert}, "
+        f"vocab {V}, {cfg.dtype}): {n_params:,} parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.randint(0, V, (2, S), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    prefill = make_prefill_step(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    logits = counted("moe.serve.prefill", lambda: prefill(params, {"tokens": tokens}))
+    if tuple(logits.shape) != (2, 1, V) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"moe prefill: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        _, aux = tfm.forward_hidden(params, cfg, tokens)
+    C = expert_capacity(2 * S, cfg)
+    log(f"moe serve prefill B2 S{S}: logits [2, 1, {V}] finite; host ms per prefill "
+        f"{', '.join(f'{t:.1f}' for t in times)} (median {statistics.median(times):.1f}); "
+        f"capacity C = {C}, buffer [{cfg.n_experts}, {C}, {cfg.d_model}]; drop fraction a "
+        f"layer {float(aux['moe_drop_frac']) / cfg.n_layers:.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    profile_steps(lambda: prefill(params, {"tokens": tokens}), f"moe.serve.prefill B2 S{S}",
+                  statistics.median(times) * 1e3, 1, "prefill")
+    del logits, aux
+
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.randint(16, 97, (6,), generator=rng).tolist()
+    prompts = [torch.randint(0, V, (n,), generator=rng).tolist() for n in lens]
+    eng = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=16))
+    t0 = time.perf_counter()
+    done = counted("moe.serve.engine", eng.run_until_drained)
+    wall = time.perf_counter() - t0
+    if sorted(done) != list(range(6)) or any(len(r.output) != 16 for r in done.values()):
+        raise AssertionError(f"moe engine: finished {sorted(done)}, outputs "
+                             f"{[len(r.output or []) for r in done.values()]}")
+    log(f"moe serve engine: 6 requests (prompts {lens}) x 16 new tokens in {eng.steps_total} "
+        f"steps, {wall:.2f} s; decode ms per step mean "
+        f"{eng.stats()['serve_decode_step_s'] * 1e3:.2f}, median "
+        f"{eng.step_timer.summary()['p50_s'] * 1e3:.2f}; {eng.tokens_total / wall:.1f} tokens/s")
+    seq = greedy_decode(cfg, params, prompts[0], 16, eng.B, dev)
+    if done[0].output != seq:
+        raise AssertionError(f"moe engine request 0 {done[0].output} != sequential greedy {seq}")
+    one_row = greedy_decode(cfg, params, prompts[0], 16, 1, dev)
+    log(f"check moe engine request 0 == sequential greedy decode over decode_step (16 tokens; "
+        f"C = {expert_capacity(eng.B, cfg)} >= {eng.B} decode tokens, none dropped); the "
+        f"one-row loop agrees on {sum(a == b for a, b in zip(one_row, seq))} of 16")
+    busy = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
+    for uid in range(4):
+        busy.submit(Request(uid=uid, prompt=prompts[uid][:8], max_new_tokens=200))
+    for _ in range(5):
+        busy.step()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        busy.step()
+    step_us = (time.perf_counter() - t0) / 20 * 1e6
+    n_bytes = decode_bytes(params, busy.cache, busy.B, V)
+    log(f"moe serve decode, 4 slots busy: {step_us / 1e3:.2f} ms per step, "
+        f"{4e6 / step_us:.1f} tokens/s; every expert's weights read each step: "
+        f"{n_bytes / 1e9:.2f} GB, bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms "
+        f"(bytes at 3.35 TB/s) on {smi}")
+    profile_steps(busy.step, "moe.serve.decode 4 slots", step_us, 20)
+    log(f"moe serve: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"since the prefill; launches of our kernels: prefill "
+        f"{sum(launches['moe.serve.prefill'].values())}, engine "
+        f"{sum(launches['moe.serve.engine'].values())} (none, as in the reference)")
+    del busy, eng, params
+    torch.cuda.empty_cache()
+    for label in ("moe.serve.prefill", "moe.serve.engine"):
+        if any(launches[label].values()):
+            raise AssertionError(f"{label} launched {launches[label]}; the serving path "
+                                 "calls no kernel")
+
+    # (b) training at full width, the depth cut
+    cfg_t = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    if cfg_t.param_count() != MOE_TRAIN_PARAMS:
+        raise AssertionError(f"{cfg.name} at {MOE_TRAIN_LAYERS} layers: "
+                             f"{cfg_t.param_count():,} parameters")
+    launches["moe.train"], run = train_full_width(
+        dev, smi, cfg_t, note=f" of {cfg.n_layers}: depth cut, full width")
+    per, drops = moe_routing(run["params"], cfg_t, run["batch"])
+    del run
+    torch.cuda.empty_cache()
+    starved = (per == 0).any(dim=0).sum(dim=-1).tolist()  # per layer
+    log(f"moe train routing after the steps, W {TRAIN_W} workers (one token law each): drop "
+        f"fraction a layer per worker {[round(d, 4) for d in drops]}, mean "
+        f"{statistics.mean(drops):.4f}; experts that got no token from some worker, per "
+        f"layer: {starved} of {cfg.n_experts}; assignments per expert and worker, min "
+        f"{int(per.min())} / max {int(per.max())} of {TRAIN_S * cfg.experts_per_token}")
+
+    # (c) smoke width: the reference test's gate for OLMoE; one Kimi K2 step
+    t0 = time.perf_counter()
+    _, losses, counts = smoke_train(dev, TRAIN_W, "rfa", SMOKE_STEPS, arch=MOE_ARCH)
+    sec = time.perf_counter() - t0
+    launches["moe.train.smoke"] = {k: sum(c[k] for c in counts) for k in counts[0]}
+    if any(c != {k: TRAIN_ROUTE["rfa"].get(k, 0) for k in c} for c in counts):
+        raise AssertionError(f"moe train smoke: launches {counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < 0.8 * losses[0]:
+        raise AssertionError(f"moe train smoke: losses {losses[::10]} miss the gate")
+    log(f"moe train smoke W{TRAIN_W} ({MOE_ARCH} smoke_config, rfa + bucketing, lr "
+        f"{SMOKE_LR}, {SMOKE_STEPS} steps): loss {losses[0]:.4f} -> {losses[-1]:.4f} (gate < "
+        f"0.8 x first); {SMOKE_STEPS / sec:.1f} steps/s")
+    kcfg = smoke_config("kimi-k2-1t-a32b")
+    if not (kcfg.fsdp and kcfg.momentum_mode == "server" and kcfg.opt_m_dtype == "bfloat16"):
+        raise AssertionError(f"kimi smoke config: {kcfg}")
+    gen = torch.Generator().manual_seed(13)
+    for agg in ("rfa", "cm"):
+        step_fn, state = make_train_step(
+            kcfg, ByzConfig(aggregator=agg, mixing="bucketing", s=2, worker_momentum=0.9),
+            lr=SMOKE_LR, n_workers=TRAIN_W, device=dev)
+        params = state["init_params"](torch.Generator().manual_seed(0))
+        opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
+        batch = bigram_batch(gen, kcfg.vocab_size, 8, 64, dev)
+        mix = state["aggregator"].mixing_matrix(TRAIN_W, gen, device=dev)
+        params, opt_state, worker_m, metrics = counted(
+            f"moe.kimi {agg}", lambda: step_fn(params, opt_state, worker_m, mix, batch))
+        got = launches[f"moe.kimi {agg}"]
+        m_dtypes = {t.dtype for t in tree_flatten(opt_state.m)[0]}
+        if (got != {k: TRAIN_ROUTE[agg].get(k, 0) for k in got} or worker_m
+                or m_dtypes != {torch.bfloat16} or not np.isfinite(float(metrics["loss"]))):
+            raise AssertionError(f"kimi smoke {agg}: launches {got}, worker_m "
+                                 f"{bool(worker_m)}, m {m_dtypes}, loss {metrics['loss']}")
+        log(f"moe kimi smoke step {agg} ({kcfg.name} smoke_config: fsdp on one rank, server "
+            f"momentum, bf16 optimizer momentum): loss {float(metrics['loss']):.4f}; launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}")
+    return launches
 
 
 def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20,
@@ -1881,6 +2149,7 @@ def main() -> int:
     launches.update(telemetry_phase(dev, split))
     train, train_rows = train_phase(dev, smi)
     launches.update(train)
+    launches.update(moe_phase(dev, smi))
     for name, rows in train_rows.items():
         results[name].extend(rows)
 
@@ -1936,7 +2205,7 @@ def main() -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
             **other.get(name, {})))
-    log(f"chip_smoke: phases 1-11 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-12 passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 
 ``get_config(name)`` returns the full (paper-scale) ``ModelConfig`` of a
 ported architecture; ``smoke_config(name)`` the reduced same-family variant
-the CPU tests use. The port carries the dense configs whose attention
-shapes the serving slice runs and the paper's own MNIST MLP; the other
-families of the reference are queued in ``ROADMAP.md`` (Queue 1).
+the CPU tests use. The port carries the dense configs (TinyLlama,
+Qwen2.5-14B, Gemma-7B), the MoE configs (OLMoE-1B-7B, Kimi K2) and the
+paper's own MNIST MLP; the SSM, hybrid, VLM and audio families of the
+reference are queued in ``ROADMAP.md`` (Queue 1).
 """
 
 from __future__ import annotations
@@ -12,12 +13,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import gemma_7b, paper_mnist, qwen2_5_14b, tinyllama_1_1b
+from repro_torch.configs import (gemma_7b, kimi_k2_1t_a32b, olmoe_1b_7b, paper_mnist,
+                                 qwen2_5_14b, tinyllama_1_1b)
 from repro_torch.configs.base import (INPUT_SHAPES, ByzConfig, InputShape, MeshConfig,
                                       ModelConfig, TrainConfig)
 
 _CONFIGS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, qwen2_5_14b, gemma_7b, paper_mnist)
+    m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, olmoe_1b_7b, kimi_k2_1t_a32b,
+                                      qwen2_5_14b, gemma_7b, paper_mnist)
 }
 
 

@@ -1,7 +1,8 @@
 """Config system (port of ``repro/configs/base.py``).
 
 ``ModelConfig`` describes an architecture declaratively (every field of the
-reference's, so a config file copies across as data); the dense decoder in
+reference's, so a config file copies across as data, and its parameter
+count); the decoder in
 ``repro_torch/models/transformer.py`` consumes it. ``ByzConfig`` configures
 the paper's technique. ``InputShape`` names the reference's input shapes.
 ``MeshConfig`` and ``TrainConfig`` are the reference's, as data: the port
@@ -114,6 +115,36 @@ class ModelConfig:
             raise ValueError(f"{self.name}: n_layers={self.n_layers} not divisible by "
                              f"pattern period {self.period}")
         return self.n_layers // self.period
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula for the ported families (an SSM layer raises
+        ``KeyError``)."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        H, KV, dh = self.n_heads, self.n_kv_heads, self.head_dim_
+        total = V * D  # embeddings
+        if self.n_codebooks:
+            total = self.n_codebooks * V * D
+        n_mlp_mats = {"swiglu": 3, "geglu": 3, "gelu": 2}[self.mlp_kind]
+        per_kind = {}
+        per_kind["attn"] = D * (H * dh) + 2 * D * (KV * dh) + (H * dh) * D + (
+            (H + 2 * KV) * dh if self.qkv_bias else 0
+        )
+        per_kind["mlp"] = n_mlp_mats * D * F
+        if self.n_experts:
+            Fe = self.d_ff_expert or F
+            per_kind["moe"] = (
+                D * self.n_experts
+                + self.n_experts * n_mlp_mats * D * Fe
+                + self.n_shared_experts * n_mlp_mats * D * Fe
+            )
+        per_kind["none"] = 0
+        for mixer, ff in self.pattern_:
+            total += (per_kind[mixer] + per_kind.get(ff, 0) + 2 * D) * self.n_periods
+        total += D  # final norm
+        if not self.tie_embeddings:
+            total += D * V * max(1, self.n_codebooks or 1)
+        return total
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,8 +21,11 @@ Momentum modes (the reference's DESIGN.md §5):
   server : Remark 7, raw per-worker grads robust-aggregated, momentum in
            the optimizer state.
 
-Not ported: the param-sharded egress (``out_shardings``, the FSDP
-configs), the mesh-sharded prefill and the decode step; they raise.
+FSDP configs (``cfg.fsdp``) run on one rank: there the reference's
+param-sharded egress places every leaf whole, so the step is the
+replicated one, bit for bit. Not ported: that egress over R > 1 ranks
+(``packing.unpack_to_shardings``), the mesh-sharded prefill and the decode
+step; they raise.
 """
 
 from __future__ import annotations
@@ -100,9 +103,9 @@ def make_train_step(
     W = n_workers or R
     if W % R:
         raise ValueError(f"{W} workers do not split over {R} ranks")
-    if cfg.fsdp:
-        raise NotImplementedError("the param-sharded egress (FSDP) is queued in ROADMAP.md, "
-                                  "Queue 1")
+    if cfg.fsdp and R > 1:
+        raise NotImplementedError("the param-sharded egress (FSDP) over more than one rank is "
+                                  "queued in ROADMAP.md, Queue 1")
     w_local = W // R
     first = 0 if R == 1 else dist.get_rank(mesh) * w_local
     aggregator = byz.make_aggregator(W)

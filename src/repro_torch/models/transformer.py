@@ -1,8 +1,13 @@
-"""Decoder LM (port of ``repro/models/transformer.py``), dense family.
+"""Decoder LM (port of ``repro/models/transformer.py``): the dense and MoE
+families.
 
 A model is a repeating *pattern* of layers (``cfg.pattern_``), each layer a
-(mixer, ff) pair. This slice ports the dense pattern ``(("attn", "mlp"),)``;
-the SSM, MoE, codebook (audio) and prefix-embedding (VLM) paths raise
+(mixer, ff) pair. The port runs the dense pattern ``(("attn", "mlp"),)``
+and the MoE pattern ``(("attn", "moe"),)`` (``models/moe.py``). A MoE layer's aux
+losses are summed over layers from fp32 zeros, and ``loss_fn`` adds
+``router_aux_coef * lb + router_z_coef * z`` to the cross-entropy, as the
+reference does; a dense model's aux is empty. SSM mixers (and so the
+hybrid family), codebooks (audio) and prefix embeddings (VLM) raise
 ``NotImplementedError`` (``ROADMAP.md`` Queue 1).
 
 Parameters keep the reference's tree: ``params["blocks"][str(i)]`` holds
@@ -28,18 +33,24 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed_init, init_mlp_block,
                                        init_rmsnorm, mlp_block, rmsnorm)
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
-_DENSE = (("attn", "mlp"),)
+_PATTERNS = ((("attn", "mlp"),), (("attn", "moe"),))
 
 
-def _check_dense(cfg) -> None:
-    if cfg.pattern_ != _DENSE or cfg.n_codebooks:
+def _check_supported(cfg) -> None:
+    if cfg.pattern_ not in _PATTERNS or cfg.n_codebooks:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense pattern {_DENSE} only; SSM, MoE, "
+            f"{cfg.name}: the port runs the dense and MoE patterns {_PATTERNS} only; SSM, "
             "hybrid and audio (codebook) models are queued in ROADMAP.md, Queue 1")
+
+
+def _ff(cfg) -> str:
+    """The feed-forward of the pattern's one layer: "mlp" or "moe"."""
+    return cfg.pattern_[0][1]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -53,14 +64,15 @@ def _init_layer(generator, cfg, device) -> Dict[str, Any]:
         "norm1": init_rmsnorm(cfg.d_model, dtype, device),
         "mixer": attn_mod.init_attention(generator, cfg, device),
         "norm2": init_rmsnorm(cfg.d_model, dtype, device),
-        "ff": init_mlp_block(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device),
+        "ff": (moe_mod.init_moe(generator, cfg, device) if _ff(cfg) == "moe" else
+               init_mlp_block(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)),
     }
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
     """Random parameters drawn from ``generator`` (see ``layers``), laid out
     as the reference's tree."""
-    _check_dense(cfg)
+    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     params: Dict[str, Any] = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
@@ -76,7 +88,7 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
 
 # ================================================================== embed
 def embed_tokens(params, cfg, tokens) -> torch.Tensor:
-    _check_dense(cfg)
+    _check_supported(cfg)
     return params["embed"][tokens]
 
 
@@ -106,6 +118,16 @@ def _periods(tree, n_periods: int):
     return [tree_unflatten(treedef, [s[p] for s in split]) for p in range(n_periods)]
 
 
+def _feed_forward(lp, h, cfg):
+    """``h`` plus layer ``lp``'s feed-forward, and the MoE layer's aux (or
+    ``None``)."""
+    x = rmsnorm(lp["norm2"], h, cfg.norm_eps)
+    if _ff(cfg) == "moe":
+        out, aux = moe_mod.moe_layer(lp["ff"], x, cfg)
+        return h + out, aux
+    return h + mlp_block(lp["ff"], x, cfg.mlp_kind), None
+
+
 def forward_hidden(
     params,
     cfg,
@@ -113,8 +135,9 @@ def forward_hidden(
     prefix_embeds: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Backbone only: final-norm hidden states [B, S, D] + aux (empty for
-    the dense family). Callers choose which positions to unembed."""
+    """Backbone only: final-norm hidden states [B, S, D] + aux (the MoE
+    layers' losses summed over layers; empty for a model without MoE).
+    Callers choose which positions to unembed."""
     if prefix_embeds is not None:
         raise NotImplementedError("prefix embeddings (VLM / audio conditioning) are "
                                   "queued in ROADMAP.md, Queue 1")
@@ -122,13 +145,19 @@ def forward_hidden(
     S = h.shape[1]
     if positions is None:
         positions = torch.arange(S, device=h.device)[None, :]
+    aux: Dict[str, torch.Tensor] = {}
+    if _ff(cfg) == "moe":
+        aux = {k: torch.zeros((), dtype=torch.float32, device=h.device)
+               for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
     for period in _periods(params["blocks"], cfg.n_periods):
         lp = period["0"]
         h = h + attn_mod.attention(lp["mixer"], rmsnorm(lp["norm1"], h, cfg.norm_eps), cfg,
                                    positions)
-        h = h + mlp_block(lp["ff"], rmsnorm(lp["norm2"], h, cfg.norm_eps), cfg.mlp_kind)
+        h, layer_aux = _feed_forward(lp, h, cfg)
+        if layer_aux is not None:
+            aux = {k: aux[k] + v for k, v in layer_aux.items()}
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return h, {}
+    return h, aux
 
 
 def forward(
@@ -144,9 +173,10 @@ def forward(
 
 
 def loss_fn(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy. batch: dict with "tokens", "labels"; labels
-    use -100 as the ignore index. Every op is out of place, so autograd
-    gives the reference's ``jax.grad`` (``tests/test_torch_train.py``)."""
+    """Next-token cross-entropy, plus the router losses of a MoE model.
+    batch: dict with "tokens", "labels"; labels use -100 as the ignore
+    index. Every op is out of place, so autograd gives the reference's
+    ``jax.grad`` (``tests/test_torch_train.py``)."""
     logits, aux = forward(params, cfg, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"))
     labels = batch["labels"]
     valid = labels != -100
@@ -154,6 +184,9 @@ def loss_fn(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels_c[..., None].long())[..., 0]
     loss = torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
+    if aux:
+        loss = (loss + cfg.router_aux_coef * aux["moe_lb_loss"]
+                + cfg.router_z_coef * aux["moe_z_loss"])
     aux = dict(aux)
     aux["ce_loss"] = loss
     return loss, aux
@@ -172,7 +205,7 @@ def cache_length(cfg, seq_len: int) -> int:
 
 def init_cache(cfg, batch: int, seq_len: int, device=None) -> Dict[str, Any]:
     """Stacked decode cache: one entry per pattern index, leading period axis."""
-    _check_dense(cfg)
+    _check_supported(cfg)
     dev = resolve_device(device)
     L = cache_length(cfg, seq_len)
     one = attn_mod.init_kv_cache(batch, max(L, 1), cfg, _dtype(cfg), dev)
@@ -181,8 +214,9 @@ def init_cache(cfg, batch: int, seq_len: int, device=None) -> Dict[str, Any]:
 
 def decode_step(params, cfg, cache, token, position: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode. token: [B] int; position: int. Returns (logits
-    [B, V], new cache); the cache passed in is left as it was."""
-    _check_dense(cfg)
+    [B, V], new cache); the cache passed in is left as it was. A MoE layer
+    routes the B decode tokens together and its aux is discarded."""
+    _check_supported(cfg)
     h = params["embed"][token][:, None, :]
     new_cache = []
     for p in range(cfg.n_periods):
@@ -191,8 +225,7 @@ def decode_step(params, cfg, cache, token, position: int) -> Tuple[torch.Tensor,
         out, nc = attn_mod.decode_attention(lp["mixer"], x, _period(cache, p)["0"], cfg,
                                             position)
         new_cache.append(nc)
-        h = h + out
-        h = h + mlp_block(lp["ff"], rmsnorm(lp["norm2"], h, cfg.norm_eps), cfg.mlp_kind)
+        h, _ = _feed_forward(lp, h + out, cfg)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = unembed(params, cfg, h)  # [B, 1, V]
     return logits[:, 0], {"0": tree_map(lambda *xs: torch.stack(xs), *new_cache)}

@@ -14,6 +14,14 @@ manages B **slots**:
 - finished slots return their output and become free for the next queued
   request, i.e. continuous batching at slot granularity.
 
+A MoE model routes the B tokens of a step together, through one
+``[E, C, D]`` buffer with ``C = expert_capacity(B) = max(8, ...) >= B`` for
+B <= 8 slots: an expert never holds more than its capacity, no decode token
+is dropped, and a slot's tokens are those of a greedy loop over
+``decode_step`` run at the engine's batch width. (A whole-batch prefill,
+``make_prefill_step``, couples a batch's tokens through the capacity, as
+the reference's does.)
+
 Cache isolation between consecutive requests in the same slot comes from
 positional masking (ring-buffer slots with ``slot_pos > position`` are
 invalid) and from zeroing a slot's rows when a request is admitted.

@@ -7,9 +7,12 @@ Imports torch and the port only (no JAX), so it runs where the port runs:
 Every test is marked ``cuda`` and skips where CUDA is unavailable.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, _build, ref, reset_launches
 from repro_torch.kernels import (bucket_mix, cclip_fused, cwise_median, pairwise_gram,
                                  trimmed_mean)
@@ -17,6 +20,8 @@ from repro_torch.kernels.cclip_combine import cclip_combine
 from repro_torch.kernels.cclip_fused import cclip_fused_iter
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.weiszfeld_norms import residual_norms
+from repro_torch.models import moe
+from repro_torch.utils.tree import tree_map
 
 
 @pytest.fixture
@@ -621,3 +626,25 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
                                          torch.randn((1, 128, 2, 320), device=cuda))):
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,T,cf", [("olmoe-1b-7b", 128, 1.25), ("olmoe-1b-7b", 128, 0.25),
+                                       ("kimi-k2-1t-a32b", 128, 1.25), ("olmoe-full", 512, 1.25)])
+def test_moe_layer_repeats_bitwise_and_matches_cpu_on_card(cuda, arch, T, cf):
+    """``moe_layer`` in fp32 on the card (no kernel of ours: PyTorch's
+    sort, scatter, gather and bmm): two runs give the same bits, and the
+    output and aux losses match the CPU route at rtol / atol 1e-5, the drop
+    fraction exactly; at smoke width and at OLMoE's full layer width."""
+    cfg = (get_config("olmoe-1b-7b") if arch == "olmoe-full" else smoke_config(arch))
+    cfg = dataclasses.replace(cfg, dtype="float32", capacity_factor=cf)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, device="cpu")
+    x = torch.randn((2, T // 2, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.moe_layer(p, x, cfg)
+    pc = tree_map(lambda t: t.to(cuda), p)
+    (a, aux), (b, _) = (moe.moe_layer(pc, x.to(cuda), cfg) for _ in range(2))
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert float(aux["moe_drop_frac"]) == float(want_aux["moe_drop_frac"])
+    for k in ("moe_lb_loss", "moe_z_loss"):
+        torch.testing.assert_close(aux[k].cpu(), want_aux[k], rtol=1e-5, atol=1e-5)

@@ -1,8 +1,9 @@
-"""The port's dense LLM stack held against the JAX reference on the CPU.
+"""The port's LLM stack (dense and MoE) held against the JAX reference on
+the CPU.
 
 Configs, layers, both attention impls, the ring-buffer decode cache, and
-forward / loss / decode / prefill of the ported architectures at their
-``smoke_config`` size, with the reference's parameters carried across by
+forward / loss (with the MoE router losses) / decode / prefill of the
+ported architectures at their ``smoke_config`` size, with the reference's parameters carried across by
 ``convert.params_from_jax``. Everything runs in fp32. Tolerances: the
 reference's own where it has one (2e-4 for attention, tests/test_attention.py;
 2e-3 for decode against forward, tests/test_models.py); 1e-4 for logits
@@ -33,7 +34,7 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.utils.tree import tree_flatten
 
-ARCHS = ["gemma-7b", "qwen2.5-14b", "tinyllama-1.1b"]
+ARCHS = ["gemma-7b", "kimi-k2-1t-a32b", "olmoe-1b-7b", "qwen2.5-14b", "tinyllama-1.1b"]
 
 
 def _np(x):
@@ -61,8 +62,9 @@ def test_ported_configs_equal_the_reference():
             theirs = dataclasses.asdict(getattr(rconfigs, get)(arch))
             assert mine == theirs, (arch, get)
         cfg, rcfg = configs.get_config(arch), rconfigs.get_config(arch)
-        assert (cfg.head_dim_, cfg.pattern_, cfg.period, cfg.n_periods) == \
-            (rcfg.head_dim_, rcfg.pattern_, rcfg.period, rcfg.n_periods)
+        assert (cfg.head_dim_, cfg.pattern_, cfg.period, cfg.n_periods, cfg.param_count()) == \
+            (rcfg.head_dim_, rcfg.pattern_, rcfg.period, rcfg.n_periods, rcfg.param_count())
+    assert configs.get_config("olmoe-1b-7b").param_count() == 6_919_096_320
     assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in rconfigs.INPUT_SHAPES.items()}
     with pytest.raises(KeyError, match="ROADMAP.md"):
@@ -216,7 +218,8 @@ def test_param_tree_maps_one_to_one():
         mine = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
         theirs = jax.eval_shape(lambda: rtfm.init_params(rcfg, jax.random.PRNGKey(0)))
         assert _paths(mine) == _paths(theirs)
-        assert sum(x.numel() for x in tree_flatten(mine)[0]) == rcfg.param_count()
+        assert sum(x.numel() for x in tree_flatten(mine)[0]) == rcfg.param_count() \
+            == cfg.param_count()
 
 
 def test_bf16_tree_round_trip_is_bit_exact():
@@ -239,6 +242,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfm.forward(tp, cfg, torch.zeros((1, 4), dtype=torch.long),
                     prefix_embeds=torch.zeros((1, 2, cfg.d_model)))
-    for kw in ({"family": "ssm"}, {"n_experts": 4}, {"n_codebooks": 2}):
+    for kw in ({"family": "ssm"}, {"pattern": (("ssm", "moe"), ("attn", "mlp"))},
+               {"n_codebooks": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfm.init_params(dataclasses.replace(cfg, **kw), torch.Generator(), device="cpu")

@@ -104,3 +104,27 @@ def test_engine_refuses_what_it_does_not_serve(setup):
     eng.submit(Request(uid=1, prompt=[1, 2, 3], max_new_tokens=6))
     with pytest.raises(ValueError, match="max_len"):
         eng.step()
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    rcfg = rsmoke_config("olmoe-1b-7b")
+    rparams = rtfm.init_params(rcfg, jax.random.PRNGKey(1))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, rparams), device="cpu")
+    return smoke_config("olmoe-1b-7b"), params, rcfg, rparams
+
+
+def test_moe_engine_matches_reference_and_greedy_loop(moe_setup):
+    """OLMoE at smoke width: 4 slots route their tokens through one
+    ``[E, C, D]`` buffer with C = 8 >= 4, so no decode token is dropped and
+    each request gets the tokens of the one-request greedy loop; the
+    reference's engine gives the same tokens."""
+    cfg, params, _, _ = moe_setup
+    prompts = {1: [5, 17, 99, 3], 2: [42], 3: [7, 7, 7, 7, 7, 7, 7, 7], 4: [100, 200],
+               5: [11, 12, 13], 6: [300, 1, 2, 3, 4, 5]}
+    got, want, eng, reng = _serve(moe_setup, [(u, p, 5, None) for u, p in prompts.items()],
+                                  slots=4)
+    assert got == want
+    for u, p in prompts.items():
+        assert got[u] == reference_decode(cfg, params, p, 5), u
+    assert eng.steps_total == reng.steps_total

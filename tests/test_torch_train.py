@@ -24,7 +24,9 @@ leaf's largest entry (the two packages sum bf16 products in other orders
 and round each op's output to bf16); one train step in fp32 at rtol 1e-4 /
 atol 1e-6 on the momenta, the optimizer state, the loss and SGD-M's
 parameter update, AdamW's update at rtol 1e-4 / atol 2e-3 lr (its
-per-entry normalisation; ``test_train_step_matches_reference``).
+per-entry normalisation; ``test_train_step_matches_reference``), Kimi K2's
+bf16 optimizer momentum and its update at one bf16 step (rtol 2^-7).
+The MoE configs (OLMoE, Kimi K2) go through the same gradients and steps.
 """
 
 import dataclasses
@@ -36,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_shard_ranks
 from repro import configs as rconfigs
 from repro.configs.base import ByzConfig as RByzConfig
 from repro.data import synthetic as rsynthetic
@@ -50,12 +53,14 @@ from repro_torch.configs.base import INPUT_SHAPES, ByzConfig, InputShape
 from repro_torch.convert import opt_state_from_jax, params_from_jax, worker_m_from_jax
 from repro_torch.data import synthetic
 from repro_torch.distributed.steps import input_specs, make_train_step
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import make_optimizer, schedule
 from repro_torch.utils import tree
 from repro_torch.utils.tree import tree_flatten
 
 ARCHS = ["gemma-7b", "qwen2.5-14b", "tinyllama-1.1b"]
+MOE_ARCHS = ["kimi-k2-1t-a32b", "olmoe-1b-7b"]
 W = 4
 
 
@@ -234,7 +239,7 @@ def test_schedules_match(name):
 
 # ------------------------------------------------------------- input specs
 def test_input_specs_match():
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         cfg, rcfg = configs.smoke_config(arch), rconfigs.smoke_config(arch)
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
             mine = input_specs(cfg, INPUT_SHAPES[shape])
@@ -273,10 +278,12 @@ def _grads_both(arch, dtype="float32", B=2, S=32, ignore=3, **kw):
 
 
 @pytest.mark.parametrize("impl", ["xla", "blockwise"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_loss_fn_gradients_fp32(arch, impl):
     """Every leaf's gradient against ``jax.grad`` in fp32; -100 labels in
-    the batch; blockwise with 16-wide blocks at S = 32."""
+    the batch; blockwise with 16-wide blocks at S = 32. For the MoE archs
+    the loss carries the router losses, and the router's gradient flows
+    through the gates, the load balance and the z-loss."""
     (loss, grads), (rloss, rgrads) = _grads_both(
         arch, attention_impl=impl, attn_block_q=16, attn_block_kv=16)
     np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-5)
@@ -325,25 +332,35 @@ def test_loss_fn_gradients_bf16(arch):
 
 # ------------------------------------------------------- one train step
 S_STEP, B_STEP, LR_STEP = 16, 2 * W, 0.05
+TINY = "tinyllama-1.1b"
 STEP_CASES = (
-    [(agg, mixing, "worker", "sgdm", 0.9)
+    [(agg, mixing, "worker", "sgdm", 0.9, TINY)
      for agg in ("mean", "rfa", "krum", "cm", "tm", "cclip") for mixing in ("none", "bucketing")]
-    + [(agg, mixing, "server", "adamw", 0.9)
+    + [(agg, mixing, "server", "adamw", 0.9, TINY)
        for agg in ("mean", "rfa", "krum", "cm", "tm", "cclip") for mixing in ("none", "bucketing")]
-    + [("rfa", "bucketing", "worker", "adamw", 0.9), ("rfa", "bucketing", "server", "sgdm", 0.9),
-       ("mean", "none", "worker", "sgdm", 0.0)])
-STEP_IDS = [f"{a}-{m}-{mode}-{opt}" + ("-no_wm" if beta == 0 else "")
-            for a, m, mode, opt, beta in STEP_CASES]
+    + [("rfa", "bucketing", "worker", "adamw", 0.9, TINY),
+       ("rfa", "bucketing", "server", "sgdm", 0.9, TINY),
+       ("mean", "none", "worker", "sgdm", 0.0, TINY)]
+    # the MoE family: OLMoE with worker momentum; Kimi K2 as its config
+    # trains, with server momentum, fsdp (on one rank) and bf16 momentum
+    + [("rfa", "bucketing", "worker", "sgdm", 0.9, "olmoe-1b-7b"),
+       ("cm", "bucketing", "worker", "sgdm", 0.9, "olmoe-1b-7b"),
+       ("rfa", "bucketing", "server", "sgdm", 0.9, "kimi-k2-1t-a32b"),
+       ("cm", "bucketing", "server", "sgdm", 0.9, "kimi-k2-1t-a32b")])
+STEP_IDS = [("" if arch == TINY else arch.split("-")[0] + "-")
+            + f"{a}-{m}-{mode}-{opt}" + ("-no_wm" if beta == 0 else "")
+            for a, m, mode, opt, beta, arch in STEP_CASES]
 
 
 @functools.lru_cache(maxsize=None)
-def _step_start():
+def _step_start(arch=TINY):
     """The step's inputs as numpy: parameters, a batch, non-zero worker
     momenta, and optimizer moments as the reference's AdamW leaves them
     after three steps on random gradients (a state whose second moment
     matches its first, as a run's does), so every carried state is
-    exercised."""
-    rcfg = rconfigs.smoke_config("tinyllama-1.1b")
+    exercised. The first moment is stored in the config's
+    ``opt_m_dtype`` (bf16 for Kimi K2), as its optimizer keeps it."""
+    rcfg = rconfigs.smoke_config(arch)
     params = rtfm.init_params(rcfg, jax.random.PRNGKey(0))
     batch = _batch(rcfg, B_STEP, S_STEP, seed=3, ignore=2)
     rng = np.random.default_rng(4)
@@ -355,15 +372,16 @@ def _step_start():
         _, state = update(jax.tree_util.tree_map(small, params), state, params)
     params = jax.tree_util.tree_map(np.asarray, params)
     m, v = (jax.tree_util.tree_map(np.asarray, t) for t in (state.m, state.v))
+    m = jax.tree_util.tree_map(lambda x: np.asarray(jnp.asarray(x).astype(rcfg.opt_m_dtype)), m)
     return params, batch, worker_m, m, v
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_worker_grads():
+def _reference_worker_grads(arch=TINY):
     """``jax.vmap(jax.value_and_grad(loss_fn))`` over the workers, and the
     plain-mean baseline's gradient of the mean loss."""
-    rcfg = rconfigs.smoke_config("tinyllama-1.1b")
-    params, batch, *_ = _step_start()
+    rcfg = rconfigs.smoke_config(arch)
+    params, batch, *_ = _step_start(arch)
     wbatch = {k: jnp.asarray(v).reshape((W, -1) + v.shape[1:]) for k, v in batch.items()}
 
     def one_worker(p, b):
@@ -385,20 +403,21 @@ def _opt_start(optimizer, m, v):
     return (step, m, v if optimizer == "adamw" else None)
 
 
-def _reference_step(agg, mixing, mode, optimizer, beta, key):
+def _reference_step(agg, mixing, mode, optimizer, beta, key, arch=TINY):
     """The reference's train step, assembled in the order of
-    ``repro/distributed/steps.py`` (module docstring)."""
-    rcfg = dataclasses.replace(rconfigs.smoke_config("tinyllama-1.1b"), momentum_mode=mode)
+    ``repro/distributed/steps.py`` (module docstring). On one device the
+    reference's fsdp egress places every leaf whole: the same step."""
+    rcfg = dataclasses.replace(rconfigs.smoke_config(arch), momentum_mode=mode)
     rbyz = RByzConfig(aggregator=agg, mixing=mixing, s=2, worker_momentum=beta)
     aggregator = rbyz.make_aggregator(W)
-    params, _, worker_m, m, v = _step_start()
+    params, _, worker_m, m, v = _step_start(arch)
     _, opt_update = r_make_optimizer(optimizer, lr=LR_STEP, beta1=beta or 0.9,
                                      m_dtype=rcfg.opt_m_dtype)
     from repro.optim import OptState as ROptState
     step, m0, v0 = _opt_start(optimizer, m, v)
     opt_state = ROptState(jnp.asarray(step), m0, v0)
     use_worker_momentum = mode == "worker" and beta > 0
-    (grads_w, losses), (mgrads, mloss) = _reference_worker_grads()
+    (grads_w, losses), (mgrads, mloss) = _reference_worker_grads(arch)
     if agg == "mean" and mixing == "none" and not use_worker_momentum:
         loss, agg_grads = mloss, mgrads
     else:
@@ -419,12 +438,12 @@ def _reference_step(agg, mixing, mode, optimizer, beta, key):
     return params, opt_state, worker_m, loss, np.asarray(aggregator.mixing_matrix(key, W))
 
 
-def _port_step(agg, mixing, mode, optimizer, beta, mix, telemetry=False):
-    cfg = dataclasses.replace(configs.smoke_config("tinyllama-1.1b"), momentum_mode=mode)
+def _port_step(agg, mixing, mode, optimizer, beta, mix, telemetry=False, arch=TINY, **kw):
+    cfg = dataclasses.replace(configs.smoke_config(arch), momentum_mode=mode, **kw)
     byz = ByzConfig(aggregator=agg, mixing=mixing, s=2, worker_momentum=beta)
     step_fn, state = make_train_step(cfg, byz, lr=LR_STEP, optimizer=optimizer,
                                      telemetry=telemetry, n_workers=W, device="cpu")
-    params, batch, worker_m, m, v = _step_start()
+    params, batch, worker_m, m, v = _step_start(arch)
     use_worker_momentum = mode == "worker" and beta > 0
     assert bool(state["worker_m"]) == use_worker_momentum
     wm = worker_m_from_jax(worker_m if use_worker_momentum else {}, device="cpu")
@@ -434,8 +453,8 @@ def _port_step(agg, mixing, mode, optimizer, beta, mix, telemetry=False):
     return out
 
 
-@pytest.mark.parametrize("agg,mixing,mode,optimizer,beta", STEP_CASES, ids=STEP_IDS)
-def test_train_step_matches_reference(agg, mixing, mode, optimizer, beta):
+@pytest.mark.parametrize("agg,mixing,mode,optimizer,beta,arch", STEP_CASES, ids=STEP_IDS)
+def test_train_step_matches_reference(agg, mixing, mode, optimizer, beta, arch):
     """One step from the same state: the worker momenta, the optimizer's
     moments and the loss within rtol 1e-4 / atol 1e-6, and so is the
     parameters' update ``p' - p`` under SGD-M. AdamW divides each entry by
@@ -445,25 +464,39 @@ def test_train_step_matches_reference(agg, mixing, mode, optimizer, beta):
     rtol 1e-4 of themselves, and AdamW's update carries those relative
     errors at the scale of lr (the worst entry measured: 8.2e-4 lr, in 1
     to 6 entries of 1.57 M). Its update is held at rtol 1e-4 with atol
-    2e-3 lr; its moments, which it is computed from, at the common bar."""
+    2e-3 lr; its moments, which it is computed from, at the common bar.
+
+    Kimi K2 stores SGD-M's momentum in bf16 (``opt_m_dtype``): each entry
+    of m' = bf16(beta m + g) is rounded once to 8 significant bits, so an
+    fp32 difference in g far below 1e-4 can move it across a rounding
+    boundary, one bf16 step: at most 2^-7 of itself. Its momentum and the
+    update lr m' are held at rtol 2^-7 (one bf16 step) with the common
+    atol; the loss, at the common bar. OLMoE's and TinyLlama's cases are
+    fp32 throughout."""
     key = jax.random.PRNGKey(5)
-    rparams, ropt, rwm, rloss, mix = _reference_step(agg, mixing, mode, optimizer, beta, key)
-    params, opt_state, worker_m, metrics = _port_step(agg, mixing, mode, optimizer, beta, mix)
+    rparams, ropt, rwm, rloss, mix = _reference_step(agg, mixing, mode, optimizer, beta, key,
+                                                     arch)
+    params, opt_state, worker_m, metrics = _port_step(agg, mixing, mode, optimizer, beta, mix,
+                                                      arch=arch)
     close = dict(rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(float(metrics["loss"]), float(rloss), **close)
-    p0 = _leaves_np(_step_start()[0])
-    update = dict(rtol=1e-4, atol=2e-3 * LR_STEP) if optimizer == "adamw" else close
+    p0 = _leaves_np(_step_start(arch)[0])
+    bf16_m = rconfigs.smoke_config(arch).opt_m_dtype == "bfloat16"
+    m_close = dict(rtol=2.0 ** -7, atol=1e-6) if bf16_m else close
+    update = dict(rtol=1e-4, atol=2e-3 * LR_STEP) if optimizer == "adamw" else m_close
     for a, b, p in zip(tree_flatten(params)[0], _leaves_np(rparams), p0):
         np.testing.assert_allclose(_np(a).astype(np.float64) - p, b.astype(np.float64) - p,
                                    **update)
-    trees = [(opt_state.m, ropt.m), (worker_m, rwm)]
+    trees = [(opt_state.m, ropt.m, m_close), (worker_m, rwm, close)]
     if ropt.v is not None:
-        trees.append((opt_state.v, ropt.v))
-    for got, want in trees:
+        trees.append((opt_state.v, ropt.v, close))
+    for got, want, tol in trees:
         g, w = tree_flatten(got)[0], _leaves_np(want)
         assert len(g) == len(w)
         for a, b in zip(g, w):
-            np.testing.assert_allclose(_np(a), b, **close)
+            np.testing.assert_allclose(_np(a), b, **tol)
+    m_dtype = {x.dtype for x in tree_flatten(opt_state.m)[0]}
+    assert m_dtype == {torch.bfloat16 if bf16_m else torch.float32}
     assert int(opt_state.step) == int(ropt.step) == 4
 
 
@@ -482,9 +515,23 @@ def test_train_step_telemetry_changes_no_bit(agg):
 
 
 def test_train_step_rejects_fsdp_and_uneven_workers():
-    cfg = dataclasses.replace(configs.smoke_config("tinyllama-1.1b"), fsdp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg, ByzConfig(), n_workers=2, device="cpu")
+    """On one rank an fsdp config trains: the reference's param-sharded
+    egress places every leaf whole there, so its step is the replicated
+    one, bit for bit. Over 2 gloo ranks fsdp still raises (the egress over
+    ranks is not ported), and so do 3 workers over 2 ranks."""
+    mix = np.asarray(RByzConfig(aggregator="rfa", mixing="bucketing", s=2)
+                     .make_aggregator(W).mixing_matrix(jax.random.PRNGKey(6), W))
+    steps = [_port_step("rfa", "bucketing", mode, "sgdm", 0.9, mix, fsdp=fsdp)
+             for mode in ("worker", "server") for fsdp in (False, True)]
+    for plain, fsdp in (steps[:2], steps[2:]):
+        for a, b in zip(*(tree_flatten((r[0], r[1].m, r[2], r[3]["loss"]))[0]
+                          for r in (plain, fsdp))):
+            assert torch.equal(a, b)
+    refusals = spawn_ranks(torch_shard_ranks.train_step_refusals, 2, backend="gloo",
+                           devices=["cpu", "cpu"], timeout_s=300)
+    for r in refusals:
+        assert r["fsdp"].startswith("NotImplementedError") and "ROADMAP" in r["fsdp"]
+        assert r["uneven"].startswith("ValueError") and "3 workers" in r["uneven"]
 
 
 # ------------------------------------------------------------ token stream

@@ -5,7 +5,8 @@
 the port only, so the rank processes never import jax; the test modules
 compute the JAX side and hand the ranks the same numpy inputs and the
 reference's mixing matrices. ``run_telemetry`` serves
-tests/test_torch_telemetry.py; ``run_train`` the worker-sharded train step.
+tests/test_torch_telemetry.py; ``run_train`` the worker-sharded train step;
+``train_step_refusals`` tests/test_torch_train.py.
 """
 
 import contextlib
@@ -146,6 +147,27 @@ def run_train(rank, group, device, payload):
                 losses.append(metrics["loss"])
         out["runs"][label] = dict(params=params, losses=losses, routes=hits,
                                   workers=state["workers"])
+    return out
+
+
+def train_step_refusals(rank, group, device):
+    """What ``make_train_step`` refuses over a group: an fsdp config (its
+    param-sharded egress is not ported) and workers that do not split over
+    the ranks; the message of each refusal."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_train_step
+
+    cfg = smoke_config("tinyllama-1.1b")
+    out = {}
+    for label, c, n in (("fsdp", dataclasses.replace(cfg, fsdp=True), 2),
+                        ("uneven", cfg, 3)):
+        try:
+            make_train_step(c, ByzConfig(), mesh=group, n_workers=n, device=device)
+        except (NotImplementedError, ValueError) as e:
+            out[label] = f"{type(e).__name__}: {e}"
     return out
 
 
