@@ -153,6 +153,35 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    of phase 11(b) for OLMoE at W = 4, and one Kimi K2 smoke step of RFA
    and of CM (fsdp on one rank, server momentum, bf16 optimizer momentum)
    with exact launches.
+13. The SSM and hybrid families (``models/ssm.py``): (a) Mamba2-130m
+   served at its published width and depth (24 layers, d_inner 1536, 24
+   heads of 64, N = 128, tied vocab 50,280, bf16; the tree's 128,983,488
+   parameters asserted, the reference formula's 128,958,336 beside them):
+   the prefill on B = 2 x 4096 (64 chunks) timed and profiled, phase 8's
+   6-request ``ServeEngine`` run with request 0 and request 4 (served after
+   another in its slot, whose SSM state the engine zeroed) equal to the
+   greedy loop, 20 decode steps with 4 slots busy timed and profiled beside
+   their bound (the parameters, and the SSM state read and written); no
+   kernel of ours launches (counted). (b) phase 11(a)'s training at
+   Mamba2's full width and depth (d = 128,983,488): exact launches, the
+   aggregate equal to the plain route's, every parameter and momentum leaf
+   finite, then the three kernels held and timed on its packed momenta.
+   (c) Jamba v0.1 at its published width over one period, 8 of 32 layers
+   (1 attention, 7 SSM, 4 MoE and 4 SwiGLU layers; 13,267,656,416
+   parameters, 26.5 GB: the 52 B parameters fit on no 80 GB card): (a)'s
+   serving checks (request 0), the prefill's drop fraction. (d) phase
+   11(b)'s smoke gate at W = 4 for Mamba2 and Jamba, then one RFA and one
+   CM smoke step of each with exact launches.
+14. Prefix embeddings and codebooks: (a) InternVL2-2B's prefill at its
+   published width and depth, B = 2 with 256 prefix embeddings from a seed
+   before 3,840 tokens, timed, logits [2, 1, V] finite; (b)
+   MusicGen-medium's prefill on B = 2 x 4 codebooks x 4,032 tokens after
+   64 prefix embeddings, logits [2, 1, 4, 2048], then 20 greedy
+   ``decode_step`` calls on [2, 4] tokens timed; the engine refuses
+   codebooks, as the reference's does; none launches a kernel of ours
+   (counted). (c) the smoke gate and one RFA and one CM step of each (the
+   VLM with prefix embeddings in the batch, the audio model on codebook
+   streams), and one RFA smoke step of Qwen1.5-32B, with exact launches.
 
 The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
@@ -255,6 +284,19 @@ SMOKE_STEPS, SMOKE_LR, GROUP_STEPS = 30, 0.3, 3
 #: d near phase 11's TinyLlama (1.1e9); Kimi K2 at smoke width only
 MOE_ARCH, MOE_PARAMS = "olmoe-1b-7b", 6_919_096_320
 MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS = 2, 1_045_178_368
+#: phase 13: Mamba2-130m served and trained at its published width and
+#: depth (the tree holds 128,983,488 parameters; the reference's
+#: param_count formula, copied as it is, counts 128,958,336), and Jamba
+#: v0.1 served at its width over one period: 8 of 32 layers (the 52 B
+#: parameters, 103 GB in bf16, fit on no 80 GB card)
+SSM_ARCH, SSM_PARAMS, SSM_FORMULA = "mamba2-130m", 128_983_488, 128_958_336
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
+HYBRID_PARAMS, HYBRID_FORMULA = 13_267_656_416, 13_267_597_952
+#: phase 14: InternVL2-2B (256 prefix embeddings before 3,840 tokens) and
+#: MusicGen-medium (64 before 4 codebooks x 4,032 tokens), ATTN_S positions
+#: each, at their published width and depth; Qwen1.5-32B at smoke width
+VLM_ARCH, AUDIO_ARCH, DENSE_ARCH = "internvl2-2b", "musicgen-medium", "qwen1.5-32b"
+DECODE_STEPS = 20
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
 SYNC_ROUTE = {
@@ -1568,16 +1610,28 @@ def telemetry_phase(dev, split):
     return launches
 
 
-def bigram_batch(gen, V, batch, seq_len, dev):
+def bigram_batch(gen, V, batch, seq_len, dev, cfg=None):
     """tests/test_system.py's learnable stream: random first tokens, then
-    ``next = (3 tok + 7) mod V``; inputs and next-token labels."""
+    ``next = (3 tok + 7) mod V``; inputs and next-token labels. For a
+    ``cfg`` with codebooks, codebook k carries the chain shifted by 17 k
+    (one law seen through K tables: K independent chains summed into one
+    embedding miss the gate in 30 steps, 6.75 -> 6.24 at smoke width on
+    the CPU); with prefix tokens, ``prefix_embeds`` [batch, n_prefix, D]
+    drawn from ``gen`` in the model dtype."""
     import torch
 
     seq = [torch.randint(0, V, (batch, 1), generator=gen)]
     for _ in range(seq_len):
         seq.append((seq[-1] * 3 + 7) % V)
-    toks = torch.cat(seq, dim=1).to(dev)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    toks = torch.cat(seq, dim=1)
+    if cfg is not None and cfg.n_codebooks:
+        toks = torch.stack([(toks + 17 * k) % V for k in range(cfg.n_codebooks)], dim=1)
+    toks = toks.to(dev)
+    out = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg is not None and cfg.n_prefix_tokens:
+        out["prefix_embeds"] = torch.randn((batch, cfg.n_prefix_tokens, cfg.d_model),
+                                           generator=gen).to(dev, getattr(torch, cfg.dtype))
+    return out
 
 
 def smoke_train(dev, n_workers, agg, steps, mesh=None, arch="tinyllama-1.1b"):
@@ -1602,7 +1656,7 @@ def smoke_train(dev, n_workers, agg, steps, mesh=None, arch="tinyllama-1.1b"):
     gen = torch.Generator().manual_seed(1)
     losses, counts = [], []
     for _ in range(steps):
-        batch = bigram_batch(gen, cfg.vocab_size, 8, 64, dev)
+        batch = bigram_batch(gen, cfg.vocab_size, 8, 64, dev, cfg)
         mix = state["aggregator"].mixing_matrix(n_workers, gen, device=dev)
         torch.cuda.synchronize()
         reset_launches()
@@ -1626,15 +1680,37 @@ def train_rank(rank, group, device):
     return out
 
 
-def train_full_width(dev, smi, cfg, note: str = ""):
+def model_width(cfg) -> str:
+    """The widths a log line names: attention heads, the feed-forward or
+    the experts, the SSM's inner width, heads and state, the dtype."""
+    parts = [f"d_model {cfg.d_model}"]
+    mixers = {m for m, _ in cfg.pattern_}
+    if "attn" in mixers:
+        parts.append(f"{cfg.n_heads}/{cfg.n_kv_heads} heads")
+    if "ssm" in mixers:
+        parts.append(f"SSM d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, "
+                     f"N {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    if cfg.n_experts:
+        parts.append(f"{cfg.n_experts} experts, top-{cfg.experts_per_token}, d_ff_expert "
+                     f"{cfg.d_ff_expert}")
+    if any(ff == "mlp" for _, ff in cfg.pattern_):
+        parts.append(f"d_ff {cfg.d_ff}")
+    parts.append(f"vocab {cfg.vocab_size}" + (f" x {cfg.n_codebooks} codebooks"
+                                              if cfg.n_codebooks else ""))
+    return ", ".join(parts + [cfg.dtype])
+
+
+def train_full_width(dev, smi, cfg, note: str = "", n_expected=None):
     """Phase 11(a) / 12(b): ``make_train_step`` on ``cfg`` at its full width,
     W = TRAIN_W heterogeneous workers with one TRAIN_S-token sequence each,
     the steps of ``TRAIN_RUNS`` with exact launches, each step's loss,
     device ms by phase and peak memory, the first step of each rule held
     against the plain route, then the RFA steps again under the profiler.
-    ``note`` (a depth cut) goes into the log lines. Returns the launch
-    totals and the run's state: ``params``, ``worker_m``, ``batch``,
-    ``steppers`` and the generator ``gen`` of the mixing matrices."""
+    ``note`` (a depth cut) goes into the log lines; ``n_expected`` is the
+    tree's parameter count (default ``cfg.param_count()``). Returns the
+    launch totals and the run's state: ``params``, ``worker_m``,
+    ``batch``, ``steppers`` and the generator ``gen`` of the mixing
+    matrices."""
     import numpy as np
     import torch
 
@@ -1660,13 +1736,11 @@ def train_full_width(dev, smi, cfg, note: str = ""):
     n_params = sum(t.numel() for t in tree_flatten(params)[0])
     opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
     torch.cuda.synchronize()
-    if n_params != cfg.param_count():
-        raise AssertionError(f"train {cfg.name}: {n_params:,} parameters, the config counts "
-                             f"{cfg.param_count():,}")
-    width = (f"{cfg.n_experts} experts, top-{cfg.experts_per_token}, d_ff_expert "
-             f"{cfg.d_ff_expert}" if cfg.n_experts else f"d_ff {cfg.d_ff}")
-    log(f"train: {cfg.name} ({cfg.n_layers} layers{note}, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {width}, {cfg.dtype}): {n_params:,} parameters; "
+    if n_params != (n_expected or cfg.param_count()):
+        raise AssertionError(f"train {cfg.name}: {n_params:,} parameters, expected "
+                             f"{n_expected or cfg.param_count():,}")
+    log(f"train: {cfg.name} ({cfg.n_layers} layers{note}, {model_width(cfg)}): "
+        f"{n_params:,} parameters; "
         f"W {TRAIN_W} workers x 1 sequence of {TRAIN_S} tokens (make_token_stream, one law "
         f"each), sgdm lr {TRAIN_LR}, worker momentum 0.9; state on the card "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -1759,45 +1833,35 @@ def train_full_width(dev, smi, cfg, note: str = ""):
                        gen=gen)
 
 
-def train_phase(dev, smi):
-    """Phase 11: LLM training. (a) TinyLlama-1.1B at full width on the
-    card; (b) the reference test's run at smoke width; (c) the
-    worker-sharded step over 4 ranks. Returns the launch counts by path and
-    the kernels' rows at the training shape."""
-    import numpy as np
+def train_kernel_rows(run, dev, label: str, timing=(2, 1)):
+    """``pairwise_gram``, ``bucket_mix`` (mix [2, W] and combine [1, W]) and
+    ``cwise_median`` (X[2, n_pad]) held and timed on the packed momenta of
+    ``train_full_width``'s ``run``, as in phase 2; the momenta are freed.
+    Returns the rows by kernel."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed.packing import packer_for
-    from repro_torch.kernels import LAUNCHES, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.bucket_mix import bucket_mix
     from repro_torch.kernels.cwise_median import cwise_median
     from repro_torch.kernels.pairwise_gram import pairwise_gram
-    from repro_torch.launch.mesh import spawn_ranks
-    from repro_torch.utils.tree import tree_flatten
 
-    # (a) full width: W = 4 heterogeneous workers, one sequence each
-    total, run = train_full_width(dev, smi, get_config("tinyllama-1.1b"))
-    worker_m, steppers, gen = run["worker_m"], run["steppers"], run["gen"]
-    del run
-
-    # the kernels at the training shape: X[W, n_pad], the packed momenta
+    worker_m = run.pop("worker_m")
     x = packer_for(worker_m).pack(worker_m)
     del worker_m
     torch.cuda.empty_cache()
     W_, d = x.shape
     kernel_rows = {"bucket_mix": [], "pairwise_gram": [], "cwise_median": []}
     record = functools.partial(measure, kernel_rows)
-    mix = steppers["cm"][1]["aggregator"].mixing_matrix(TRAIN_W, gen, device=dev)
+    mix = run["steppers"]["cm"][1]["aggregator"].mixing_matrix(TRAIN_W, run["gen"], device=dev)
     weights = torch.full((1, W_), 1.0 / W_, device=dev)
-    timing = (2, 1)  # the plain Gram loops over ~537,000 tiles a call
     for what, M in (("mix", mix), ("combine", weights)):
         m = M.shape[0]
-        record("bucket_mix", f"train {what} M[{m},{W_}] X[{W_},{d}]",
+        record("bucket_mix", f"{label} {what} M[{m},{W_}] X[{W_},{d}]",
                lambda M=M: bucket_mix(M, x), lambda M=M: ref.bucket_mix(M, x),
                lambda M=M: torch.matmul(M, x), (W_ * d + m * W_ + m * d) * 4,
                2 * m * W_ * d, timing, close(1e-5, 1e-4))
-    record("pairwise_gram", f"train X[{W_},{d}]", lambda: pairwise_gram(x),
+    record("pairwise_gram", f"{label} X[{W_},{d}]", lambda: pairwise_gram(x),
            lambda: ref.pairwise_gram(x), lambda: torch.matmul(x, x.T),
            (W_ * d + W_ * W_) * 4, W_ * (W_ + 1) * d, timing,
            lambda got, want: torch.testing.assert_close(
@@ -1805,28 +1869,35 @@ def train_phase(dev, smi):
     mixed = bucket_mix(mix, x)
     del x
     torch.cuda.empty_cache()
-    record("cwise_median", f"train X[{TRAIN_M},{d}]", lambda: cwise_median(mixed),
+    record("cwise_median", f"{label} X[{TRAIN_M},{d}]", lambda: cwise_median(mixed),
            lambda: ref.cwise_median(mixed), lambda: torch.median(mixed, dim=0).values,
            3 * d * 4, selection_ops(TRAIN_M, d), timing, close(0, 0))
     del mixed
     torch.cuda.empty_cache()
+    return kernel_rows
+
+
+def train_phase(dev, smi):
+    """Phase 11: LLM training. (a) TinyLlama-1.1B at full width on the
+    card; (b) the reference test's run at smoke width; (c) the
+    worker-sharded step over 4 ranks. Returns the launch counts by path and
+    the kernels' rows at the training shape."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.utils.tree import tree_flatten
+
+    # (a) full width: W = 4 heterogeneous workers, one sequence each
+    total, run = train_full_width(dev, smi, get_config("tinyllama-1.1b"))
+    kernel_rows = train_kernel_rows(run, dev, "train")
+    del run
 
     # (b) smoke width, tests/test_system.py's gate, W = 1 and 4
     launches = {"train": total}
-    smoke = {}
     for n in (1, TRAIN_W):
-        t0 = time.perf_counter()
-        params_b, losses, counts = smoke_train(dev, n, "rfa", SMOKE_STEPS)
-        sec = time.perf_counter() - t0
-        launches[f"train.smoke W{n}"] = {k: sum(c[k] for c in counts) for k in counts[0]}
-        if any(c != {k: TRAIN_ROUTE["rfa"].get(k, 0) for k in c} for c in counts):
-            raise AssertionError(f"train smoke W{n}: launches {counts}")
-        if not all(np.isfinite(losses)) or not losses[-1] < 0.8 * losses[0]:
-            raise AssertionError(f"train smoke W{n}: losses {losses[::10]} miss the gate")
-        smoke[n] = params_b
-        log(f"train smoke W{n} (smoke_config, rfa + bucketing, lr {SMOKE_LR}, "
-            f"{SMOKE_STEPS} steps): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-            f"(gate < 0.8 x first); {SMOKE_STEPS / sec:.1f} steps/s")
+        smoke_gate(dev, "tinyllama-1.1b", launches, f"train W{n}", n_workers=n, aggs=())
 
     # (c) the worker-sharded step over 4 ranks on cuda:0, against one device
     t0 = time.perf_counter()
@@ -1858,16 +1929,22 @@ def train_phase(dev, smi):
     return launches, kernel_rows
 
 
-def decode_bytes(params, cache, batch: int, vocab: int) -> int:
-    """Bytes one decode step must move: every parameter but the embedding
-    table read once (a MoE layer's products read every expert's weights),
-    ``batch`` embedding rows, the cache read once and the logits written."""
+def nbytes(tree) -> int:
     from repro_torch.utils.tree import tree_flatten
 
-    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])  # noqa: E731
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])
+
+
+def decode_bytes(params, cache, batch: int, vocab: int, tied: bool = False,
+                 written: int = 0) -> int:
+    """Bytes one decode step must move: every parameter but the embedding
+    table read once (a MoE layer's products read every expert's weights),
+    ``batch`` embedding rows (the whole table when it is ``tied`` to the
+    head), the cache read once, ``written`` bytes of it written (an SSM
+    state is replaced each step) and the logits written."""
     embed = params["embed"]
-    return (nbytes(params) - nbytes(embed) + batch * embed.shape[1] * embed.element_size()
-            + nbytes(cache) + batch * vocab * 4)
+    rows = 0 if tied else nbytes(embed) - batch * embed.shape[1] * embed.element_size()
+    return nbytes(params) - rows + nbytes(cache) + written + batch * vocab * 4
 
 
 def moe_routing(params, cfg, batch):
@@ -1914,104 +1991,20 @@ def moe_phase(dev, smi):
 
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.configs.base import ByzConfig
-    from repro_torch.distributed.steps import make_prefill_step, make_train_step
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.moe import expert_capacity
-    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.distributed.steps import make_train_step
     from repro_torch.utils.tree import tree_flatten
 
     launches = {}
     counted = functools.partial(run_counted, launches)
 
     # (a) serving at full width and depth
-    torch.cuda.empty_cache()
     cfg = get_config(MOE_ARCH)
-    V, S = cfg.vocab_size, ATTN_S
-    t0 = time.perf_counter()
-    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree_flatten(params)[0])
-    if not n_params == cfg.param_count() == MOE_PARAMS:
-        raise AssertionError(f"{cfg.name}: {n_params:,} parameters on the card, the config "
-                             f"counts {cfg.param_count():,}, expected {MOE_PARAMS:,}")
-    log(f"moe serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_experts} experts top-{cfg.experts_per_token}, d_ff_expert {cfg.d_ff_expert}, "
-        f"vocab {V}, {cfg.dtype}): {n_params:,} parameters "
-        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
-    tokens = torch.randint(0, V, (2, S), device=dev, generator=torch.Generator(dev).manual_seed(1))
-    prefill = make_prefill_step(cfg, device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    logits = counted("moe.serve.prefill", lambda: prefill(params, {"tokens": tokens}))
-    if tuple(logits.shape) != (2, 1, V) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"moe prefill: logits {tuple(logits.shape)}, finite "
-                             f"{bool(torch.isfinite(logits).all())}")
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    with torch.no_grad():
-        _, aux = tfm.forward_hidden(params, cfg, tokens)
-    C = expert_capacity(2 * S, cfg)
-    log(f"moe serve prefill B2 S{S}: logits [2, 1, {V}] finite; host ms per prefill "
-        f"{', '.join(f'{t:.1f}' for t in times)} (median {statistics.median(times):.1f}); "
-        f"capacity C = {C}, buffer [{cfg.n_experts}, {C}, {cfg.d_model}]; drop fraction a "
-        f"layer {float(aux['moe_drop_frac']) / cfg.n_layers:.4f}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    profile_steps(lambda: prefill(params, {"tokens": tokens}), f"moe.serve.prefill B2 S{S}",
-                  statistics.median(times) * 1e3, 1, "prefill")
-    del logits, aux
-
-    rng = torch.Generator().manual_seed(3)
-    lens = torch.randint(16, 97, (6,), generator=rng).tolist()
-    prompts = [torch.randint(0, V, (n,), generator=rng).tolist() for n in lens]
-    eng = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
-    for uid, prompt in enumerate(prompts):
-        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=16))
-    t0 = time.perf_counter()
-    done = counted("moe.serve.engine", eng.run_until_drained)
-    wall = time.perf_counter() - t0
-    if sorted(done) != list(range(6)) or any(len(r.output) != 16 for r in done.values()):
-        raise AssertionError(f"moe engine: finished {sorted(done)}, outputs "
-                             f"{[len(r.output or []) for r in done.values()]}")
-    log(f"moe serve engine: 6 requests (prompts {lens}) x 16 new tokens in {eng.steps_total} "
-        f"steps, {wall:.2f} s; decode ms per step mean "
-        f"{eng.stats()['serve_decode_step_s'] * 1e3:.2f}, median "
-        f"{eng.step_timer.summary()['p50_s'] * 1e3:.2f}; {eng.tokens_total / wall:.1f} tokens/s")
-    seq = greedy_decode(cfg, params, prompts[0], 16, eng.B, dev)
-    if done[0].output != seq:
-        raise AssertionError(f"moe engine request 0 {done[0].output} != sequential greedy {seq}")
-    one_row = greedy_decode(cfg, params, prompts[0], 16, 1, dev)
-    log(f"check moe engine request 0 == sequential greedy decode over decode_step (16 tokens; "
-        f"C = {expert_capacity(eng.B, cfg)} >= {eng.B} decode tokens, none dropped); the "
-        f"one-row loop agrees on {sum(a == b for a, b in zip(one_row, seq))} of 16")
-    busy = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
-    for uid in range(4):
-        busy.submit(Request(uid=uid, prompt=prompts[uid][:8], max_new_tokens=200))
-    for _ in range(5):
-        busy.step()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        busy.step()
-    step_us = (time.perf_counter() - t0) / 20 * 1e6
-    n_bytes = decode_bytes(params, busy.cache, busy.B, V)
-    log(f"moe serve decode, 4 slots busy: {step_us / 1e3:.2f} ms per step, "
-        f"{4e6 / step_us:.1f} tokens/s; every expert's weights read each step: "
-        f"{n_bytes / 1e9:.2f} GB, bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms "
-        f"(bytes at 3.35 TB/s) on {smi}")
-    profile_steps(busy.step, "moe.serve.decode 4 slots", step_us, 20)
-    log(f"moe serve: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-        f"since the prefill; launches of our kernels: prefill "
-        f"{sum(launches['moe.serve.prefill'].values())}, engine "
-        f"{sum(launches['moe.serve.engine'].values())} (none, as in the reference)")
-    del busy, eng, params
+    if cfg.param_count() != MOE_PARAMS:
+        raise AssertionError(f"{cfg.name}: the config counts {cfg.param_count():,}")
+    params = init_full(cfg, dev, MOE_PARAMS, "moe serve")
+    serve_full(cfg, params, dev, smi, launches, "moe.serve")
+    del params
     torch.cuda.empty_cache()
-    for label in ("moe.serve.prefill", "moe.serve.engine"):
-        if any(launches[label].values()):
-            raise AssertionError(f"{label} launched {launches[label]}; the serving path "
-                                 "calls no kernel")
 
     # (b) training at full width, the depth cut
     cfg_t = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
@@ -2031,17 +2024,7 @@ def moe_phase(dev, smi):
         f"{int(per.min())} / max {int(per.max())} of {TRAIN_S * cfg.experts_per_token}")
 
     # (c) smoke width: the reference test's gate for OLMoE; one Kimi K2 step
-    t0 = time.perf_counter()
-    _, losses, counts = smoke_train(dev, TRAIN_W, "rfa", SMOKE_STEPS, arch=MOE_ARCH)
-    sec = time.perf_counter() - t0
-    launches["moe.train.smoke"] = {k: sum(c[k] for c in counts) for k in counts[0]}
-    if any(c != {k: TRAIN_ROUTE["rfa"].get(k, 0) for k in c} for c in counts):
-        raise AssertionError(f"moe train smoke: launches {counts}")
-    if not all(np.isfinite(losses)) or not losses[-1] < 0.8 * losses[0]:
-        raise AssertionError(f"moe train smoke: losses {losses[::10]} miss the gate")
-    log(f"moe train smoke W{TRAIN_W} ({MOE_ARCH} smoke_config, rfa + bucketing, lr "
-        f"{SMOKE_LR}, {SMOKE_STEPS} steps): loss {losses[0]:.4f} -> {losses[-1]:.4f} (gate < "
-        f"0.8 x first); {SMOKE_STEPS / sec:.1f} steps/s")
+    smoke_gate(dev, MOE_ARCH, launches, "moe.train", aggs=())
     kcfg = smoke_config("kimi-k2-1t-a32b")
     if not (kcfg.fsdp and kcfg.momentum_mode == "server" and kcfg.opt_m_dtype == "bfloat16"):
         raise AssertionError(f"kimi smoke config: {kcfg}")
@@ -2065,6 +2048,311 @@ def moe_phase(dev, smi):
         log(f"moe kimi smoke step {agg} ({kcfg.name} smoke_config: fsdp on one rank, server "
             f"momentum, bf16 optimizer momentum): loss {float(metrics['loss']):.4f}; launches "
             f"{json.dumps({k: v for k, v in got.items() if v})}")
+    return launches
+
+
+def init_full(cfg, dev, n_expected: int, label: str, note: str = ""):
+    """``cfg``'s random parameters on the card from a seed; the tree's count
+    must be ``n_expected``."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_flatten
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    if n_params != n_expected:
+        raise AssertionError(f"{cfg.name}: {n_params:,} parameters on the card, expected "
+                             f"{n_expected:,}")
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layers{note}, {model_width(cfg)}): "
+        f"{n_params:,} parameters ({nbytes(params) / 1e9:.2f} GB) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def timed_prefill(cfg, params, batch, label, launches, shape, dev):
+    """``make_prefill_step`` on ``batch``: counted once (its logits must
+    have ``shape`` and be finite), then timed three times. Returns the host
+    ms."""
+    import torch
+
+    from repro_torch.distributed.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    logits = run_counted(launches, label, lambda: prefill(params, batch))
+    if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)} (expected {shape}), "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    del logits
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"{label}: logits {list(shape)} finite; host ms per prefill "
+        f"{', '.join(f'{t:.1f}' for t in times)} (median {statistics.median(times):.1f}); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return prefill, times
+
+
+def serve_full(cfg, params, dev, smi, launches, label: str, reuse: bool = False):
+    """Phase 13's serving at full width: the prefill (B = 2 x ATTN_S) timed
+    and profiled, a MoE model's drop fraction; phase 8's 6-request
+    ``ServeEngine`` run, request 0 (and with ``reuse`` request 4, served
+    after another in the same slot) equal to the greedy loop at the
+    engine's width; 20 decode steps with 4 slots busy timed and profiled
+    beside their bound; no kernel of ours launched (counted)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.serving import Request, ServeEngine
+
+    V, S = cfg.vocab_size, ATTN_S
+    tokens = torch.randint(0, V, (2, S), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    batch = {"tokens": tokens}
+    prefill, times = timed_prefill(cfg, params, batch, f"{label}.prefill", launches, (2, 1, V),
+                                   dev)
+    n_moe = sum(ff == "moe" for _, ff in cfg.pattern_) * cfg.n_periods
+    if n_moe:
+        with torch.no_grad():
+            _, aux = tfm.forward_hidden(params, cfg, tokens)
+        C = expert_capacity(2 * S, cfg)
+        log(f"{label}.prefill B2 S{S}: capacity C = {C}, buffer [{cfg.n_experts}, {C}, "
+            f"{cfg.d_model}]; drop fraction a MoE layer "
+            f"{float(aux['moe_drop_frac']) / n_moe:.4f} ({n_moe} MoE layers)")
+        del aux
+    profile_steps(lambda: prefill(params, batch), f"{label}.prefill B2 S{S} ({smi})",
+                  statistics.median(times) * 1e3, 1, "prefill")
+
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.randint(16, 97, (6,), generator=rng).tolist()
+    prompts = [torch.randint(0, V, (n,), generator=rng).tolist() for n in lens]
+    eng = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=16))
+    t0 = time.perf_counter()
+    done = run_counted(launches, f"{label}.engine", eng.run_until_drained)
+    wall = time.perf_counter() - t0
+    if sorted(done) != list(range(6)) or any(len(r.output) != 16 for r in done.values()):
+        raise AssertionError(f"{label} engine: finished {sorted(done)}, outputs "
+                             f"{[len(r.output or []) for r in done.values()]}")
+    log(f"{label} engine: 6 requests (prompts {lens}) x 16 new tokens in {eng.steps_total} "
+        f"steps, {wall:.2f} s; decode ms per step mean "
+        f"{eng.stats()['serve_decode_step_s'] * 1e3:.2f}, median "
+        f"{eng.step_timer.summary()['p50_s'] * 1e3:.2f}; {eng.tokens_total / wall:.1f} tokens/s")
+    # requests 0-3 take the four slots; 4 and 5 each reuse a slot freed by one.
+    # bf16 GEMMs of another batch size may sum in another order, and greedy
+    # argmax follows any last-bit change of near-tied logits: the loop runs
+    # the request in a batch of the engine's width (phase 8)
+    for uid in (0, 4) if reuse else (0,):
+        seq = greedy_decode(cfg, params, prompts[uid], 16, eng.B, dev)
+        if done[uid].output != seq:
+            raise AssertionError(f"{label} engine request {uid} {done[uid].output} != "
+                                 f"sequential greedy {seq}")
+        log(f"check {label} engine request {uid}"
+            + (" (served after another request in its slot)" if uid else "")
+            + " == sequential greedy decode over decode_step (16 tokens)"
+            + (f"; C = {expert_capacity(eng.B, cfg)} >= {eng.B} decode tokens, none dropped"
+               if n_moe else ""))
+    one_row = greedy_decode(cfg, params, prompts[0], 16, 1, dev)
+    log(f"{label}: the one-row loop agrees with request 0 on "
+        f"{sum(a == b for a, b in zip(one_row, done[0].output))} of 16 tokens")
+
+    busy = ServeEngine(cfg, params, batch_slots=4, max_len=256, device=dev)
+    for uid in range(4):
+        busy.submit(Request(uid=uid, prompt=prompts[uid][:8], max_new_tokens=200))
+    for _ in range(5):
+        busy.step()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        busy.step()
+    step_us = (time.perf_counter() - t0) / DECODE_STEPS * 1e6
+    state = sum(nbytes(busy.cache[str(i)]) for i, (m, _) in enumerate(cfg.pattern_)
+                if m == "ssm")
+    n_bytes = decode_bytes(params, busy.cache, busy.B, V, tied=cfg.tie_embeddings,
+                           written=state)
+    log(f"{label} decode, 4 slots busy: {step_us / 1e3:.3f} ms per step, "
+        f"{4e6 / step_us:.1f} tokens/s; a step reads the parameters"
+        + (" (every expert's)" if n_moe else "") + " and the cache"
+        + (f" and writes the SSM state ({state / 1e6:.1f} MB each way)" if state else "")
+        + f": {n_bytes / 1e9:.3f} GB, bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes "
+        f"at 3.35 TB/s) on {smi}")
+    profile_steps(busy.step, f"{label}.decode 4 slots ({smi})", step_us, DECODE_STEPS)
+    log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB since "
+        f"the prefill")
+    del busy, eng
+    torch.cuda.empty_cache()
+    for what in ("prefill", "engine"):
+        if any(launches[f"{label}.{what}"].values()):
+            raise AssertionError(f"{label}.{what} launched {launches[f'{label}.{what}']}; the "
+                                 "serving path calls no kernel")
+
+
+def smoke_gate(dev, arch, launches, label: str, n_workers: int = TRAIN_W,
+               aggs=("rfa", "cm"), gate: bool = True):
+    """Phase 11(b)'s gate for ``arch`` at smoke width over ``n_workers``
+    (tests/test_system.py's: 30 steps of RFA + bucketing, the last loss
+    below 0.8 x the first, every step's launches exactly RFA's route), then
+    one step of each of ``aggs`` with exact launches."""
+    import numpy as np
+
+    if gate:
+        t0 = time.perf_counter()
+        _, losses, counts = smoke_train(dev, n_workers, "rfa", SMOKE_STEPS, arch=arch)
+        sec = time.perf_counter() - t0
+        launches[f"{label}.smoke"] = {k: sum(c[k] for c in counts) for k in counts[0]}
+        if any(c != {k: TRAIN_ROUTE["rfa"].get(k, 0) for k in c} for c in counts):
+            raise AssertionError(f"{label} smoke: launches {counts}")
+        if not all(np.isfinite(losses)) or not losses[-1] < 0.8 * losses[0]:
+            raise AssertionError(f"{label} smoke: losses {losses[::10]} miss the gate")
+        log(f"{label} smoke W{n_workers} ({arch} smoke_config, rfa + bucketing, lr {SMOKE_LR}, "
+            f"{SMOKE_STEPS} steps): loss {losses[0]:.4f} -> {losses[-1]:.4f} (gate < 0.8 x "
+            f"first); {SMOKE_STEPS / sec:.1f} steps/s")
+    for agg in aggs:
+        _, losses, counts = smoke_train(dev, n_workers, agg, 1, arch=arch)
+        want = {k: TRAIN_ROUTE[agg].get(k, 0) for k in counts[0]}
+        if counts[0] != want or not np.isfinite(losses[0]):
+            raise AssertionError(f"{label} {agg} step: launches {counts[0]}, expected {want}; "
+                                 f"loss {losses[0]}")
+        launches[f"{label}.{agg}"] = counts[0]
+        log(f"{label} smoke step {agg} ({arch}): loss {losses[0]:.4f}; launches "
+            f"{json.dumps({k: v for k, v in counts[0].items() if v})}")
+
+
+def ssm_phase(dev, smi):
+    """Phase 13: the SSM and the hybrid. (a) Mamba2-130m served at its
+    published width and depth; (b) trained there through phase 11(a)'s
+    ``train_full_width``, every gradient finite, and the three kernels held
+    and timed on its packed momenta; (c) Jamba v0.1 served at its width over
+    one 8-layer period; (d) the smoke gate and one RFA and one CM step of
+    each. Returns the launch counts by path and the kernels' rows."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.utils.tree import tree_flatten
+
+    launches = {}
+    t_phase = time.perf_counter()
+    # (a) Mamba2-130m served at full width and depth
+    cfg = get_config(SSM_ARCH)
+    params = init_full(cfg, dev, SSM_PARAMS, "ssm serve")
+    log(f"ssm serve: the tree holds {SSM_PARAMS:,} parameters; the reference's param_count "
+        f"formula, copied as it is, counts {cfg.param_count():,} (a norm2 the layers lack, "
+        "without dt_bias and conv_b)")
+    if cfg.param_count() != SSM_FORMULA:
+        raise AssertionError(f"{cfg.name}: param_count {cfg.param_count():,}")
+    serve_full(cfg, params, dev, smi, launches, "ssm.serve", reuse=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) trained at full width and depth: every gradient folds into a
+    # worker's momentum, so finite momenta mean finite gradients
+    launches["ssm.train"], run = train_full_width(dev, smi, cfg, n_expected=SSM_PARAMS)
+    for name, tree in (("parameters", run["params"]), ("worker momenta", run["worker_m"])):
+        bad = [i for i, t in enumerate(tree_flatten(tree)[0]) if not bool(torch.isfinite(t).all())]
+        if bad:
+            raise AssertionError(f"ssm train: {name} not finite in leaves {bad}")
+    log(f"check ssm train: every parameter and worker-momentum leaf finite after the steps "
+        f"({len(tree_flatten(run['params'])[0])} leaves, A_log / D / dt_bias fp32)")
+    rows = train_kernel_rows(run, dev, "ssm train")
+    del run
+    torch.cuda.empty_cache()
+
+    # (c) Jamba v0.1 at its width, one period
+    hcfg = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_LAYERS)
+    if hcfg.param_count() != HYBRID_FORMULA:
+        raise AssertionError(f"{hcfg.name} at {HYBRID_LAYERS} layers: param_count "
+                             f"{hcfg.param_count():,}")
+    params = init_full(hcfg, dev, HYBRID_PARAMS, "hybrid serve",
+                       note=f" of {get_config(HYBRID_ARCH).n_layers}: one period")
+    serve_full(hcfg, params, dev, smi, launches, "hybrid.serve")
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) smoke width
+    for arch, label in ((SSM_ARCH, "ssm"), (HYBRID_ARCH, "hybrid")):
+        smoke_gate(dev, arch, launches, label)
+    log(f"ssm phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, rows
+
+
+def prefix_codebook_phase(dev, smi):
+    """Phase 14: prefix embeddings and codebooks. (a) InternVL2-2B's prefill
+    at its published width and depth with 256 prefix embeddings; (b)
+    MusicGen-medium's prefill over 4 codebooks with 64 prefix embeddings,
+    20 greedy ``decode_step`` calls on [B, 4] tokens, the engine's refusal;
+    (c) the smoke gates and steps with exact launches. Returns the launch
+    counts by path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ServeEngine
+
+    launches = {}
+    t_phase = time.perf_counter()
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        cfg = get_config(arch)
+        params = init_full(cfg, dev, cfg.param_count(), "prefix serve")
+        K, P, V = cfg.n_codebooks, cfg.n_prefix_tokens, cfg.vocab_size
+        gen = torch.Generator(dev).manual_seed(1)
+        lead = (2, K) if K else (2,)
+        tokens = torch.randint(0, V, lead + (ATTN_S - P,), device=dev, generator=gen)
+        # stub modality embeddings at the embedding table's scale
+        prefix = (torch.randn((2, P, cfg.d_model), device=dev, generator=gen) * 0.02).to(
+            getattr(torch, cfg.dtype))
+        shape = (2, 1, K, V) if K else (2, 1, V)
+        label = "vlm.prefill" if not K else "audio.prefill"
+        timed_prefill(cfg, params, {"tokens": tokens, "prefix_embeds": prefix}, label, launches,
+                      shape, dev)
+        log(f"{label}: B2 x {P} prefix embeddings + {ATTN_S - P} tokens"
+            + (f" in each of {K} codebooks" if K else "") + f" ({ATTN_S} positions) on {smi}")
+        if K:
+            cache = tfm.init_cache(cfg, 2, 256, device=dev)
+            tok = torch.randint(0, V, (2, K), device=dev, generator=gen)
+
+            def decode():
+                nonlocal cache, tok
+                times = []
+                for t in range(DECODE_STEPS):
+                    t0 = time.perf_counter()
+                    logits, cache = tfm.decode_step(params, cfg, cache, tok, t)
+                    tok = torch.argmax(logits, dim=-1)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                if tuple(logits.shape) != (2, K, V) or not bool(torch.isfinite(logits).all()):
+                    raise AssertionError(f"audio decode: logits {tuple(logits.shape)}")
+                return times
+
+            times = run_counted(launches, "audio.decode", decode)
+            log(f"audio decode: {DECODE_STEPS} greedy decode_step calls on [2, {K}] tokens, "
+                f"logits [2, {K}, {V}] finite; host ms a step median "
+                f"{statistics.median(times[1:]):.2f} (first {times[0]:.2f}) on {smi}")
+            try:
+                ServeEngine(cfg, params, device=dev)
+            except NotImplementedError as e:
+                log(f"check audio: the engine refuses codebooks, as the reference's ({e})")
+            else:
+                raise AssertionError("the engine accepted a codebook model")
+        del params
+        torch.cuda.empty_cache()
+    for label in ("vlm.prefill", "audio.prefill", "audio.decode"):
+        if any(launches[label].values()):
+            raise AssertionError(f"{label} launched {launches[label]}; it calls no kernel")
+
+    # (c) smoke width
+    smoke_gate(dev, VLM_ARCH, launches, "vlm")
+    smoke_gate(dev, AUDIO_ARCH, launches, "audio")
+    smoke_gate(dev, DENSE_ARCH, launches, "qwen1.5", aggs=("rfa",), gate=False)
+    log(f"prefix / codebook phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2150,8 +2438,12 @@ def main() -> int:
     train, train_rows = train_phase(dev, smi)
     launches.update(train)
     launches.update(moe_phase(dev, smi))
-    for name, rows in train_rows.items():
-        results[name].extend(rows)
+    ssm_launches, ssm_rows = ssm_phase(dev, smi)
+    launches.update(ssm_launches)
+    launches.update(prefix_codebook_phase(dev, smi))
+    for rows_by_kernel in (train_rows, ssm_rows):
+        for name, rows in rows_by_kernel.items():
+            results[name].extend(rows)
 
     src = {"bucket_mix": "bucket_mix.cu", "pairwise_gram": "pairwise_gram.cu",
            "cwise_median": "selection.cu", "cwise_trimmed_mean": "selection.cu",
@@ -2205,7 +2497,7 @@ def main() -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
             **other.get(name, {})))
-    log(f"chip_smoke: phases 1-12 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-14 passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,11 @@
 """Architecture registry (port of ``repro/configs/__init__.py``).
 
-``get_config(name)`` returns the full (paper-scale) ``ModelConfig`` of a
-ported architecture; ``smoke_config(name)`` the reduced same-family variant
-the CPU tests use. The port carries the dense configs (TinyLlama,
-Qwen2.5-14B, Gemma-7B), the MoE configs (OLMoE-1B-7B, Kimi K2) and the
-paper's own MNIST MLP; the SSM, hybrid, VLM and audio families of the
-reference are queued in ``ROADMAP.md`` (Queue 1).
+``get_config(name)`` returns the full (paper-scale) ``ModelConfig`` of an
+architecture; ``smoke_config(name)`` the reduced same-family variant the
+CPU tests use. The port carries every config of the reference: dense
+(TinyLlama, Qwen1.5-32B, Qwen2.5-14B, Gemma-7B), MoE (OLMoE-1B-7B, Kimi
+K2), SSM (Mamba2-130m), hybrid (Jamba v0.1), VLM (InternVL2-2B), audio
+(MusicGen-medium) and the paper's own MNIST MLP.
 """
 
 from __future__ import annotations
@@ -13,21 +13,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import (gemma_7b, kimi_k2_1t_a32b, olmoe_1b_7b, paper_mnist,
-                                 qwen2_5_14b, tinyllama_1_1b)
+from repro_torch.configs import (gemma_7b, internvl2_2b, jamba_v0_1_52b, kimi_k2_1t_a32b,
+                                 mamba2_130m, musicgen_medium, olmoe_1b_7b, paper_mnist,
+                                 qwen1_5_32b, qwen2_5_14b, tinyllama_1_1b)
 from repro_torch.configs.base import (INPUT_SHAPES, ByzConfig, InputShape, MeshConfig,
                                       ModelConfig, TrainConfig)
 
 _CONFIGS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, olmoe_1b_7b, kimi_k2_1t_a32b,
-                                      qwen2_5_14b, gemma_7b, paper_mnist)
+    m.CONFIG.name: m.CONFIG for m in (musicgen_medium, tinyllama_1_1b, mamba2_130m,
+                                      internvl2_2b, olmoe_1b_7b, kimi_k2_1t_a32b,
+                                      jamba_v0_1_52b, qwen1_5_32b, qwen2_5_14b, gemma_7b,
+                                      paper_mnist)
 }
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in _CONFIGS:
-        raise KeyError(f"arch {name!r} is not ported (ported: {sorted(_CONFIGS)}); "
-                       "the other families are queued in ROADMAP.md, Queue 1")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_CONFIGS)}")
     return _CONFIGS[name]
 
 

@@ -116,10 +116,21 @@ class ModelConfig:
                              f"pattern period {self.period}")
         return self.n_layers // self.period
 
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the
-        reference's formula for the ported families (an SSM layer raises
-        ``KeyError``)."""
+        reference's formula as it stands. For an SSM layer it counts a
+        ``norm2`` that an ``("ssm", "none")`` layer lacks and leaves out
+        ``dt_bias`` and ``conv_b``, so it differs from the tree's own count
+        there (``ROADMAP.md``, Queue 3)."""
         D, F, V = self.d_model, self.d_ff, self.vocab_size
         H, KV, dh = self.n_heads, self.n_kv_heads, self.head_dim_
         total = V * D  # embeddings
@@ -137,6 +148,17 @@ class ModelConfig:
                 D * self.n_experts
                 + self.n_experts * n_mlp_mats * D * Fe
                 + self.n_shared_experts * n_mlp_mats * D * Fe
+            )
+        if self.family in ("ssm", "hybrid"):
+            Din, N, Hs = self.d_inner, self.ssm_state, self.ssm_heads
+            G = 1
+            conv_ch = Din + 2 * G * N
+            per_kind["ssm"] = (
+                D * (2 * Din + 2 * G * N + Hs)  # in_proj (z,x,B,C,dt)
+                + conv_ch * self.conv_kernel
+                + Hs * 2  # A_log, D skip
+                + Din     # gated norm
+                + Din * D  # out_proj
             )
         per_kind["none"] = 0
         for mixer, ff in self.pattern_:

@@ -214,15 +214,19 @@ def make_prefill_step(cfg, mesh=None, last_only: bool = True, device=None) -> Ca
     """Serving prefill: ``prefill(params, batch) -> fp32 logits``.
     ``last_only`` (default) unembeds ONLY the final position, the next-token
     logits a server needs ([B, 1, V]); the full-sequence [B, S, V] fp32
-    logits would dominate peak memory. ``batch["tokens"]`` ([B, S] ints) is
-    moved to ``device``, where the parameters must lie."""
+    logits would dominate peak memory. ``batch["tokens"]`` ([B, S] ints;
+    [B, K, S] for codebooks) and ``batch["prefix_embeds"]`` ([B, n_prefix,
+    D], optional) are moved to ``device``, where the parameters must lie."""
     if mesh is not None:
         raise NotImplementedError("a sharded prefill is queued in ROADMAP.md, Queue 1")
     dev = resolve_device(device)
 
     def prefill(params, batch):
         tokens = torch.as_tensor(batch["tokens"], device=dev)
-        h, _ = tfm.forward_hidden(params, cfg, tokens, prefix_embeds=batch.get("prefix_embeds"))
+        prefix = batch.get("prefix_embeds")
+        if prefix is not None:
+            prefix = torch.as_tensor(prefix, device=dev)
+        h, _ = tfm.forward_hidden(params, cfg, tokens, prefix_embeds=prefix)
         if last_only:
             h = h[:, -1:]
         return tfm.unembed(params, cfg, h)

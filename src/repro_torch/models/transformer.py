@@ -1,20 +1,33 @@
-"""Decoder LM (port of ``repro/models/transformer.py``): the dense and MoE
-families.
+"""Decoder LM (port of ``repro/models/transformer.py``): every family of
+the reference.
 
 A model is a repeating *pattern* of layers (``cfg.pattern_``), each layer a
-(mixer, ff) pair. The port runs the dense pattern ``(("attn", "mlp"),)``
-and the MoE pattern ``(("attn", "moe"),)`` (``models/moe.py``). A MoE layer's aux
-losses are summed over layers from fp32 zeros, and ``loss_fn`` adds
-``router_aux_coef * lb + router_z_coef * z`` to the cross-entropy, as the
-reference does; a dense model's aux is empty. SSM mixers (and so the
-hybrid family), codebooks (audio) and prefix embeddings (VLM) raise
-``NotImplementedError`` (``ROADMAP.md`` Queue 1).
+(mixer, ff) pair with mixer in {attn, ssm} and ff in {mlp, moe, none}:
+
+  dense   pattern [(attn, mlp)]
+  moe     pattern [(attn, moe)]            (``models/moe.py``)
+  ssm     pattern [(ssm, none)]            (``models/ssm.py``)
+  hybrid  Jamba's period of attn / ssm mixers and moe / mlp ffs
+  vlm     a dense LM fed stub patch embeddings as a prefix
+  audio   MusicGen: K codebook embeddings summed, K output heads
+
+A MoE layer's aux losses are summed over layers from fp32 zeros, and
+``loss_fn`` adds ``router_aux_coef * lb + router_z_coef * z`` to the
+cross-entropy, as the reference does; a model without MoE layers has an
+empty aux. An ``ff = "none"`` layer has no ``norm2`` and no feed-forward.
 
 Parameters keep the reference's tree: ``params["blocks"][str(i)]`` holds
 layer ``i`` of the pattern with every leaf stacked on a leading period axis
 ``[n_periods, ...]``, so a parameter tree maps one to one onto the
 reference's. The reference's ``lax.scan`` over periods is a Python loop
-over that axis here; the decode cache keeps the same axis.
+over that axis here; the decode cache keeps the same axis (a KV cache for
+an attention layer, an SSM state for an SSM layer).
+
+Codebooks (``cfg.n_codebooks = K``): tokens are ``[B, K, S]`` (``[B, K]``
+in decode), the embeddings ``[K, V, D]`` are summed over the codebooks, the
+heads ``[K, D, V]`` give logits ``[B, S, K, V]``. Prefix embeddings
+(``[B, n_prefix, D]``) go before the tokens, in the model dtype, with
+positions over the whole length, and are cut off after the final norm.
 
 Entry points:
   init_params(cfg, generator, device)         -> params tree
@@ -34,66 +47,87 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_init, init_mlp_block,
                                        init_rmsnorm, mlp_block, rmsnorm)
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
-
-_PATTERNS = ((("attn", "mlp"),), (("attn", "moe"),))
-
-
-def _check_supported(cfg) -> None:
-    if cfg.pattern_ not in _PATTERNS or cfg.n_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE patterns {_PATTERNS} only; SSM, "
-            "hybrid and audio (codebook) models are queued in ROADMAP.md, Queue 1")
-
-
-def _ff(cfg) -> str:
-    """The feed-forward of the pattern's one layer: "mlp" or "moe"."""
-    return cfg.pattern_[0][1]
 
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _stack(*xs: torch.Tensor) -> torch.Tensor:
+    """The period axis: a view for one period (no copy of a full-width
+    layer), else a stack."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
+
+
 # ================================================================== params
-def _init_layer(generator, cfg, device) -> Dict[str, Any]:
+def _init_layer(generator, mixer: str, ff: str, cfg, device) -> Dict[str, Any]:
     dtype = _dtype(cfg)
-    return {
-        "norm1": init_rmsnorm(cfg.d_model, dtype, device),
-        "mixer": attn_mod.init_attention(generator, cfg, device),
-        "norm2": init_rmsnorm(cfg.d_model, dtype, device),
-        "ff": (moe_mod.init_moe(generator, cfg, device) if _ff(cfg) == "moe" else
-               init_mlp_block(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)),
-    }
+    p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, device)}
+    if mixer == "attn":
+        p["mixer"] = attn_mod.init_attention(generator, cfg, device)
+    elif mixer == "ssm":
+        p["mixer"] = ssm_mod.init_ssm(generator, cfg, device)
+    else:
+        raise ValueError(mixer)
+    if ff != "none":
+        p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
+        if ff == "mlp":
+            p["ff"] = init_mlp_block(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype,
+                                     device)
+        elif ff == "moe":
+            p["ff"] = moe_mod.init_moe(generator, cfg, device)
+        else:
+            raise ValueError(ff)
+    return p
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
     """Random parameters drawn from ``generator`` (see ``layers``), laid out
-    as the reference's tree."""
-    _check_supported(cfg)
+    as the reference's tree. Each pattern index's periods are drawn and
+    stacked before the next index's, so no more than one index's layers
+    exist twice."""
     dev = resolve_device(device)
     dtype = _dtype(cfg)
-    params: Dict[str, Any] = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
-                                                  dtype, dev)}
-    periods = [{"0": _init_layer(generator, cfg, dev)} for _ in range(cfg.n_periods)]
-    params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *periods)
-    del periods
+    K = cfg.n_codebooks
+    params: Dict[str, Any] = {}
+    if K:
+        params["embed"] = torch.stack([embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                                  dtype, dev) for _ in range(K)])  # [K, V, D]
+    else:
+        params["embed"] = embed_init(generator, cfg.vocab_size, cfg.d_model, dtype, dev)
+    params["blocks"] = {}
+    for i, (mixer, ff) in enumerate(cfg.pattern_):
+        layers = [_init_layer(generator, mixer, ff, cfg, dev) for _ in range(cfg.n_periods)]
+        params["blocks"][str(i)] = tree_map(_stack, *layers)
+        del layers
     params["final_norm"] = init_rmsnorm(cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dtype, dev)
+        if K:
+            params["lm_head"] = torch.stack([dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                                        dtype, dev) for _ in range(K)])
+        else:
+            params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dtype, dev)
     return params
 
 
 # ================================================================== embed
 def embed_tokens(params, cfg, tokens) -> torch.Tensor:
-    _check_supported(cfg)
+    """tokens: [B, S] -> [B, S, D]; codebook tokens [B, K, S] (or [B, K] in
+    decode) sum the K tables' rows."""
+    if cfg.n_codebooks:
+        embed = params["embed"]
+        return torch.stack([embed[k][tokens[:, k]] for k in range(cfg.n_codebooks)]).sum(0)
     return params["embed"][tokens]
 
 
 def unembed(params, cfg, h) -> torch.Tensor:
-    if cfg.tie_embeddings:
+    if cfg.n_codebooks:
+        logits = torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
+    elif cfg.tie_embeddings:
         logits = h @ params["embed"].T
     else:
         logits = h @ params["lm_head"]
@@ -118,14 +152,20 @@ def _periods(tree, n_periods: int):
     return [tree_unflatten(treedef, [s[p] for s in split]) for p in range(n_periods)]
 
 
-def _feed_forward(lp, h, cfg):
-    """``h`` plus layer ``lp``'s feed-forward, and the MoE layer's aux (or
-    ``None``)."""
+def _feed_forward(lp, h, ff: str, cfg):
+    """``h`` plus layer ``lp``'s feed-forward ``ff``, and the MoE layer's aux
+    (or ``None``)."""
+    if ff == "none":
+        return h, None
     x = rmsnorm(lp["norm2"], h, cfg.norm_eps)
-    if _ff(cfg) == "moe":
+    if ff == "moe":
         out, aux = moe_mod.moe_layer(lp["ff"], x, cfg)
         return h + out, aux
     return h + mlp_block(lp["ff"], x, cfg.mlp_kind), None
+
+
+def _has_moe(cfg) -> bool:
+    return any(ff == "moe" for _, ff in cfg.pattern_)
 
 
 def forward_hidden(
@@ -135,28 +175,35 @@ def forward_hidden(
     prefix_embeds: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Backbone only: final-norm hidden states [B, S, D] + aux (the MoE
-    layers' losses summed over layers; empty for a model without MoE).
-    Callers choose which positions to unembed."""
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix embeddings (VLM / audio conditioning) are "
-                                  "queued in ROADMAP.md, Queue 1")
+    """Backbone only: final-norm hidden states [B, S, D] of the token
+    positions + aux (the MoE layers' losses summed over layers; empty for a
+    model without MoE). Callers choose which positions to unembed."""
     h = embed_tokens(params, cfg, tokens)
+    n_prefix = 0
+    if prefix_embeds is not None:
+        n_prefix = prefix_embeds.shape[1]
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     S = h.shape[1]
     if positions is None:
         positions = torch.arange(S, device=h.device)[None, :]
     aux: Dict[str, torch.Tensor] = {}
-    if _ff(cfg) == "moe":
+    if _has_moe(cfg):
         aux = {k: torch.zeros((), dtype=torch.float32, device=h.device)
                for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
     for period in _periods(params["blocks"], cfg.n_periods):
-        lp = period["0"]
-        h = h + attn_mod.attention(lp["mixer"], rmsnorm(lp["norm1"], h, cfg.norm_eps), cfg,
-                                   positions)
-        h, layer_aux = _feed_forward(lp, h, cfg)
-        if layer_aux is not None:
-            aux = {k: aux[k] + v for k, v in layer_aux.items()}
+        for i, (mixer, ff) in enumerate(cfg.pattern_):
+            lp = period[str(i)]
+            x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+            if mixer == "attn":
+                h = h + attn_mod.attention(lp["mixer"], x, cfg, positions)
+            else:
+                h = h + ssm_mod.ssm_layer(lp["mixer"], x, cfg)
+            h, layer_aux = _feed_forward(lp, h, ff, cfg)
+            if layer_aux is not None:
+                aux = {k: aux[k] + v for k, v in layer_aux.items()}
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if n_prefix:
+        h = h[:, n_prefix:]
     return h, aux
 
 
@@ -167,18 +214,23 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Train forward: full-sequence fp32 logits [B, S, V]. tokens: [B, S]."""
+    """Train forward: full-sequence fp32 logits [B, S, V] ([B, S, K, V] for
+    codebooks). tokens: [B, S] ([B, K, S]); prefix_embeds: [B, n_prefix, D]
+    stub modality embeddings."""
     h, aux = forward_hidden(params, cfg, tokens, prefix_embeds, positions)
     return unembed(params, cfg, h), aux
 
 
 def loss_fn(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy, plus the router losses of a MoE model.
-    batch: dict with "tokens", "labels"; labels use -100 as the ignore
-    index. Every op is out of place, so autograd gives the reference's
-    ``jax.grad`` (``tests/test_torch_train.py``)."""
+    batch: dict with "tokens", "labels" (``[B, K, S]`` for codebooks),
+    optional "prefix_embeds"; labels use -100 as the ignore index. Every op
+    is out of place, so autograd gives the reference's ``jax.grad``
+    (``tests/test_torch_train.py``)."""
     logits, aux = forward(params, cfg, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"))
     labels = batch["labels"]
+    if cfg.n_codebooks:
+        labels = labels.movedim(1, 2)  # [B, K, S] -> [B, S, K], as the logits
     valid = labels != -100
     labels_c = torch.clamp(labels, min=0)
     logp = torch.log_softmax(logits, dim=-1)
@@ -204,28 +256,42 @@ def cache_length(cfg, seq_len: int) -> int:
 
 
 def init_cache(cfg, batch: int, seq_len: int, device=None) -> Dict[str, Any]:
-    """Stacked decode cache: one entry per pattern index, leading period axis."""
-    _check_supported(cfg)
+    """Stacked decode cache: one entry per pattern index (a KV cache for an
+    attention layer, an SSM state for an SSM layer), leading period axis."""
     dev = resolve_device(device)
+    dtype = _dtype(cfg)
     L = cache_length(cfg, seq_len)
-    one = attn_mod.init_kv_cache(batch, max(L, 1), cfg, _dtype(cfg), dev)
-    return {"0": tree_map(lambda x: x[None].repeat((cfg.n_periods,) + (1,) * x.dim()), one)}
+    cache: Dict[str, Any] = {}
+    for i, (mixer, _) in enumerate(cfg.pattern_):
+        if mixer == "attn":
+            one = attn_mod.init_kv_cache(batch, max(L, 1), cfg, dtype, dev)
+        else:
+            one = ssm_mod.init_ssm_cache(batch, cfg, dtype, dev)
+        cache[str(i)] = tree_map(
+            lambda x: x[None].repeat((cfg.n_periods,) + (1,) * x.dim()), one)
+    return cache
 
 
 def decode_step(params, cfg, cache, token, position: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One-token decode. token: [B] int; position: int. Returns (logits
-    [B, V], new cache); the cache passed in is left as it was. A MoE layer
-    routes the B decode tokens together and its aux is discarded."""
-    _check_supported(cfg)
-    h = params["embed"][token][:, None, :]
+    """One-token decode. token: [B] int ([B, K] for codebooks); position:
+    int. Returns (logits [B, V] or [B, K, V], new cache); the cache passed
+    in is left as it was. A MoE layer routes the B decode tokens together
+    and its aux is discarded."""
+    h = embed_tokens(params, cfg, token)[:, None, :]
     new_cache = []
     for p in range(cfg.n_periods):
-        lp = _period(params["blocks"], p)["0"]
-        x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
-        out, nc = attn_mod.decode_attention(lp["mixer"], x, _period(cache, p)["0"], cfg,
-                                            position)
+        lp_p, cache_p = _period(params["blocks"], p), _period(cache, p)
+        nc = {}
+        for i, (mixer, ff) in enumerate(cfg.pattern_):
+            lp = lp_p[str(i)]
+            x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+            if mixer == "attn":
+                out, nc[str(i)] = attn_mod.decode_attention(lp["mixer"], x, cache_p[str(i)],
+                                                            cfg, position)
+            else:
+                out, nc[str(i)] = ssm_mod.decode_ssm(lp["mixer"], x, cache_p[str(i)], cfg)
+            h, _ = _feed_forward(lp, h + out, ff, cfg)
         new_cache.append(nc)
-        h, _ = _feed_forward(lp, h + out, cfg)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = unembed(params, cfg, h)  # [B, 1, V]
-    return logits[:, 0], {"0": tree_map(lambda *xs: torch.stack(xs), *new_cache)}
+    logits = unembed(params, cfg, h)  # [B, 1, ...]
+    return logits[:, 0], tree_map(lambda *xs: torch.stack(xs), *new_cache)

@@ -648,3 +648,59 @@ def test_moe_layer_repeats_bitwise_and_matches_cpu_on_card(cuda, arch, T, cf):
     assert float(aux["moe_drop_frac"]) == float(want_aux["moe_drop_frac"])
     for k in ("moe_lb_loss", "moe_z_loss"):
         torch.testing.assert_close(aux[k].cpu(), want_aux[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dtype", [("mamba2-130m", "float32"), ("mamba2-full", "float32"),
+                                        ("mamba2-full", "bfloat16"),
+                                        ("jamba-v0.1-52b", "float32")])
+def test_ssm_layer_and_decode_match_cpu_on_card(cuda, arch, dtype):
+    """``ssm_layer`` (S = 128, two chunks at full width) and 16 steps of
+    ``decode_ssm`` on the card (no kernel of ours: PyTorch's matmul,
+    einsum, cumsum and exp) against the CPU run of the same parameters: fp32
+    at rtol / atol 1e-4 (products and the cumsum summed in other orders),
+    bf16 at 2e-2 of the largest entry; the decode state likewise, and the
+    layer's gradient of ``sum(out^2)`` in fp32 at 1e-4 of each leaf's
+    largest entry. At smoke width and at Mamba2's full layer width.
+    ``dt_bias`` is drawn in Mamba's own init range (dt in [1e-3, 0.1]):
+    with dt near 1 a 64-step chunk's decay passes fp32's ``exp`` range and
+    the gradient is NaN in both packages (``tests/test_torch_ssm.py``)."""
+    from repro_torch.models import ssm
+
+    cfg = get_config("mamba2-130m") if arch == "mamba2-full" else smoke_config(arch)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    dt = getattr(torch, dtype)
+    p = ssm.init_ssm(torch.Generator().manual_seed(0), cfg, "cpu")
+    p["A_log"] = torch.randn(p["A_log"].shape, generator=torch.Generator().manual_seed(2)) * 0.5
+    dt0 = torch.exp(torch.empty(p["dt_bias"].shape).uniform_(
+        -6.9, -2.3, generator=torch.Generator().manual_seed(3)))  # dt in [1e-3, 0.1]
+    p["dt_bias"] = torch.log(torch.expm1(dt0))  # softplus^-1
+    x = (torch.randn((2, 128, cfg.d_model), generator=torch.Generator().manual_seed(1)) * 0.5).to(dt)
+    pc = tree_map(lambda t: t.to(cuda), p)
+
+    def close(got, want):
+        got, want = got.float().cpu(), want.float()
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got / scale, want / scale, rtol=2e-2, atol=2e-2)
+
+    close(ssm.ssm_layer(pc, x.to(cuda), cfg), ssm.ssm_layer(p, x, cfg))
+    if dtype == "float32":
+        grads = []
+        for params, xx in ((p, x), (pc, x.to(cuda))):
+            live = {k: v.clone().requires_grad_() for k, v in params.items()}
+            (ssm.ssm_layer(live, xx, cfg) ** 2).sum().backward()
+            grads.append({k: v.grad for k, v in live.items()})
+        for k, want in grads[0].items():
+            scale = float(want.abs().max())
+            torch.testing.assert_close(grads[1][k].cpu() / scale, want / scale, rtol=1e-4,
+                                       atol=1e-4)
+    cache, cache_c = (ssm.init_ssm_cache(2, cfg, dt, dev) for dev in ("cpu", cuda))
+    for t in range(16):
+        out, cache = ssm.decode_ssm(p, x[:, t:t + 1], cache, cfg)
+        out_c, cache_c = ssm.decode_ssm(pc, x[:, t:t + 1].to(cuda), cache_c, cfg)
+        close(out_c, out)
+        for k in ("conv", "ssm"):
+            close(cache_c[k], cache[k])

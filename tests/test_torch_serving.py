@@ -128,3 +128,58 @@ def test_moe_engine_matches_reference_and_greedy_loop(moe_setup):
     for u, p in prompts.items():
         assert got[u] == reference_decode(cfg, params, p, 5), u
     assert eng.steps_total == reng.steps_total
+
+
+def _family_setup(arch, seed):
+    rcfg = rsmoke_config(arch)
+    rparams = rtfm.init_params(rcfg, jax.random.PRNGKey(seed))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, rparams), device="cpu")
+    return smoke_config(arch), params, rcfg, rparams
+
+
+@pytest.fixture(scope="module")
+def ssm_setup():
+    return _family_setup("mamba2-130m", 0)
+
+
+def test_ssm_arch_served(ssm_setup):
+    """tests/test_serving.py's case: an SSM's recurrent state needs the slot
+    reset on admission; two requests served one after the other in one slot
+    each get their own greedy-loop tokens, and the reference's engine's."""
+    cfg, params, _, _ = ssm_setup
+    p1, p2 = [3, 1, 4, 1, 5], [2, 7, 1, 8]
+    got, want, eng, _ = _serve(ssm_setup, [(1, p1, 4, None), (2, p2, 4, None)], slots=1)
+    assert got == want
+    assert got[1] == reference_decode(cfg, params, p1, 4)
+    assert got[2] == reference_decode(cfg, params, p2, 4)
+    assert sorted(eng.cache["0"]) == ["conv", "ssm"]
+
+
+def test_ssm_engine_restores_the_rows_it_does_not_step(ssm_setup):
+    """Four slots at mixed positions over six requests (slot reuse and
+    cohorts that leave slots out): every request gets its greedy-loop
+    tokens, so the SSM state of a slot that was not stepped was restored,
+    and the reference's engine gives the same."""
+    cfg, params, _, _ = ssm_setup
+    prompts = {1: [5, 17, 99, 3], 2: [42], 3: [7, 7, 7, 7, 7, 7, 7, 7], 4: [100, 200],
+               5: [11, 12, 13], 6: [300, 1, 2, 3, 4, 5]}
+    got, want, _, _ = _serve(ssm_setup, [(u, p, 4, None) for u, p in prompts.items()],
+                             slots=4)
+    assert got == want
+    for u, p in prompts.items():
+        assert got[u] == reference_decode(cfg, params, p, 4), u
+
+
+def test_hybrid_engine_matches_reference_and_greedy_loop():
+    """Jamba at smoke width (an SSM + MoE layer and an attention + MLP
+    layer a period): the cache holds an SSM state and a KV cache, and each
+    of five requests over 2 slots gets the greedy loop's tokens and the
+    reference engine's."""
+    setup = _family_setup("jamba-v0.1-52b", 2)
+    cfg, params, _, _ = setup
+    prompts = {1: [5, 17, 99, 3], 2: [42], 3: [7, 7, 7, 7, 7], 4: [100, 200], 5: [11, 12, 13]}
+    got, want, eng, _ = _serve(setup, [(u, p, 4, None) for u, p in prompts.items()], slots=2)
+    assert got == want
+    for u, p in prompts.items():
+        assert got[u] == reference_decode(cfg, params, p, 4), u
+    assert sorted(eng.cache["0"]) == ["conv", "ssm"] and sorted(eng.cache["1"]) == ["k", "v"]

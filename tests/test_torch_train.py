@@ -26,7 +26,14 @@ atol 1e-6 on the momenta, the optimizer state, the loss and SGD-M's
 parameter update, AdamW's update at rtol 1e-4 / atol 2e-3 lr (its
 per-entry normalisation; ``test_train_step_matches_reference``), Kimi K2's
 bf16 optimizer momentum and its update at one bf16 step (rtol 2^-7).
-The MoE configs (OLMoE, Kimi K2) go through the same gradients and steps.
+The MoE configs (OLMoE, Kimi K2) go through the same gradients and steps,
+and so do the SSM (Mamba2, whose ``A_log``, ``D`` and ``dt_bias`` stay fp32
+in a bf16 model) and the hybrid (Jamba: fsdp on one rank, server
+momentum); the VLM's prefix embeddings and the audio model's codebooks
+through the gradients. The SSM's whole-model bf16 gradients are held to
+their dtypes, not their values: there each package is 0.7-2 % of a leaf's
+largest entry from the fp32 gradient of the same bf16 parameters, and the
+two differ by up to 2.7 % (``A_log``).
 """
 
 import dataclasses
@@ -61,6 +68,9 @@ from repro_torch.utils.tree import tree_flatten
 
 ARCHS = ["gemma-7b", "qwen2.5-14b", "tinyllama-1.1b"]
 MOE_ARCHS = ["kimi-k2-1t-a32b", "olmoe-1b-7b"]
+#: the families of the twelfth slice: SSM, hybrid, VLM (prefix), audio
+#: (codebooks), and the last dense config
+NEW_ARCHS = ["internvl2-2b", "jamba-v0.1-52b", "mamba2-130m", "musicgen-medium", "qwen1.5-32b"]
 W = 4
 
 
@@ -239,7 +249,7 @@ def test_schedules_match(name):
 
 # ------------------------------------------------------------- input specs
 def test_input_specs_match():
-    for arch in ARCHS + MOE_ARCHS:
+    for arch in ARCHS + MOE_ARCHS + NEW_ARCHS:
         cfg, rcfg = configs.smoke_config(arch), rconfigs.smoke_config(arch)
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
             mine = input_specs(cfg, INPUT_SHAPES[shape])
@@ -252,13 +262,20 @@ def test_input_specs_match():
 
 # --------------------------------------------------------- loss_fn gradients
 def _batch(cfg, B, S, seed, ignore=0):
+    """Next-token tokens and labels ([B, K, S] for codebooks), and
+    ``prefix_embeds`` [B, n_prefix, D] for a config with prefix tokens."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
-    labels = toks[:, 1:].copy()
+    lead = (B, cfg.n_codebooks) if cfg.n_codebooks else (B,)
+    toks = rng.integers(0, cfg.vocab_size, lead + (S + 1,)).astype(np.int32)
+    labels = toks[..., 1:].copy()
     if ignore:
-        labels[:, :ignore] = -100
-        labels[0, -1] = -100
-    return {"tokens": toks[:, :-1], "labels": labels}
+        labels[..., :ignore] = -100
+        labels[0, ..., -1] = -100
+    batch = {"tokens": toks[..., :-1], "labels": labels}
+    if cfg.n_prefix_tokens:
+        batch["prefix_embeds"] = (rng.standard_normal((B, cfg.n_prefix_tokens, cfg.d_model))
+                                  * 0.5).astype(np.float32)
+    return batch
 
 
 def _grads_both(arch, dtype="float32", B=2, S=32, ignore=3, **kw):
@@ -266,13 +283,16 @@ def _grads_both(arch, dtype="float32", B=2, S=32, ignore=3, **kw):
     rcfg = dataclasses.replace(rconfigs.smoke_config(arch), dtype=dtype, **kw)
     rp = rtfm.init_params(rcfg, jax.random.PRNGKey(1))
     batch = _batch(cfg, B, S, seed=2, ignore=ignore)
+    if "prefix_embeds" in batch:  # in the model dtype, as input_specs has them
+        batch["prefix_embeds"] = np.asarray(jnp.asarray(batch["prefix_embeds"]).astype(dtype))
     (rloss, _), rg = jax.value_and_grad(rtfm.loss_fn, has_aux=True)(
         rp, rcfg, {k: jnp.asarray(v) for k, v in batch.items()})
     tp = _carry(rp)
     leaves, _ = tree_flatten(tp)
     for p in leaves:
         p.requires_grad_(True)
-    loss, _ = tfm.loss_fn(tp, cfg, {k: torch.tensor(v) for k, v in batch.items()})
+    loss, _ = tfm.loss_fn(tp, cfg, {k: params_from_jax(v, device="cpu")
+                                    for k, v in batch.items()})
     grads = torch.autograd.grad(loss, leaves)
     return (loss.detach(), grads), (rloss, jax.tree_util.tree_leaves(rg))
 
@@ -291,6 +311,35 @@ def test_loss_fn_gradients_fp32(arch, impl):
     for g, rg in zip(grads, rgrads):
         assert g.shape == rg.shape and g.dtype == torch.float32
         np.testing.assert_allclose(_np(g), np.asarray(rg), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_loss_fn_gradients_fp32_new_families(arch):
+    """Every leaf's gradient against ``jax.grad`` in fp32 for the SSM, the
+    hybrid (through the SSM, the MoE router and attention), the VLM (its
+    prefix embeddings in the batch) and the audio model (codebook labels
+    [B, K, S], -100 among them); S = 32, two chunks of the smoke SSM."""
+    (loss, grads), (rloss, rgrads) = _grads_both(arch)
+    np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-5)
+    assert len(grads) == len(rgrads)
+    for g, rg in zip(grads, rgrads):
+        assert g.shape == rg.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(_np(g), np.asarray(rg), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mamba2-130m"])
+def test_loss_fn_gradients_bf16_keep_leaf_dtypes(arch):
+    """bf16 parameters with the SSM's fp32 leaves: autograd gives each
+    gradient in its leaf's own dtype, as ``jax.grad`` does (fp32 for
+    ``A_log``, ``D``, ``dt_bias`` and a router), every entry finite; the
+    loss within 2e-2 of the reference's. (The values are held in bf16 by
+    ``tests/test_torch_ssm.py`` at the layer; through the whole model the
+    two packages' bf16 roundings compound, see the module docstring.)"""
+    (loss, grads), (rloss, rgrads) = _grads_both(arch, dtype="bfloat16")
+    np.testing.assert_allclose(float(loss), float(rloss), rtol=2e-2)
+    assert [str(g.dtype).split(".")[-1] for g in grads] == [rg.dtype.name for rg in rgrads]
+    assert {g.dtype for g in grads} == {torch.bfloat16, torch.float32}
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.parametrize("impl", ["xla", "blockwise"])
@@ -346,7 +395,16 @@ STEP_CASES = (
     + [("rfa", "bucketing", "worker", "sgdm", 0.9, "olmoe-1b-7b"),
        ("cm", "bucketing", "worker", "sgdm", 0.9, "olmoe-1b-7b"),
        ("rfa", "bucketing", "server", "sgdm", 0.9, "kimi-k2-1t-a32b"),
-       ("cm", "bucketing", "server", "sgdm", 0.9, "kimi-k2-1t-a32b")])
+       ("cm", "bucketing", "server", "sgdm", 0.9, "kimi-k2-1t-a32b")]
+    # the SSM family with worker momentum, and its mean baseline (the
+    # robust step of tests/test_steps.py:83 on this config); Jamba as its
+    # config trains, fsdp on one rank with server momentum
+    + [("rfa", "bucketing", "worker", "sgdm", 0.9, "mamba2-130m"),
+       ("cm", "bucketing", "worker", "sgdm", 0.9, "mamba2-130m"),
+       ("mean", "none", "worker", "sgdm", 0.0, "mamba2-130m"),
+       ("rfa", "bucketing", "server", "adamw", 0.9, "mamba2-130m"),
+       ("rfa", "bucketing", "server", "sgdm", 0.9, "jamba-v0.1-52b"),
+       ("cm", "bucketing", "server", "sgdm", 0.9, "jamba-v0.1-52b")])
 STEP_IDS = [("" if arch == TINY else arch.split("-")[0] + "-")
             + f"{a}-{m}-{mode}-{opt}" + ("-no_wm" if beta == 0 else "")
             for a, m, mode, opt, beta, arch in STEP_CASES]
@@ -534,6 +592,25 @@ def test_train_step_rejects_fsdp_and_uneven_workers():
         assert r["uneven"].startswith("ValueError") and "3 workers" in r["uneven"]
 
 
+def test_train_step_mean_baseline_matches_robust_with_mean():
+    """tests/test_steps.py's case on the SSM config, through the port: with
+    one worker the plain-mean baseline (its own path: no momentum rows, no
+    sync) and RFA without mixing give the same update (that test's bar,
+    2e-3)."""
+    cfg = configs.smoke_config("mamba2-130m")
+    toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 32)))
+    outs = {}
+    for agg in ("mean", "rfa"):
+        byz = ByzConfig(aggregator=agg, mixing="none", worker_momentum=0.0)
+        step_fn, state = make_train_step(cfg, byz, lr=1e-2, n_workers=1, device="cpu")
+        params = state["init_params"](torch.Generator().manual_seed(0))
+        outs[agg], _, _, metrics = step_fn(params, state["init_opt_state"](params), {}, None,
+                                           {"tokens": toks, "labels": toks})
+        assert np.isfinite(float(metrics["loss"]))
+    for a, b in zip(tree_flatten(outs["mean"])[0], tree_flatten(outs["rfa"])[0]):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=2e-3, atol=2e-3)
+
+
 # ------------------------------------------------------------ token stream
 def _reference_draws(key, n_workers, seq_len, n_seqs, vocab, heterogeneous, noise_p):
     """The draws ``repro.data.synthetic.make_token_stream`` makes from ``key``."""
@@ -597,6 +674,30 @@ def test_llm_train_loss_decreases(n_workers):
             seq.append((seq[-1] * 3 + 7) % cfg.vocab_size)
         toks = torch.cat(seq, dim=1)
         mix = state["aggregator"].mixing_matrix(n_workers, gen, device="cpu")
+        params, opt_state, worker_m, metrics = step_fn(
+            params, opt_state, worker_m, mix, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0] * 0.8, losses[::10]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_ssm_train_loss_decreases(arch):
+    """The same run and gate for the SSM and the hybrid at W = 4."""
+    cfg = configs.smoke_config(arch)
+    byz = ByzConfig(aggregator="rfa", mixing="bucketing", s=2, worker_momentum=0.9)
+    step_fn, state = make_train_step(cfg, byz, lr=0.3, n_workers=W, device="cpu")
+    params = state["init_params"](torch.Generator().manual_seed(0))
+    opt_state = state["init_opt_state"](params)
+    worker_m = state["init_worker_m"](params)
+    gen = torch.Generator().manual_seed(1)
+    losses = []
+    for _ in range(30):
+        seq = [torch.randint(0, cfg.vocab_size, (8, 1), generator=gen)]
+        for _ in range(64):
+            seq.append((seq[-1] * 3 + 7) % cfg.vocab_size)
+        toks = torch.cat(seq, dim=1)
+        mix = state["aggregator"].mixing_matrix(W, gen, device="cpu")
         params, opt_state, worker_m, metrics = step_fn(
             params, opt_state, worker_m, mix, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
         losses.append(float(metrics["loss"]))
