@@ -183,6 +183,41 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    VLM with prefix embeddings in the batch, the audio model on codebook
    streams), and one RFA smoke step of Qwen1.5-32B, with exact launches.
 
+15. Sharding over a mesh of ranks (``distributed/sharding.py``): 4 gloo
+   ranks share the card (``launch.mesh.make_host_mesh``). (a) gemma-7b at
+   its published width (d_model 3072, 16 heads of 256, GeGLU d_ff 24,576,
+   tied 256,000-row embedding, bf16, fsdp, server momentum) with the depth
+   cut to 1 of 28 layers (1,063,265,280 parameters, the tree's count
+   asserted) trained on the mesh (data=4, model=1), W = 4 workers of one
+   1024-token sequence each: RFA with bucketing s = 2 for 3 steps, then CM
+   for 1, each with the group's exact launches per rank, a finite loss and
+   moving parameters, the first step of each rule held against the plain
+   route of the same sharded sync on each rank's column slice
+   (``TRAIN_AGG_RTOL`` of the largest row norm); each rank holds only its
+   blocks (printed, the embed on ("data", "model") by gemma's override),
+   and receives in the egress
+   exactly its blocks' bytes, never the [n_pad] row; host ms a step,
+   tokens/s and each step's peak memory per rank. (b) gemma at smoke width
+   on the (4, 1) and (2, 2) meshes: 3 steps of RFA and of CM, the fsdp
+   step's gathered parameters and momenta equal to the replicated step's
+   (fsdp off, same mesh) bit for bit and within rtol 1e-4 / atol 1e-6 of
+   the one-device step. (c) TinyLlama-1.1B at full width and depth served
+   on (4, 1): the prefill on B = 4 x 4096 (a row a rank) against the
+   one-device prefill; ``make_serve_step`` with a batch-sharded 4-row cache,
+   20 greedy steps after a 16-token prompt equal to the one-device greedy
+   loop's tokens at the rank's width; with B = 1 and the cache
+   sequence-sharded over the 4 ranks, filled from a seed at 4,095
+   positions, one decode step's logits against ``decode_step`` on the same
+   cache (in fp32 within the reference's decode bar, rtol and atol 2e-3;
+   in bf16 no further from the fp32 logits than ``SEQ_BF16_RATIO`` x the
+   one-device bf16 step); then a 48-token prompt
+   in a 64-position cache (16 positions a rank) decoded greedily for 16
+   steps, in fp32 the tokens equal to the one-device loop's (in bf16 the
+   share that agrees is printed: bf16 products over a rank's positions
+   round otherwise than over all of them and can move a near tie); no
+   kernel of ours launches (counted). (d) (b)'s fsdp state on (4, 1) saved from the mesh, restored on one device
+   and onto the mesh, bit for bit. (b) to (d) run in one group.
+
 The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
 fails, in any rank.
@@ -297,6 +332,21 @@ HYBRID_PARAMS, HYBRID_FORMULA = 13_267_656_416, 13_267_597_952
 #: each, at their published width and depth; Qwen1.5-32B at smoke width
 VLM_ARCH, AUDIO_ARCH, DENSE_ARCH = "internvl2-2b", "musicgen-medium", "qwen1.5-32b"
 DECODE_STEPS = 20
+#: phase 15: gemma-7b trained over a (data=4, model=1) mesh of gloo ranks
+#: on the card at its published width, the depth cut to FSDP_LAYERS of 28
+#: (786,432,000 embed + 276,830,208 a layer + 3,072 final norm); the
+#: smoke-width step on the (4, 1) and (2, 2) meshes; TinyLlama served on
+#: the (4, 1) mesh: MESH_DECODE_CACHE positions for the batch-sharded loop,
+#: ATTN_S for the one sequence-sharded step, then a SEQ_PROMPT-token prompt
+#: in a SEQ_CACHE-position cache decoded for SEQ_NEW tokens
+FSDP_ARCH, FSDP_LAYERS, FSDP_PARAMS = "gemma-7b", 1, 1_063_265_280
+MESH_SHAPES = [(4, 1), (2, 2)]
+MESH_DECODE_PROMPT, MESH_DECODE_CACHE = 16, 64
+SEQ_PROMPT, SEQ_CACHE, SEQ_NEW = 48, 64, 16
+#: phase 15(c)'s bar for a row's prefill alone against the B = 4 prefill,
+#: relative to the largest |logit|; and for the sequence-sharded bf16 step,
+#: its max |logit - fp32 one device| against the one-device bf16 step's
+PREFILL_MESH_TOL, SEQ_BF16_RATIO = 2e-2, 1.5
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
 SYNC_ROUTE = {
@@ -2356,6 +2406,595 @@ def prefix_codebook_phase(dev, smi):
     return launches
 
 
+def fsdp_rank(rank, group, device):
+    """Phase 15(a), in each rank: gemma-7b at full width, FSDP_LAYERS deep,
+    trained on the (data=4, model=1) mesh; per step the launches, loss,
+    host ms, peak memory and the elements the two all_to_alls received.
+    The first step of each rule is held against the plain route of the
+    same sharded sync on this rank's column slice (``plain_sync_check``)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.distributed import packing
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.tree import tree_flatten
+
+    cfg = dataclasses.replace(get_config(FSDP_ARCH), n_layers=FSDP_LAYERS)
+    mesh = make_host_mesh(group, data=SYNC_RANKS, model=1)
+    toks = make_token_stream(torch.Generator().manual_seed(11), TRAIN_W, TRAIN_S, 1,
+                             cfg.vocab_size, device=device)[:, 0]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    steppers = {agg: make_train_step(cfg, ByzConfig(aggregator=agg, mixing="bucketing", s=2),
+                                     mesh=mesh, lr=TRAIN_LR, n_workers=TRAIN_W, device=device)
+                for agg, _ in TRAIN_RUNS}
+    sh = steppers["rfa"][1]["shardings"]
+    n_params = sum(math.prod(s.shape) for s in tree_flatten(sh["params_shape"])[0])
+    if n_params != FSDP_PARAMS:
+        raise AssertionError(f"fsdp: {n_params:,} parameters, expected {FSDP_PARAMS:,}")
+    if sh["params"]["embed"].spec != ("data", "model"):
+        raise AssertionError(f"fsdp: embed placed {sh['params']['embed'].spec}")
+    params = steppers["rfa"][1]["init_params"](torch.Generator(device).manual_seed(0))
+    opt_state, worker_m = steppers["rfa"][1]["init_opt_state"](params), {}
+    torch.cuda.synchronize()
+    held = {"params": nbytes(params), "momentum": nbytes(opt_state.m),
+            "allocated": torch.cuda.memory_allocated()}
+    block_elems = sum(t.numel() for t in tree_flatten(params)[0])
+    probe = params["embed"][:64].clone()
+    received, a2a = [], dist.all_to_all_single
+
+    def counted(output, input, output_split_sizes=None, input_split_sizes=None, **kw):
+        received.append(int(output.numel()))
+        return a2a(output, input, output_split_sizes, input_split_sizes, **kw)
+
+    # the sync's column slice and combined slice, kept for the plain check
+    cap, reshard_in, unpack = {}, packing.reshard_in, packing.unpack_to_shardings
+
+    def keep_cols(*a, **kw):
+        cap["buf"] = reshard_in(*a, **kw)
+        return cap["buf"]
+
+    def keep_out(packer, local, out_shardings):
+        cap.update(packer=packer, out=local, shardings=out_shardings,
+                   blocks=unpack(packer, local, out_shardings))
+        return cap["blocks"]
+
+    gen = torch.Generator().manual_seed(12)
+    steps, checks = [], []
+    dist.all_to_all_single = counted
+    try:
+        for agg, n_steps in TRAIN_RUNS:
+            step_fn, st = steppers[agg]
+            for i in range(n_steps):
+                mix = st["aggregator"].mixing_matrix(TRAIN_W, gen, device=device)
+                if i == 0:
+                    packing.reshard_in, packing.unpack_to_shardings = keep_cols, keep_out
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                dist.barrier(group)
+                received.clear()
+                reset_launches()
+                t0 = time.perf_counter()
+                try:
+                    params, opt_state, worker_m, metrics = step_fn(params, opt_state, worker_m,
+                                                                  mix, batch)
+                    torch.cuda.synchronize()
+                finally:
+                    packing.reshard_in, packing.unpack_to_shardings = reshard_in, unpack
+                wall = (time.perf_counter() - t0) * 1e3
+                counts = dict(LAUNCHES)
+                want = {k: SYNC_ROUTE[agg].get(k, 0) for k in counts}
+                if counts != want:
+                    raise AssertionError(f"fsdp rank {rank} {agg}: launches {counts}, "
+                                         f"expected {want}")
+                loss = float(metrics["loss"])
+                if not np.isfinite(loss):
+                    raise AssertionError(f"fsdp rank {rank} {agg}: loss {loss}")
+                if len(received) != 2 or received[1] != block_elems:
+                    raise AssertionError(f"fsdp rank {rank}: all_to_all received {received}, "
+                                         f"its blocks hold {block_elems} elements")
+                steps.append(dict(agg=agg, loss=loss, ms=wall, counts=counts,
+                                  peak=torch.cuda.max_memory_allocated(),
+                                  ingress=received[0], egress=received[1]))
+                if cap:
+                    checks.append(dict(agg=agg, **plain_sync_check(st["aggregator"], mix, cap,
+                                                                   group)))
+                    cap.clear()
+                    torch.cuda.empty_cache()
+    finally:
+        dist.all_to_all_single = a2a
+    moved = float((params["embed"][:64].float() - probe.float()).abs().max())
+    if not moved > 0:
+        raise AssertionError(f"fsdp rank {rank}: the parameters did not move")
+    return dict(held=held, block_elems=block_elems, steps=steps, moved=moved,
+                n_pad=_n_pad(sh["params_shape"]), checks=checks)
+
+
+def plain_sync_check(aggregator, mix, cap, group):
+    """Phase 15(a)'s check of one step's sync, in each rank: the plain
+    route of the same sharded sync (``ref``'s mix, then RFA's Weiszfeld
+    with the ``[W]`` norms all-reduced, or CM) on this rank's column slice
+    ``cap["buf"]`` of the packed rows, against the kernel route's combined
+    slice ``cap["out"]`` and against its egress blocks ``cap["blocks"]``
+    (the plain slice put through ``unpack_to_shardings``). Both as
+    ``|kernel - plain|_2 / max_i |x_i|_2`` over all ranks' columns."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.packing import unpack_to_shardings
+    from repro_torch.kernels import ref
+    from repro_torch.utils.tree import tree_flatten
+
+    def summed(t):
+        dist.all_reduce(t, group=group)
+        return t
+
+    buf, base = cap.pop("buf"), aggregator.base
+    cols = buf.shape[1]
+    row_norm = float(torch.sqrt(torch.max(summed(torch.linalg.vector_norm(buf, dim=1) ** 2))))
+    mixed = ref.bucket_mix(mix, buf)
+    del buf
+    if base.name == "cm":
+        out = ref.cwise_median(mixed)
+    else:
+        c = torch.full((mixed.shape[0],), 1.0 / mixed.shape[0], dtype=torch.float32,
+                       device=mixed.device)
+        for _ in range(base.n_iters):
+            w = 1.0 / torch.sqrt(summed(ref.residual_norms(mixed, c)) + base.eps**2)
+            c = w / torch.sum(w)
+        out = ref.bucket_mix(c[None, :], mixed)[0]
+    del mixed
+    slice_err = float(torch.sqrt(summed(torch.sum(torch.square(cap["out"] - out))[None])))
+    blocks = unpack_to_shardings(cap["packer"], out, cap["shardings"])
+    del out
+    d2 = sum(torch.sum(torch.square(a.float() - b.float()))
+             for a, b in zip(tree_flatten(cap["blocks"])[0], tree_flatten(blocks)[0]))
+    egress_err = float(torch.sqrt(summed(d2.reshape(1))))
+    return dict(slice=slice_err / row_norm, egress=egress_err / row_norm, cols=cols,
+                rows=int(mix.shape[1]), buckets=int(mix.shape[0]))
+
+
+def _n_pad(specs) -> int:
+    """The packed row's width for a parameter tree (``GradPacker``'s)."""
+    import math
+
+    from repro_torch.kernels.pairwise_gram import TILE_D
+    from repro_torch.utils.tree import tree_flatten
+
+    return sum(-(-math.prod(s.shape) // TILE_D) * TILE_D for s in tree_flatten(specs)[0])
+
+
+def mesh_smoke_steps(dev, agg, fsdp, mesh):
+    """Phase 15(b): gemma's smoke-width step (fsdp on or off) on ``mesh``
+    (``None``: one device), GROUP_STEPS steps of tests/test_system.py's
+    stream with mixes from one seeded generator. Returns the step's state,
+    the whole parameters and optimizer momenta (gathered on a mesh), the
+    losses and each step's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config(FSDP_ARCH), fsdp=fsdp)
+    step_fn, state = make_train_step(cfg, ByzConfig(aggregator=agg, mixing="bucketing", s=2),
+                                     mesh=mesh, lr=SMOKE_LR, n_workers=TRAIN_W, device=dev)
+    params = state["init_params"](torch.Generator().manual_seed(0))
+    opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
+    gen = torch.Generator().manual_seed(1)
+    losses, counts = [], []
+    for _ in range(GROUP_STEPS):
+        batch = bigram_batch(gen, cfg.vocab_size, 8, 64, dev, cfg)
+        mix = state["aggregator"].mixing_matrix(TRAIN_W, gen, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        params, opt_state, worker_m, metrics = step_fn(params, opt_state, worker_m, mix, batch)
+        torch.cuda.synchronize()
+        counts.append(dict(LAUNCHES))
+        losses.append(float(metrics["loss"]))
+    sh = state["shardings"]
+    whole = (lambda t: t) if sh is None else (
+        lambda t: tree_map(lambda b, pl: pl.gather(b), t, sh["params"]))
+    return dict(state=state, blocks=(params, opt_state), params=whole(params),
+                m=whole(opt_state.m), losses=losses, counts=counts)
+
+
+def mesh_smoke_rank(rank, group, device, shape, ckpt_dir):
+    """Phase 15(b) and (d), in each rank: the smoke-width steps with fsdp on
+    and off on the mesh ``shape``; on (4, 1) the fsdp RFA state is saved
+    from the mesh and restored onto it (bit for bit, checked here)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_map_with_path
+
+    mesh = make_host_mesh(group, *shape)
+    out = {}
+    for agg in ("rfa", "cm"):
+        for fsdp in (True, False):
+            run = mesh_smoke_steps(device, agg, fsdp, mesh)
+            want = [{k: SYNC_ROUTE[agg].get(k, 0) for k in c} for c in run["counts"]]
+            if run["counts"] != want:
+                raise AssertionError(f"mesh {shape} rank {rank} {agg} fsdp {fsdp}: launches "
+                                     f"{run['counts']}, expected {want}")
+            if fsdp and agg == "rfa" and shape == (4, 1):
+                sh = run["state"]["shardings"]
+                params, opt_state = run["blocks"]
+                tree = {"params": params, "opt_state": opt_state, "worker_m": {}}
+                placements = {"params": sh["params"], "opt_state": sh["opt_state"],
+                              "worker_m": {}}
+                save_checkpoint(ckpt_dir, GROUP_STEPS, tree, shardings=placements)
+                like = tree_map_with_path(lambda _, x: torch.zeros_like(x), tree)
+                back = restore_checkpoint(ckpt_dir, like, shardings=placements)
+                for (_, a), (_, b) in zip(tree_flatten_with_path(tree)[0],
+                                          tree_flatten_with_path(back)[0]):
+                    if not same_bits(b, a):
+                        raise AssertionError(f"rank {rank}: the mesh restore differs")
+            out[(agg, fsdp)] = dict(params=run["params"], m=run["m"], losses=run["losses"],
+                                    counts=run["counts"])
+    return out
+
+
+def mesh_rank(rank, group, device, ckpt_dir, payload):
+    """Phase 15(b) and (d) on each mesh of ``MESH_SHAPES``, then (c), in
+    one group. CUDA's deterministic algorithms are on for (b), so that two
+    runs of a step (fsdp on and off) compute the same worker gradients
+    (the embedding's backward otherwise adds atomically, in no fixed
+    order)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {shape: mesh_smoke_rank(rank, group, device, shape, ckpt_dir)
+               for shape in MESH_SHAPES}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["serve"] = serve_mesh_rank(rank, group, device, payload)
+    return out
+
+
+def serve_mesh_rank(rank, group, device, payload):
+    """Phase 15(c), in each rank: TinyLlama-1.1B at full width served on the
+    (data=4, model=1) mesh: the sharded prefill, the batch-sharded greedy
+    loop, one sequence-sharded step on a seeded cache (bf16 and fp32), and
+    the sequence-sharded greedy loop (bf16 and fp32); with the launch
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.sharding import local_zeros
+    from repro_torch.distributed.steps import gather_batch, make_prefill_step, make_serve_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config("tinyllama-1.1b")
+    mesh = make_host_mesh(group, data=SYNC_RANKS, model=1)
+    params = tfm.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {}
+    t0 = time.perf_counter()
+    out["prefill"] = make_prefill_step(cfg, mesh, device=device)(
+        params, {"tokens": torch.as_tensor(payload["prefill"])})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def greedy(serve, p, cache, prompt, n_new):
+        """Greedy decode of the global ``prompt`` rows; a batch-sharded
+        step's logits are gathered (``gather_batch``) into the next global
+        tokens."""
+        toks = []
+        for pos in range(prompt.shape[1] + n_new - 1):
+            tok = prompt[:, pos] if pos < prompt.shape[1] else toks[-1]
+            logits, cache = serve(p, cache, tok, pos)
+            logits = gather_batch(logits, mesh, prompt.shape[0])
+            if pos >= prompt.shape[1] - 1:
+                toks.append(torch.argmax(logits, dim=-1).cpu())
+        return torch.stack(toks, dim=1)
+
+    prompt = torch.as_tensor(payload["decode"])
+    serve, spec, pls = make_serve_step(
+        cfg, mesh, InputShape("serve", MESH_DECODE_CACHE, prompt.shape[0], "decode"),
+        device=device)
+    out["batch_spec"] = pls["0"]["k"].spec
+    t0 = time.perf_counter()
+    out["batch_tokens"] = greedy(serve, params, local_zeros(spec, pls, device), prompt,
+                                 DECODE_STEPS)
+    torch.cuda.synchronize()
+    out["batch_ms"] = (time.perf_counter() - t0) * 1e3
+    # one step on a seeded cache, in bf16 and in fp32
+    for c, p in ((cfg, params), (dataclasses.replace(cfg, dtype="float32"),
+                                 tree_map(lambda t: t.float(), params))):
+        serve, spec, pls = make_serve_step(c, mesh, InputShape("long", ATTN_S, 1, "decode"),
+                                           device=device)
+        out["seq_spec"] = pls["0"]["k"].spec
+        whole = seeded_cache(c, ATTN_S - 1, device)
+        cache = tree_map(lambda x, pl: pl.local(x), whole, pls)
+        del whole
+        out["seq_cache_elems"] = sum(x.numel() for x in (cache["0"]["k"], cache["0"]["v"]))
+        out[f"seq_logits_{c.dtype}"], _ = serve(p, cache, torch.tensor([payload["seq_token"]]),
+                                                ATTN_S - 1)
+        del cache, p
+    # the greedy loop, in fp32 (its tokens held) and in bf16 (agreement printed)
+    for c, p in ((cfg, params), (dataclasses.replace(cfg, dtype="float32"),
+                                 tree_map(lambda t: t.float(), params))):
+        serve, spec, pls = make_serve_step(c, mesh, InputShape("short", SEQ_CACHE, 1, "decode"),
+                                           device=device)
+        t0 = time.perf_counter()
+        out[f"seq_tokens_{c.dtype}"] = greedy(serve, p, local_zeros(spec, pls, device),
+                                              torch.as_tensor(payload["seq_prompt"]), SEQ_NEW)
+        torch.cuda.synchronize()
+        out[f"seq_ms_{c.dtype}"] = (time.perf_counter() - t0) * 1e3
+        del p
+    out["counts"] = dict(LAUNCHES)
+    return out
+
+
+def seeded_cache(cfg, filled: int, dev):
+    """A one-row decode cache of ATTN_S positions whose first ``filled``
+    positions hold k / v drawn from a seed (the size of the model's own
+    keys and values), the rest zero."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cache = tfm.init_cache(cfg, 1, ATTN_S, device="cpu")
+    gen = torch.Generator().manual_seed(21)
+    for layer in cache.values():
+        for x in layer.values():
+            x[:, :, :filled] = torch.randn(x[:, :, :filled].shape, generator=gen).to(x.dtype)
+    return {i: {k: x.to(dev) for k, x in layer.items()} for i, layer in cache.items()}
+
+
+def mesh_phase(dev, smi):
+    """Phase 15: (a) gemma-7b's fsdp training at full width, (b) the smoke
+    step on the (4, 1) and (2, 2) meshes against the replicated and the
+    one-device steps, (c) TinyLlama served on (4, 1), (d) checkpoints.
+    Returns the launch counts by path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.steps import make_prefill_step
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.checkpoint import restore_checkpoint
+    from repro_torch.utils.tree import tree_flatten, tree_map, tree_map_with_path
+
+    launches = {}
+    cards = ["cuda:0"] * SYNC_RANKS
+    # the ranks' allocators grow segments in place: four ranks share the
+    # card, and a rank's freed activations would otherwise sit in blocks
+    # too small for the packed row's 4 GB exchange buffers
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+
+    # (a) fsdp training at full width, FSDP_LAYERS deep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(fsdp_rank, SYNC_RANKS, backend="gloo", devices=cards, timeout_s=900)
+    launches["fsdp_train"] = {k: 0 for k in LAUNCHES}
+    n_pad = ranks[0]["n_pad"]
+    for rank, r in enumerate(ranks):
+        for st in r["steps"]:
+            for k, v in st["counts"].items():
+                launches["fsdp_train"][k] += v
+            if st["egress"] >= n_pad:
+                raise AssertionError(f"fsdp rank {rank} received {st['egress']} >= n_pad")
+        log(f"fsdp {FSDP_ARCH} rank {rank}: holds {r['held']['params'] / 1e9:.3f} GB of "
+            f"parameter blocks ({r['block_elems']:,} of {FSDP_PARAMS:,}) and "
+            f"{r['held']['momentum'] / 1e9:.3f} GB of momentum blocks "
+            f"({r['held']['allocated'] / 1e9:.2f} GB allocated before the first step); per "
+            f"step received {r['steps'][0]['ingress']:,} fp32 in the ingress and "
+            f"{r['steps'][0]['egress']:,} in the egress (its blocks; n_pad {n_pad:,}); peak "
+            f"memory per step {', '.join(f'{st['peak'] / 1e9:.2f}' for st in r['steps'])} GB")
+    for i, st in enumerate(ranks[0]["steps"]):
+        if len({round(r["steps"][i]["loss"], 12) for r in ranks}) != 1:
+            raise AssertionError(f"fsdp step {i}: the ranks' losses differ")
+        wall = max(r["steps"][i]["ms"] for r in ranks)
+        log(f"fsdp {FSDP_ARCH} ({FSDP_LAYERS} of 28 layers, {FSDP_PARAMS:,} parameters) "
+            f"{st['agg']} step {i + 1} on (data=4, model=1), 4 gloo ranks on one card: loss "
+            f"{st['loss']:.5f}; host ms {wall:.1f} (slowest rank), "
+            f"{TRAIN_W * TRAIN_S / wall * 1e3:.0f} tokens/s; launches per rank "
+            f"{json.dumps({k: v for k, v in st['counts'].items() if v})} ({smi})")
+    for c in ranks[0]["checks"]:
+        if any(r["checks"] != ranks[0]["checks"] for r in ranks):
+            raise AssertionError("fsdp: the ranks' plain-route checks differ")
+        log(f"check fsdp {c['agg']} step 1, kernel route vs plain route of the sharded sync on "
+            f"each rank's column slice X[{c['rows']}, {c['cols']:,}] (mixed to "
+            f"{c['buckets']} buckets): |kernel - plain|_2 / max_i |x_i|_2 over all ranks' "
+            f"columns {c['slice']:.3g} on the combined slice, {c['egress']:.3g} on the egress "
+            f"blocks (bar {TRAIN_AGG_RTOL})")
+        if not (c["slice"] <= TRAIN_AGG_RTOL and c["egress"] <= TRAIN_AGG_RTOL):
+            raise AssertionError(f"fsdp {c['agg']}: the kernel route is off the plain route")
+    if [c["agg"] for c in ranks[0]["checks"]] != [agg for agg, _ in TRAIN_RUNS]:
+        raise AssertionError(f"fsdp: checked {ranks[0]['checks']}, expected one step a rule")
+    log(f"fsdp phase (a) ran in {time.perf_counter() - t0:.1f} s, spawn included")
+
+    # (b) + (d) the smoke-width step on both meshes
+    launches["fsdp_smoke"] = {k: 0 for k in LAUNCHES}
+    one = {agg: mesh_smoke_steps(dev, agg, True, None) for agg in ("rfa", "cm")}
+    cfg = get_config("tinyllama-1.1b")
+    gen = torch.Generator().manual_seed(31)
+    payload = {"prefill": torch.randint(0, cfg.vocab_size, (SYNC_RANKS, ATTN_S), generator=gen),
+               "decode": torch.randint(0, cfg.vocab_size, (SYNC_RANKS, MESH_DECODE_PROMPT),
+                                       generator=gen),
+               "seq_token": int(torch.randint(0, cfg.vocab_size, (1,), generator=gen)),
+               "seq_prompt": torch.randint(0, cfg.vocab_size, (1, SEQ_PROMPT), generator=gen)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        t0 = time.perf_counter()
+        runs = spawn_ranks(mesh_rank, SYNC_RANKS, backend="gloo", devices=cards,
+                           args=(ckpt, payload), timeout_s=900)
+        log(f"mesh phases (b)-(d): 4 ranks ran in {time.perf_counter() - t0:.1f} s, spawn "
+            f"included")
+        for shape in MESH_SHAPES:
+            for agg in ("rfa", "cm"):
+                want = [t.cpu().numpy() for t in tree_flatten(one[agg]["params"])[0]
+                        + tree_flatten(one[agg]["m"])[0]]
+                err = 0.0
+                for rank, r in enumerate(runs):
+                    fs, rep = r[shape][(agg, True)], r[shape][(agg, False)]
+                    for c in fs["counts"] + rep["counts"]:
+                        for k, v in c.items():
+                            launches["fsdp_smoke"][k] += v
+                    got = tree_flatten(fs["params"])[0] + tree_flatten(fs["m"])[0]
+                    if not all(np_same_bits(a, b) for a, b in zip(
+                            got, tree_flatten(rep["params"])[0] + tree_flatten(rep["m"])[0])):
+                        raise AssertionError(f"mesh {shape} {agg} rank {rank}: the fsdp step "
+                                             "differs from the replicated step")
+                    for a, b in zip(got, want):
+                        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+                        err = max(err, float(np.abs(a - b).max()))
+                log(f"check fsdp smoke {FSDP_ARCH} {agg} on mesh {shape}, {GROUP_STEPS} steps: "
+                    f"the fsdp and the replicated steps' parameters and momenta equal bit for "
+                    f"bit on every rank; max |mesh - one device| {err:.3g} (bar rtol 1e-4, "
+                    f"atol 1e-6); losses "
+                    f"{[round(x, 5) for x in runs[0][shape][(agg, True)]['losses']]} vs one "
+                    f"device {[round(x, 5) for x in one[agg]['losses']]}")
+        # (d) the (4, 1) mesh's checkpoint, restored on one device
+        params, opt_state = one["rfa"]["blocks"]
+        like = tree_map_with_path(lambda _, x: torch.zeros_like(x),
+                                  {"params": params, "opt_state": opt_state, "worker_m": {}})
+        back = restore_checkpoint(ckpt, like)
+    saved = runs[0][(4, 1)][("rfa", True)]
+    for a, b in zip(tree_flatten(back["params"])[0] + tree_flatten(back["opt_state"].m)[0],
+                    tree_flatten(saved["params"])[0] + tree_flatten(saved["m"])[0]):
+        if not np_same_bits(a.cpu().numpy(), b):
+            raise AssertionError("the mesh's checkpoint restored on one device differs")
+    log(f"check checkpoint: the fsdp RFA state saved from mesh (4, 1) restores on one device "
+        f"bit for bit ({len(tree_flatten(back)[0])} leaves), and onto the mesh bit for bit in "
+        f"every rank")
+
+    # (c) TinyLlama served on (4, 1), against one device
+    ranks = [r["serve"] for r in runs]
+    launches["serve_mesh"] = {k: sum(r["counts"][k] for r in ranks) for k in LAUNCHES}
+    if any(launches["serve_mesh"].values()):
+        raise AssertionError(f"serve mesh: kernels launched {launches['serve_mesh']}")
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    whole = prefill(params, {"tokens": payload["prefill"]})
+    tol = PREFILL_MESH_TOL * float(whole.abs().max())
+    err = 0.0
+    for rank, r in enumerate(ranks):
+        alone = prefill(params, {"tokens": payload["prefill"][rank:rank + 1]}).cpu().numpy()
+        if not np_same_bits(r["prefill"], alone):
+            raise AssertionError(f"serve mesh prefill: rank {rank} differs from its row alone")
+        want = whole[rank:rank + 1].cpu().numpy()
+        err = max(err, float(np.abs(r["prefill"] - want).max()))
+        if int(r["prefill"].argmax()) != int(want.argmax()):
+            raise AssertionError(f"serve mesh prefill: rank {rank}'s next token differs")
+    if not err <= tol:
+        raise AssertionError(f"serve mesh prefill: max |mesh - one device| {err} > {tol}")
+    log(f"check serve mesh prefill, TinyLlama-1.1B B = 4 x {ATTN_S} on (data=4, model=1), a "
+        f"row a rank: each rank's logits equal its row prefilled alone on one device bit for "
+        f"bit, and the B = 4 prefill's within {err:.3g} (bar {PREFILL_MESH_TOL} x max |logit| "
+        f"= {tol:.3g}); next tokens equal; prefill host ms per rank "
+        f"{', '.join(f'{r["prefill_ms"]:.1f}' for r in ranks)} ({smi})")
+
+    def loop(c, p, prompt, n_new, cache_len):
+        """The one-device greedy loop over ``decode_step``."""
+        cache = tfm.init_cache(c, prompt.shape[0], cache_len, device=dev)
+        toks = []
+        for pos in range(prompt.shape[1] + n_new - 1):
+            tok = prompt[:, pos].to(dev) if pos < prompt.shape[1] else toks[-1].to(dev)
+            logits, cache = tfm.decode_step(p, c, cache, tok, pos)
+            if pos >= prompt.shape[1] - 1:
+                toks.append(torch.argmax(logits, dim=-1).cpu())
+        return torch.stack(toks, dim=1).numpy()
+
+    wide = loop(cfg, params, payload["decode"], DECODE_STEPS, MESH_DECODE_CACHE)
+    rows = np.concatenate([loop(cfg, params, payload["decode"][i:i + 1], DECODE_STEPS,
+                                MESH_DECODE_CACHE) for i in range(SYNC_RANKS)])
+    for rank, r in enumerate(ranks):
+        if not np.array_equal(r["batch_tokens"], rows):
+            raise AssertionError(f"serve mesh batch decode: rank {rank}'s tokens differ")
+    agree = float(np.mean(rows == wide))
+    log(f"check serve mesh batch-sharded decode (cache {ranks[0]['batch_spec']}, "
+        f"{MESH_DECODE_CACHE} positions): {DECODE_STEPS} greedy tokens after a "
+        f"{MESH_DECODE_PROMPT}-token prompt equal, on every rank, the one-device loop's at the "
+        f"rank's width (one row); {agree:.3f} of them agree with the one-device loop at width 4; "
+        f"host ms {', '.join(f'{r["batch_ms"]:.0f}' for r in ranks)} per loop")
+    want = {}
+    for c, p in ((cfg, params), (dataclasses.replace(cfg, dtype="float32"),
+                                 tree_map(lambda t: t.float(), params))):
+        cache = seeded_cache(c, ATTN_S - 1, dev)
+        logits, _ = tfm.decode_step(p, c, cache, torch.tensor([payload["seq_token"]], device=dev),
+                                    ATTN_S - 1)
+        want[c.dtype] = logits.cpu().numpy()
+        del cache, p
+    for dtype in want:
+        if any(not np_same_bits(r[f"seq_logits_{dtype}"], ranks[0][f"seq_logits_{dtype}"])
+               for r in ranks):
+            raise AssertionError(f"serve mesh sequence-sharded step: the ranks differ ({dtype})")
+    mesh32 = ranks[0]["seq_logits_float32"]
+    err = float(np.abs(mesh32 - want["float32"]).max())
+    np.testing.assert_allclose(mesh32, want["float32"], rtol=2e-3, atol=2e-3)
+    off = {label: float(np.abs(x - want["float32"]).max()) for label, x in (
+        ("mesh", ranks[0]["seq_logits_bfloat16"]), ("one device", want["bfloat16"]))}
+    bf16_gap = float(np.abs(ranks[0]["seq_logits_bfloat16"] - want["bfloat16"]).max())
+    if not off["mesh"] <= SEQ_BF16_RATIO * off["one device"]:
+        raise AssertionError(f"serve mesh sequence-sharded bf16 step: {off['mesh']} off fp32, "
+                             f"above {SEQ_BF16_RATIO} x the one device's {off['one device']}")
+    log(f"check serve mesh sequence-sharded decode step (cache {ranks[0]['seq_spec']}, "
+        f"{ATTN_S} positions, {ATTN_S - 1} filled from a seed; {ranks[0]['seq_cache_elems']:,} "
+        f"k/v elements a rank over the {cfg.n_layers} layers), logits equal on every rank: in "
+        f"fp32 max |mesh - one device| {err:.3g} (the reference's decode bar, rtol and atol "
+        f"2e-3); in bf16 max |x - fp32 one device| mesh {off['mesh']:.3g}, one device "
+        f"{off['one device']:.3g} (bar {SEQ_BF16_RATIO} x the one device's), max |mesh bf16 - "
+        f"one device bf16| {bf16_gap:.3g} (max |logit| "
+        f"{float(np.abs(want['float32']).max()):.3g})")
+    rows = {"bfloat16": loop(cfg, params, payload["seq_prompt"], SEQ_NEW, SEQ_CACHE)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rows["float32"] = loop(cfg32, tree_map(lambda t: t.float(), params), payload["seq_prompt"],
+                           SEQ_NEW, SEQ_CACHE)
+    for rank, r in enumerate(ranks):
+        if not np.array_equal(r["seq_tokens_float32"], rows["float32"]):
+            raise AssertionError(f"serve mesh sequence-sharded loop: rank {rank}'s fp32 tokens "
+                                 f"{r['seq_tokens_float32'].tolist()} differ from "
+                                 f"{rows['float32'].tolist()}")
+    agree = float(np.mean(ranks[0]["seq_tokens_bfloat16"] == rows["bfloat16"]))
+    log(f"check serve mesh sequence-sharded loop: a {SEQ_PROMPT}-token prompt in a "
+        f"{SEQ_CACHE}-position cache ({SEQ_CACHE // SYNC_RANKS} a rank) and {SEQ_NEW} greedy "
+        f"tokens; in fp32 they equal the one-device loop's on every rank; in bf16 {agree:.3f} of "
+        f"them agree with the one-device bf16 loop (in the step above bf16 put the one "
+        f"device {off['one device']:.3g} and the mesh {off['mesh']:.3g} off fp32); host ms per "
+        f"loop "
+        f"{', '.join(f'{r["seq_ms_bfloat16"]:.0f}' for r in ranks)} (bf16), "
+        f"{', '.join(f'{r["seq_ms_float32"]:.0f}' for r in ranks)} (fp32) ({smi})")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def np_same_bits(got, want) -> bool:
+    """Bit-for-bit equality of two numpy arrays (any dtype)."""
+    import numpy as np
+
+    got, want = np.ascontiguousarray(got), np.ascontiguousarray(want)
+    return got.shape == want.shape and np.array_equal(got.reshape(-1).view(np.uint8),
+                                                      want.reshape(-1).view(np.uint8))
+
+
 def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20,
                    unit: str = "round") -> None:
     """Profile ``rounds`` rounds (steps) of ``sim`` after 5 warm-up rounds."""
@@ -2424,23 +3063,43 @@ def main() -> int:
                          timeout=60, check=True).stdout.strip()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+
+    def done(phases: str) -> None:
+        """Where the script's time goes: the clock at the end of each phase."""
+        log(f"chip_smoke: phase {phases} done at {time.perf_counter() - t_start:.1f} s")
+
     ptxas = build_phase()
+    done("1")
     results = kernel_phase(dev)
+    done("2")
     results.update(norm_kernel_phase(dev))
+    done("4")
     launches = slice_phase(dev)
+    done("3")
     launches.update(ops_phase(dev))
     launches.update(sync_phase())
+    done("5-6")
     results.update(attention_phase(dev))
+    done("7")
     launches.update(serve_phase(dev, results))
+    done("8")
     paper, split = paper_phase(dev, smi)
     launches.update(paper)
+    done("9")
     launches.update(telemetry_phase(dev, split))
+    done("10")
     train, train_rows = train_phase(dev, smi)
     launches.update(train)
+    done("11")
     launches.update(moe_phase(dev, smi))
+    done("12")
     ssm_launches, ssm_rows = ssm_phase(dev, smi)
     launches.update(ssm_launches)
+    done("13")
     launches.update(prefix_codebook_phase(dev, smi))
+    done("14")
+    launches.update(mesh_phase(dev, smi))
+    done("15")
     for rows_by_kernel in (train_rows, ssm_rows):
         for name, rows in rows_by_kernel.items():
             results[name].extend(rows)
@@ -2497,7 +3156,7 @@ def main() -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
             **other.get(name, {})))
-    log(f"chip_smoke: phases 1-14 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-15 passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

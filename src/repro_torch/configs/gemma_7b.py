@@ -18,9 +18,9 @@ CONFIG = ModelConfig(
     mlp_kind="geglu",
     tie_embeddings=True,
     fsdp=True,
-    # the tied embed doubles as the LM head: the reference's sharding rules
-    # keep d_model on the model axis and FSDP the 256k vocab rows over data
-    # (carried here as data; the port does not shard yet)
+    # the tied embed doubles as the LM head: the override keeps d_model on
+    # the model axis and FSDP the 256k vocab rows over data
+    # (distributed/sharding.py::overrides_from_config)
     sharding_overrides=(("^embed$", ("data", "model")),),
     momentum_mode="server",
     remat="full",

@@ -1,10 +1,9 @@
 """Packed flat-buffer robust-aggregation engine, on one device or over a
 group of ranks.
 
-Port of ``repro/distributed/packing.py`` without its param-sharded egress.
-Mixing, the Gram stats phase and the combine are linear, so
-the whole stats -> coeff -> combine pipeline runs on one packed
-``[W, n_pad]`` fp32 buffer.
+Port of ``repro/distributed/packing.py``. Mixing, the Gram stats phase
+and the combine are linear, so the whole stats -> coeff -> combine
+pipeline runs on one packed ``[W, n_pad]`` fp32 buffer.
 
 ``GradPacker`` owns the layout: leaves in the reference's order (dict keys
 sorted), each leaf's segment padded up to a multiple of the Gram kernel's
@@ -35,7 +34,12 @@ on it, and ``reshard_out`` replicates the combined row (one all-reduce).
 With ``worker_sharded=True`` each rank holds only its own workers' rows
 (the train step over a group: rank r runs workers ``r W/R .. (r+1) W/R -
 1``), and ``reshard_in`` turns them into the column slice with one
-``all_to_all`` (``shard_kernels.rows_to_cols``).
+``all_to_all`` (``shard_kernels.rows_to_cols``; on a mesh with a
+``model`` axis the rows come from the ranks at model coordinate 0). With
+``out_shardings`` (a ``sharding.Placement`` tree) the egress is the
+param-sharded one, ``unpack_to_shardings``: one more ``all_to_all`` in
+which each rank receives, from the column slices, exactly the elements of
+its own blocks of each leaf; no rank holds the replicated ``[n_pad]`` row.
 CM/TM mix and select column-locally; RFA and CCLIP skip the ``[W, W]``
 Gram and run the fused compositions (one ``residual_norms`` or
 ``cclip_fused_iter`` pass plus an all-reduce of ``[W]`` per iteration);
@@ -55,10 +59,10 @@ from repro_torch.core.aragg import RobustAggregator
 from repro_torch.distributed import shard_kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels.pairwise_gram import TILE_D
-from repro_torch.launch.mesh import n_devices
+from repro_torch.launch.mesh import as_mesh, n_devices
 from repro_torch.telemetry import InflightMetrics, phase
 from repro_torch.telemetry import probes as _probes
-from repro_torch.utils.tree import tree_flatten, tree_unflatten
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -124,16 +128,18 @@ def packer_for(grads_w: Any) -> GradPacker:
 
 
 # -------------------------------------------------------------- collectives
-def reshard_in(buf: torch.Tensor, mesh, worker_sharded: bool = False) -> torch.Tensor:
+def reshard_in(buf: torch.Tensor, mesh, worker_sharded: bool = False,
+               senders=None) -> torch.Tensor:
     """The ingress: this rank's column slice of the packed ``[W, n_pad]``
     buffer (zero-padded to a multiple of the group's size). Where every rank
     holds the whole global stack no collective is needed; with
-    ``worker_sharded`` ``buf`` is this rank's ``[W/R, n_pad]`` rows and one
-    ``all_to_all`` gathers the slice. No-op without a group."""
+    ``worker_sharded`` ``buf`` is this rank's worker rows and one
+    ``all_to_all`` from the ``senders`` gathers the slice
+    (``shard_kernels.rows_to_cols``). No-op without a group."""
     if mesh is None:
         return buf
     if worker_sharded:
-        return shard_kernels.rows_to_cols(buf, mesh)
+        return shard_kernels.rows_to_cols(buf, mesh, senders)
     return shard_kernels.shard_cols(buf, mesh)
 
 
@@ -141,6 +147,106 @@ def reshard_out(vec: torch.Tensor, n: int, mesh) -> torch.Tensor:
     """The replicated egress: the combined ``[n]`` row on every rank, from
     each rank's column slice (one all-reduce). No-op without a group."""
     return vec if mesh is None else shard_kernels.unshard_cols(vec, n, mesh)
+
+
+def _ravel(index: Tuple[int, ...], shape: Tuple[int, ...]) -> int:
+    flat = 0
+    for i, n in zip(index, shape):
+        flat = flat * n + i
+    return flat
+
+
+def _flat_boxes(a: int, b: int, shape: Tuple[int, ...]):
+    """The flat range ``[a, b)`` of a row-major array of ``shape`` as boxes
+    ``(start, stop)``, in flat order; each box (leading indices fixed, one
+    dim ranged, the trailing dims whole) is contiguous in flat order."""
+    if a >= b:
+        return []
+    if not shape:
+        return [((), ())]
+    inner = math.prod(shape[1:])
+    i0, r0 = divmod(a, inner)
+    i1, r1 = divmod(b, inner)
+
+    def row(i, lo, hi):
+        return [((i,) + s, (i + 1,) + e) for s, e in _flat_boxes(lo, hi, shape[1:])]
+
+    if i0 == i1:
+        return row(i0, r0, r1)
+    out = []
+    if r0:
+        out += row(i0, r0, inner)
+        i0 += 1
+    if i1 > i0:
+        out.append(((i0,) + (0,) * (len(shape) - 1), (i1,) + tuple(shape[1:])))
+    if r1:
+        out += row(i1, 0, r1)
+    return out
+
+
+def _egress_pieces(packer: GradPacker, placements, n_local: int, src: int, dst: int):
+    """What rank ``src``'s column slice sends rank ``dst``: for each leaf and
+    each box of the slice within it, the part inside ``dst``'s block, as
+    ``(leaf, box start, box stop, part start, part stop)`` in leaf
+    coordinates, in the order both ranks walk."""
+    for i, (off, size, shape, pl) in enumerate(zip(packer.offsets, packer.sizes,
+                                                   packer.leaf_shapes, placements)):
+        a, b = max(src * n_local - off, 0), min((src + 1) * n_local - off, size)
+        if a >= b:
+            continue
+        block = pl.ranges(shape, dst)
+        for start, stop in _flat_boxes(a, b, shape):
+            lo = tuple(max(s, r[0]) for s, r in zip(start, block))
+            hi = tuple(min(e, r[1]) for e, r in zip(stop, block))
+            if all(x < y for x, y in zip(lo, hi)):
+                yield i, start, stop, lo, hi
+
+
+def unpack_to_shardings(packer: GradPacker, local: torch.Tensor, out_shardings: Any) -> Any:
+    """Param-sharded egress: from this rank's column slice ``local`` of the
+    combined row to its block of every leaf, placed by ``out_shardings``
+    (a ``sharding.Placement`` tree matching the gradients sans worker
+    axis). One ``all_to_all`` (``shard_kernels.exchange``) in which each
+    rank receives exactly the fp32 elements of its own blocks; the
+    replicated ``[n_pad]`` row never exists. The blocks are the replicated
+    egress's leaves, cut, bit for bit."""
+    placements, _ = tree_flatten(out_shardings)
+    if len(placements) != len(packer.sizes):
+        raise ValueError(f"out_shardings has {len(placements)} leaves for a "
+                         f"{len(packer.sizes)}-leaf layout")
+    mesh = placements[0].mesh
+    R, me, n_local = mesh.size, mesh.rank, local.shape[-1]
+    chunks, send_sizes = [], []
+    for q in range(R):
+        n = 0
+        for i, start, stop, lo, hi in _egress_pieces(packer, placements, n_local, me, q):
+            first = packer.offsets[i] + _ravel(start, packer.leaf_shapes[i]) - me * n_local
+            box_shape = tuple(e - s for s, e in zip(start, stop))
+            box = local[first:first + math.prod(box_shape)].view(box_shape)
+            part = box[tuple(slice(x - s, y - s) for x, y, s in zip(lo, hi, start))]
+            chunks.append(part.reshape(-1))
+            n += part.numel()
+        send_sizes.append(n)
+    recv_plan = [list(_egress_pieces(packer, placements, n_local, r, me)) for r in range(R)]
+    recv_sizes = [sum(math.prod(y - x for x, y in zip(lo, hi)) for *_, lo, hi in plan)
+                  for plan in recv_plan]
+    send = torch.cat(chunks) if chunks else local[:0]
+    recv = shard_kernels.exchange(send, send_sizes, recv_sizes, mesh.group)
+    del send, chunks
+    blocks = [torch.empty(pl.local_shape(shape), dtype=torch.float32, device=local.device)
+              for shape, pl in zip(packer.leaf_shapes, placements)]
+    pos = 0
+    for plan in recv_plan:
+        for i, _, _, lo, hi in plan:
+            base = [r[0] for r in placements[i].ranges(packer.leaf_shapes[i])]
+            part_shape = tuple(y - x for x, y in zip(lo, hi))
+            n = math.prod(part_shape)
+            blocks[i][tuple(slice(x - b, y - b) for x, y, b in zip(lo, hi, base))] = \
+                recv[pos:pos + n].view(part_shape)
+            pos += n
+    del recv
+    leaves = [blk.to(dtype) for blk, dtype in zip(blocks, packer.leaf_dtypes)]
+    return tree_unflatten(packer.treedef, leaves)
 
 
 def _mesh_is_trivial(mesh) -> bool:
@@ -167,31 +273,34 @@ def packed_robust_sync(
     runs: CUDA tensors go through the kernels (``use_kernels=True``), CPU
     tensors through the plain versions.
 
-    ``mesh`` is ``None`` (one device) or a process group. Over a group of
-    more than one rank every rank passes the same global stack and the same
-    ``mix`` (keeping ``mix`` the same is the caller's duty, as the
-    replicated ``key`` is in the reference), the kernel route runs sharded
-    (module docstring), and every rank gets the whole result. The
-    param-sharded egress (``out_shardings``) is not ported and raises.
+    ``mesh`` is ``None`` (one device), a process group or a
+    ``launch.mesh.Mesh``. Over more than one rank every rank passes the
+    same global stack and the same ``mix`` (keeping ``mix`` the same is the
+    caller's duty, as the replicated ``key`` is in the reference), the
+    kernel route runs sharded (module docstring), and every rank gets the
+    whole result, or with ``out_shardings`` (a ``sharding.Placement``
+    tree matching the result) its own blocks of it.
     ``worker_sharded=True`` (over a group, kernel route only) means each
-    rank passes only its own workers' rows, ``[W/R, ...]`` leaves, rank r
-    holding workers ``r W/R .. (r+1) W/R - 1``; ``mix`` stays ``[m, W]``.
+    rank passes only its own workers' rows, ``[W/G, ...]`` leaves for G
+    worker groups (``mesh.n_workers``), the ranks of worker group g holding
+    workers ``g W/G .. (g+1) W/G - 1``; ``mix`` stays ``[m, W]``.
     On the Gram route ``info`` holds ``agg_weights`` and
     ``gram_diag_mean``; with ``telemetry=True`` ``info["telemetry"]``
     holds the metrics (module docstring), the same on every rank of a
     group."""
-    if out_shardings is not None:
-        raise NotImplementedError("the param-sharded egress (out_shardings) is not ported")
-    sharded = not _mesh_is_trivial(mesh) and use_kernels
-    group = mesh if sharded else None
-    worker_sharded = worker_sharded and not _mesh_is_trivial(mesh)
+    m = None if mesh is None else as_mesh(mesh)
+    sharded = not _mesh_is_trivial(m) and use_kernels
+    group = m.group if sharded else None
+    worker_sharded = worker_sharded and not _mesh_is_trivial(m)
     if worker_sharded and not use_kernels:
         raise NotImplementedError("worker-sharded rows go through the kernel route only")
     packer = packer_for(grads_w)
     leaves, _ = tree_flatten(grads_w)
     W, device = leaves[0].shape[0], leaves[0].device
-    if worker_sharded:
-        W *= n_devices(group)
+    senders = None
+    if worker_sharded:  # one row group a worker group: model coordinate 0
+        senders = [r for r in range(m.size) if not m.coords_of(r).get("model", 0)]
+        W *= len(senders)
     if packer.n_params == 0:  # degenerate all-empty tree
         return packer.unpack(torch.zeros((packer.n_pad,), device=device)), {}
     if mix is None:
@@ -204,20 +313,26 @@ def packed_robust_sync(
         tm.put("sync_n_params", packer.n_params)
         tm.put("sync_n_pad", packer.n_pad)
         tm.put("sync_ingress_bytes", W * packer.n_pad * 4)
-        tm.put("sync_egress_bytes", packer.n_pad * 4)
+        tm.put("sync_egress_bytes", packer.n_params * 4
+               if (out_shardings is not None and mesh is not None) else packer.n_pad * 4)
 
     def col_sum(t: torch.Tensor) -> torch.Tensor:
         """A probe's sum over this rank's columns -> over all columns."""
         return t if group is None else shard_kernels.all_reduced(t, group)
 
     with phase("pack"):
-        buf = reshard_in(packer.pack(grads_w), group, worker_sharded)  # [W, n_pad / R] fp32
+        buf = reshard_in(packer.pack(grads_w), group, worker_sharded, senders)  # [W, n_pad/R]
 
     def finish(out):
         if tm:
             info["telemetry"] = tm.tree()
         with phase("unpack"):
-            return packer.unpack(reshard_out(out, packer.n_pad, group)), info
+            if out_shardings is not None and group is not None:
+                return unpack_to_shardings(packer, out, out_shardings), info
+            grads = packer.unpack(reshard_out(out, packer.n_pad, group))
+            if out_shardings is not None and m is not None:  # ignored without a mesh
+                grads = tree_map(lambda g, pl: pl.local(g), grads, out_shardings)
+            return grads, info
 
     base = aggregator.base
     if base.coordinatewise:

@@ -13,7 +13,14 @@ Port of ``repro/distributed/robust_sync.py``. Two engines:
   fixed 2048-column tiles (``acc``), the same sum as the packed engine's
   one call, so on one device the two engines agree bit for bit. With the
   default ``use_kernels=False`` it runs plain PyTorch contractions. Over a
-  group of ranks it is not ported and raises.
+  group of ranks its kernel route slices each leaf's ``[W, N_leaf]``
+  columns over all ranks (the reference's ``_colshard``) and runs the
+  sharded kernels of ``shard_kernels.py`` on them: the mix, the Gram
+  chained leaf to leaf through ``acc`` and all-reduced once, CM and TM,
+  the combine; each leaf's result is replicated and, with
+  ``out_shardings``, cut to this rank's block. Column-local rules (CM, TM)
+  equal the packed engine's over the group bit for bit. The plain route
+  runs the one-device contractions on every rank.
 
 Semantics equal ``RobustAggregator`` on the stacked vector.
 """
@@ -25,9 +32,10 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.core.aragg import RobustAggregator
-from repro_torch.distributed import packing
+from repro_torch.distributed import packing, shard_kernels
 from repro_torch.kernels import ops
-from repro_torch.utils.tree import tree_flatten, tree_unflatten
+from repro_torch.launch.mesh import as_mesh
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def _flat32(leaf: torch.Tensor, n_workers: int) -> torch.Tensor:
@@ -39,29 +47,54 @@ def _tree_map(fn, tree: Any) -> Any:
     return tree_unflatten(treedef, [fn(leaf) for leaf in leaves])
 
 
-def tree_gram(grads_w: Any, n_workers: int, use_kernels: bool = False) -> torch.Tensor:
+def _columns(leaf: torch.Tensor, n_workers: int, group) -> torch.Tensor:
+    """A leaf's ``[W, N_leaf]`` fp32 stack, or over a group this rank's
+    column slice of it."""
+    flat = _flat32(leaf, n_workers)
+    return flat if group is None else shard_kernels.shard_cols(flat, group)
+
+
+def _whole(out: torch.Tensor, n: int, group) -> torch.Tensor:
+    """A column-sharded ``[n]`` result replicated (no-op without a group)."""
+    return out if group is None else shard_kernels.unshard_cols(out, n, group)
+
+
+def tree_gram(grads_w: Any, n_workers: int, use_kernels: bool = False,
+              group=None) -> torch.Tensor:
     """Sum over leaves of per-leaf worker Gram matrices -> ``[W, W]`` fp32.
 
     With ``use_kernels`` the per-leaf contributions chain through the Gram
-    kernel's fixed tiles with a carried ``acc``: the packed engine's sum."""
+    kernel's fixed tiles with a carried ``acc``: the packed engine's sum;
+    over a ``group`` each rank chains its column slices, then one
+    all-reduce adds the ranks' partial Grams."""
     leaves, _ = tree_flatten(grads_w)
     gram = torch.zeros((n_workers, n_workers), dtype=torch.float32, device=leaves[0].device)
     for leaf in leaves:
         if leaf.numel() == 0:
             continue
-        flat = _flat32(leaf, n_workers)
-        gram = ops.gram(flat, acc=gram) if use_kernels else gram + flat @ flat.T
+        if use_kernels:
+            gram = ops.gram(_columns(leaf, n_workers, group), acc=gram)
+        else:
+            flat = _flat32(leaf, n_workers)
+            gram = gram + flat @ flat.T
+    if use_kernels and group is not None:
+        gram = shard_kernels.all_reduced(gram, group)
     return gram
 
 
-def tree_combine(grads_w: Any, weights: torch.Tensor, use_kernels: bool = False) -> Any:
+def tree_combine(grads_w: Any, weights: torch.Tensor, use_kernels: bool = False,
+                 group=None) -> Any:
     """Per-leaf weighted combination over the worker axis."""
     def one(leaf):
         if leaf.numel() == 0:  # guard BEFORE reshape(W, -1)
             return torch.zeros(leaf.shape[1:], dtype=leaf.dtype, device=leaf.device)
-        flat = _flat32(leaf, leaf.shape[0])
-        out = (ops.mix_apply(weights[None, :].contiguous(), flat)[0] if use_kernels
-               else weights @ flat)
+        if use_kernels:
+            w, local = weights[None, :].contiguous(), _columns(leaf, leaf.shape[0], group)
+            mixed = (ops.mix_apply(w, local) if group is None
+                     else shard_kernels.mix_apply(w, local, group))
+            out = _whole(mixed[0], leaf[0].numel(), group)
+        else:
+            out = weights @ _flat32(leaf, leaf.shape[0])
         return out.reshape(leaf.shape[1:]).to(leaf.dtype)
 
     return _tree_map(one, grads_w)
@@ -83,8 +116,10 @@ def tree_mix(grads_w: Any, mix_matrix: torch.Tensor, use_kernels: bool = False) 
 
 
 def _per_leaf_sync(grads_w: Any, aggregator: RobustAggregator, mix: torch.Tensor,
-                   use_kernels: bool, telemetry: bool = False) -> Tuple[Any, dict]:
-    """The per-leaf engine (module docstring).
+                   use_kernels: bool, telemetry: bool = False,
+                   group=None) -> Tuple[Any, dict]:
+    """The per-leaf engine (module docstring); ``group``: the ranks the
+    kernel route's columns are sliced over (``None``: one device).
 
     ``telemetry=True`` adds ``info["telemetry"]`` from the Gram-space probes
     (non-coordinatewise rules only — the coordinatewise route has no stacked
@@ -94,6 +129,7 @@ def _per_leaf_sync(grads_w: Any, aggregator: RobustAggregator, mix: torch.Tensor
     n_workers = leaves[0].shape[0]
     info: dict = {}
     base = aggregator.base
+    group = group if use_kernels else None
 
     if base.coordinatewise:
         if not use_kernels:
@@ -104,25 +140,37 @@ def _per_leaf_sync(grads_w: Any, aggregator: RobustAggregator, mix: torch.Tensor
         def one(leaf):
             if leaf.numel() == 0:  # guard BEFORE reshape(W, -1)
                 return torch.zeros(leaf.shape[1:], dtype=leaf.dtype, device=leaf.device)
-            mixed = ops.mix_apply(mix, _flat32(leaf, n_workers))
-            if base.name == "cm":
-                out = ops.cm_aggregate(mixed)
-            elif base.name == "tm":
-                out = ops.tm_aggregate(mixed, min(base.n_trim, (mixed.shape[0] - 1) // 2))
+            local = _columns(leaf, n_workers, group)
+            if group is None:
+                mixed = ops.mix_apply(mix, local)
+                if base.name == "cm":
+                    out = ops.cm_aggregate(mixed)
+                elif base.name == "tm":
+                    out = ops.tm_aggregate(mixed, min(base.n_trim, (mixed.shape[0] - 1) // 2))
+                else:
+                    out = base.combine_leaf(mixed)
             else:
-                out = base.combine_leaf(mixed)
+                mixed = shard_kernels.mix_apply(mix, local, group)
+                if base.name == "cm":
+                    out = shard_kernels.cm_aggregate(mixed, group)
+                elif base.name == "tm":
+                    out = shard_kernels.tm_aggregate(
+                        mixed, min(base.n_trim, (mixed.shape[0] - 1) // 2), group)
+                else:
+                    out = shard_kernels.coordinatewise_combine(mixed, group, base.combine_leaf)
+                out = _whole(out, leaf[0].numel(), group)
             return out.reshape(leaf.shape[1:]).to(leaf.dtype)
 
         return _tree_map(one, grads_w), info
 
-    gram = tree_gram(grads_w, n_workers, use_kernels=use_kernels)
+    gram = tree_gram(grads_w, n_workers, use_kernels=use_kernels, group=group)
     if telemetry:
         weights, info["telemetry"] = aggregator.worker_weights_and_stats_from_gram(gram, mix=mix)
     else:
         weights = aggregator.worker_weights_from_gram(gram, mix=mix)
     info["agg_weights"] = weights
     info["gram_diag_mean"] = torch.mean(torch.diagonal(gram))
-    return tree_combine(grads_w, weights, use_kernels=use_kernels), info
+    return tree_combine(grads_w, weights, use_kernels=use_kernels, group=group), info
 
 
 def robust_gradient_sync(
@@ -143,8 +191,9 @@ def robust_gradient_sync(
     without it); over a group every rank passes the same one. ``mesh`` is
     ``None`` or a ``torch.distributed`` process group (``launch/mesh.py``).
     ``use_kernels=None`` resolves to the kernels for the packed engine and
-    to plain PyTorch for the per-leaf engine. ``out_shardings`` (the
-    param-sharded egress) is not ported and raises. ``telemetry=True``
+    to plain PyTorch for the per-leaf engine. ``out_shardings`` (a
+    ``sharding.Placement`` tree) returns this rank's blocks of the result:
+    the param-sharded egress. ``telemetry=True``
     adds the metrics as ``info["telemetry"]`` (``packing.py``).
     ``worker_sharded=True``: over a group each rank passes only its own
     workers' rows (``packing.packed_robust_sync``)."""
@@ -156,10 +205,15 @@ def robust_gradient_sync(
             worker_sharded=worker_sharded)
     if engine != "per_leaf":
         raise ValueError(f"unknown sync engine {engine!r}")
-    if not packing._mesh_is_trivial(mesh) or out_shardings is not None or worker_sharded:
-        raise NotImplementedError("the per-leaf engine runs on one device only")
+    if worker_sharded:
+        raise NotImplementedError("worker-sharded rows go through the packed engine")
+    group = None if packing._mesh_is_trivial(mesh) else as_mesh(mesh).group
     leaves, _ = tree_flatten(grads_w)
     device = leaves[0].device
     mix = (aggregator.mixer.matrix(leaves[0].shape[0], device=device) if mix is None
            else mix.to(device=device, dtype=torch.float32).contiguous())
-    return _per_leaf_sync(grads_w, aggregator, mix, bool(use_kernels), telemetry=telemetry)
+    out, info = _per_leaf_sync(grads_w, aggregator, mix, bool(use_kernels),
+                               telemetry=telemetry, group=group)
+    if out_shardings is not None and mesh is not None:  # ignored without a mesh
+        out = tree_map(lambda g, pl: pl.local(g), out, out_shardings)
+    return out, info

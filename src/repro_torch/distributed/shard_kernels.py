@@ -17,12 +17,13 @@ reference's ``shard_map`` body receives:
 ``shard_cols`` lays a global ``[..., n]`` tensor out this way (``_pad_cols``
 first zero-pads ``n`` up to a multiple of the group's size, so slices are
 equal; zero columns add 0 to every reduction); ``rows_to_cols`` does it for
-a stack whose worker rows are spread over the ranks (one ``all_to_all``:
-the reference's ``_colshard`` of a worker-sharded stack); ``unshard_cols``
-replicates a column-sharded result: one ``all_reduce`` of a zero-filled row
-into which each rank has written its own slice (gloo has no CUDA
-``all_gather``; adding zeros is exact). The collectives run on the tensors'
-own device: nothing is staged through the host here.
+a stack whose worker rows are spread over the ranks (one ``all_to_all``,
+``exchange``: the reference's ``_colshard`` of a worker-sharded stack);
+``unshard_cols`` replicates a column-sharded result: one ``all_reduce`` of
+a zero-filled row into which each rank has written its own slice (gloo has
+no CUDA ``all_gather``; adding zeros is exact). The all-reduces run on the
+tensors' own device; gloo's ``all_to_all`` is staged through the host
+(``exchange``).
 
 Numerics: the ranks' partial sums are added in the collective's order, so
 reductions match the single-device kernels to fp32 tolerance, not bit for
@@ -31,7 +32,7 @@ bit. Column-local results do match bit for bit.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -59,27 +60,45 @@ def shard_cols(x: torch.Tensor, group) -> torch.Tensor:
     return x[..., r * n_local:(r + 1) * n_local].contiguous()
 
 
-def rows_to_cols(rows: torch.Tensor, group) -> torch.Tensor:
-    """The worker-sharded ingress: from this rank's rows ``[W/R, n]`` of a
-    global ``[W, n]`` stack (rank r holds rows ``r W/R .. (r+1) W/R - 1``)
-    to its column slice ``[W, n_up/R]`` of the zero-padded stack, bit for
-    bit ``shard_cols`` of the global stack, through one ``all_to_all``:
-    column block d of this rank's rows goes to rank d.
+def exchange(send: torch.Tensor, send_sizes, recv_sizes, group) -> torch.Tensor:
+    """One ``all_to_all``: ``send`` holds, in rank order, ``send_sizes[q]``
+    elements for each rank q; the result holds ``recv_sizes[r]`` from each
+    rank r, in rank order, on ``send``'s device.
 
     gloo's ``all_to_all`` takes CPU tensors only: handed a CUDA tensor it
     writes the device pointer to its socket and the process aborts
     (``writev ... Bad address``; torch 2.11 with CUDA 12.8 on an H100). So
-    under gloo the exchange always runs on a host copy of the blocks; any
-    other backend exchanges on the tensors' own device."""
+    under gloo the exchange always runs on a host copy; any other backend
+    exchanges on the tensors' own device."""
+    host = dist.get_backend(group) == "gloo" and send.device.type != "cpu"
+    src = send.cpu() if host else send
+    recv = torch.empty(sum(recv_sizes), dtype=send.dtype, device=src.device)
+    dist.all_to_all_single(recv, src.contiguous(), list(recv_sizes), list(send_sizes),
+                           group=group)
+    return recv.to(send.device)
+
+
+def rows_to_cols(rows: torch.Tensor, group, senders: Optional[Sequence[int]] = None
+                 ) -> torch.Tensor:
+    """The worker-sharded ingress: from this rank's rows ``[w, n]`` of a
+    global ``[W, n]`` stack to its column slice ``[W, n_up/R]`` of the
+    zero-padded stack, bit for bit ``shard_cols`` of the global stack,
+    through one ``all_to_all``: column block d of this rank's rows goes to
+    rank d. ``senders`` (all ranks by default), in rank order, hold the
+    stack's rows ``i w .. (i+1) w - 1``, i their place in ``senders``;
+    the other ranks' rows are not sent (the ranks of one worker's model
+    group hold the same rows)."""
     R = n_devices(group)
+    senders = list(range(R)) if senders is None else list(senders)
     rows, _ = _pad_cols(rows, group)
     w, n = rows.shape
-    send = rows.reshape(w, R, n // R).transpose(0, 1).contiguous()  # [R, w, n/R]
-    if dist.get_backend(group) == "gloo":
-        send = send.cpu()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return recv.reshape(R * w, n // R).to(rows.device)
+    per = w * (n // R)  # the elements one sender sends each rank
+    sends = dist.get_rank(group) in senders
+    send = (rows.reshape(w, R, n // R).transpose(0, 1).reshape(-1) if sends  # [R, w, n/R]
+            else rows[:0].reshape(-1))
+    recv = exchange(send, [per if sends else 0] * R,
+                    [per if r in senders else 0 for r in range(R)], group)
+    return recv.reshape(len(senders) * w, n // R)
 
 
 def unshard_cols(local: torch.Tensor, n: int, group) -> torch.Tensor:

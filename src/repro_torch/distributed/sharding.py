@@ -1,0 +1,267 @@
+"""Sharding rules and placements over a mesh of ranks (port of
+``repro/distributed/sharding.py``).
+
+The rules are the reference's, entry for entry:
+
+- tensor ("model") axis: the largest dim divisible by the model-axis size
+  (prefers the last dims, the d_ff / head / expert-shaped ones);
+- optional FSDP: among the remaining dims, the largest one divisible by
+  the combined (pod, data) size, or else by data alone, is sharded over
+  those axes (params, grads and optimizer state all follow one spec);
+- leaves under "blocks" carry a leading period axis, never sharded;
+- decode caches: batch over the workers; for batch-1 long contexts the
+  cache length shards over the data axis (sequence parallelism for the KV
+  cache) and the heads over the model axis where they divide.
+
+Per-arch overrides replace the inferred spec: ``overrides={path_regex:
+spec}``, matched with ``re.search`` against the leaf's path string
+(``utils.tree.tree_flatten_with_path``).
+
+A spec is a tuple with one entry per dim: ``None``, an axis name, or a
+tuple of axis names (the major axis first), the counterpart of JAX's
+``PartitionSpec``. A ``Placement(mesh, spec)`` takes the place of a
+``NamedSharding``: ``local(full)`` cuts this rank's block out of a whole
+tensor, ``gather(block)`` rebuilds the whole tensor on every rank, and
+``local_shape(shape)`` is the block's shape. The rules only put a dim on
+axes whose sizes divide it, so every block is even; a placement that
+would be uneven raises. Rule functions read only ``mesh.axis_names`` and
+``mesh.shape``; ``local`` and ``gather`` need a ``launch.mesh.Mesh``.
+
+The collectives copy bytes and add nothing, so a gathered tensor is the
+whole tensor bit for bit. gloo's ``all_gather`` takes CPU tensors only, so
+under gloo a CUDA block is staged through host memory, as
+``shard_kernels.rows_to_cols`` stages the ingress.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import worker_axes
+from repro_torch.utils.tree import tree_map, tree_map_with_path
+
+Spec = Tuple[Any, ...]
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _gather_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Concatenate along ``dim`` the equal blocks ``t`` of every rank of
+    ``group``, in the group's rank order (a byte-exact ``all_gather``)."""
+    n = dist.get_world_size(group)
+    stage = dist.get_backend(group) == "gloo" and t.device.type != "cpu"
+    src = t.contiguous()
+    flat = (src.cpu() if stage else src).reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(parts, flat, group=group)
+    shape = list(t.shape)
+    shape[dim] *= n
+    out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    b = t.shape[dim]
+    for i, part in enumerate(parts):
+        out.narrow(dim, i * b, b).copy_(part.view(t.dtype).reshape(t.shape))
+    return out
+
+
+class Placement:
+    """Where each block of a tensor lives on ``mesh`` (module docstring)."""
+
+    def __init__(self, mesh, spec: Sequence[Any]):
+        self.mesh = mesh
+        self.spec: Spec = tuple(spec)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"Placement{self.spec}"
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        return _entry_axes(self.spec[dim]) if dim < len(self.spec) else ()
+
+    def parts(self, dim: int) -> int:
+        """How many blocks ``dim`` is cut into."""
+        return math.prod(self.mesh.shape[a] for a in self.axes(dim))
+
+    def ranges(self, shape: Sequence[int], rank: Optional[int] = None):
+        """``[(start, stop), ...]`` per dim: the block of ``rank`` (this
+        rank by default) in a tensor of ``shape``."""
+        coords = self.mesh.coords if rank is None else self.mesh.coords_of(rank)
+        out = []
+        for d, n in enumerate(shape):
+            k = self.parts(d)
+            if n % k:
+                raise ValueError(f"placement {self.spec}: dim {d} of {tuple(shape)} does not "
+                                 f"split into {k} even blocks")
+            idx = 0
+            for a in self.axes(d):  # mixed radix, the first axis major
+                idx = idx * self.mesh.shape[a] + coords[a]
+            b = n // k
+            out.append((idx * b, (idx + 1) * b))
+        return out
+
+    def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        return tuple(e - s for s, e in self.ranges(shape))
+
+    def sharded_dims(self, ndim: int) -> Tuple[int, ...]:
+        return tuple(d for d in range(ndim) if self.parts(d) > 1)
+
+    def local(self, full: torch.Tensor, dims: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """This rank's block of ``full`` (only ``dims`` cut, if given): a
+        copy of its own, so that ``full`` can be freed, or ``full`` itself
+        where nothing is cut."""
+        cut = [d for d in self.sharded_dims(full.dim()) if dims is None or d in dims]
+        if not cut:
+            return full
+        ranges = self.ranges(full.shape)
+        index = tuple(slice(*ranges[d]) if d in cut else slice(None) for d in range(full.dim()))
+        return full[index].clone()
+
+    def gather(self, block: torch.Tensor, dims: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """The whole tensor from every rank's block (only ``dims``
+        gathered, if given), on every rank: one ``all_gather`` over each
+        axis a dim names, the minor axis first."""
+        out = block
+        for d in self.sharded_dims(block.dim()):
+            if dims is not None and d not in dims:
+                continue
+            for a in reversed(self.axes(d)):
+                group = self.mesh.axis_group(a)
+                if group is not None:
+                    out = _gather_along(out, d, group)
+        return out
+
+
+# ------------------------------------------------------------------- rules
+def _pick_dim(shape, size: int, taken: set, start: int = 0) -> Optional[int]:
+    """Largest dim (index >= start, not taken) divisible by ``size``."""
+    best, best_dim = -1, None
+    for i in range(start, len(shape)):
+        if i in taken:
+            continue
+        if shape[i] % size == 0 and shape[i] >= size and shape[i] > best:
+            best, best_dim = shape[i], i
+    return best_dim
+
+
+def infer_param_spec(path_str: str, shape, mesh, fsdp: bool = False) -> Spec:
+    axes = dict(mesh.shape)
+    model_size = axes.get("model", 1)
+    start = 1 if path_str.startswith("blocks") and len(shape) > 1 else 0
+    spec = [None] * len(shape)
+    taken: set = set()
+
+    m_dim = _pick_dim(shape, model_size, taken, start)
+    if m_dim is not None and model_size > 1:
+        spec[m_dim] = "model"
+        taken.add(m_dim)
+
+    if fsdp:
+        w_axes = tuple(a for a in ("pod", "data") if a in axes)
+        combined = math.prod(axes[a] for a in w_axes)
+        f_dim = _pick_dim(shape, combined, taken, start)
+        if f_dim is not None and combined > 1:
+            spec[f_dim] = w_axes if len(w_axes) > 1 else w_axes[0]
+            taken.add(f_dim)
+        elif "data" in axes:  # fall back to data-only FSDP
+            f_dim = _pick_dim(shape, axes["data"], taken, start)
+            if f_dim is not None and axes["data"] > 1:
+                spec[f_dim] = "data"
+    return tuple(spec)
+
+
+def overrides_from_config(cfg) -> Dict[str, Spec]:
+    """Decode ``ModelConfig.sharding_overrides``, nested tuples
+    ``((path_regex, spec_entries), ...)``, into the ``{regex: spec}``
+    mapping ``param_shardings`` takes. Each spec entry is an axis name, a
+    tuple of axis names, or None."""
+    return {
+        pat: tuple(tuple(e) if isinstance(e, (tuple, list)) else e for e in entries)
+        for pat, entries in getattr(cfg, "sharding_overrides", ()) or ()
+    }
+
+
+def param_shardings(params, mesh, fsdp: bool = False,
+                    overrides: Optional[Dict[str, Spec]] = None):
+    """A ``Placement`` tree matching ``params`` (tensors or anything with a
+    ``.shape``, such as ``steps.TensorSpec``)."""
+    overrides = overrides or {}
+
+    def one(path, leaf):
+        for pat, spec in overrides.items():
+            if re.search(pat, path):
+                return Placement(mesh, spec)
+        return Placement(mesh, infer_param_spec(path, tuple(leaf.shape), mesh, fsdp))
+
+    return tree_map_with_path(one, params)
+
+
+def batch_spec(mesh) -> Spec:
+    """Global batch dim over all worker axes."""
+    w = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return (w if len(w) > 1 else (w[0] if w else None),)
+
+
+def worker_grad_spec(param_placement: Placement, mesh) -> Placement:
+    """Placement of a ``[W, ...]``-stacked gradient leaf: worker axes on
+    dim 0, the param's "model" placements kept, its FSDP placements
+    dropped."""
+    w = worker_axes(mesh)
+    kept = tuple(s if s == "model" else None for s in param_placement.spec)
+    return Placement(mesh, (w if len(w) > 1 else w[0],) + kept)
+
+
+def constrain_worker_tree(tree, params_sh, mesh):
+    """Each ``[W, ...]`` leaf of ``tree`` placed by its worker-stacked
+    spec: this rank's block of it (the reference constrains the traced
+    program; here the block is cut)."""
+    return tree_map(lambda leaf, sh: worker_grad_spec(sh, mesh).local(leaf), tree, params_sh)
+
+
+def cache_shardings(cache, mesh, batch: int):
+    """Decode-cache placements. Leaves: [period, B, L, KV, dh] (attn k/v),
+    [period, B, K-1, C] (conv), [period, B, H, P, N] (ssm state)."""
+    axes = dict(mesh.shape)
+    w_axes = tuple(a for a in ("pod", "data") if a in axes)
+    n_work = math.prod(axes[a] for a in w_axes)
+    model_size = axes.get("model", 1)
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        spec = [None] * len(shape)
+        # dim 0 = period axis (never sharded); dim 1 = batch
+        if batch % n_work == 0 and batch >= n_work:
+            spec[1] = w_axes if len(w_axes) > 1 else w_axes[0]
+            # shard heads/channels over model where divisible
+            d = _pick_dim(shape, model_size, {0, 1}, 2)
+            if d is not None:
+                spec[d] = "model"
+        else:
+            # batch-1 long-context: sequence-shard the cache over data,
+            # heads over model where divisible.
+            last = path.split("/")[-1]
+            if ("k" in last or "v" in last) and len(shape) == 5:
+                if shape[2] % axes.get("data", 1) == 0:
+                    spec[2] = "data"
+                if shape[3] % model_size == 0 and shape[3] >= model_size:
+                    spec[3] = "model"
+            else:
+                d = _pick_dim(shape, model_size, {0, 1}, 2)
+                if d is not None:
+                    spec[d] = "model"
+        return Placement(mesh, spec)
+
+    return tree_map_with_path(one, cache)
+
+
+def local_zeros(specs, placements, device=None):
+    """Zero blocks for a tree of ``TensorSpec``s placed by ``placements``:
+    this rank's share of, say, ``make_serve_step``'s cache."""
+    return tree_map(lambda s, pl: torch.zeros(pl.local_shape(s.shape), dtype=s.dtype,
+                                              device=device), specs, placements)

@@ -1,4 +1,5 @@
-"""Train and serving-prefill steps (port of ``repro/distributed/steps.py``).
+"""Train, serving-prefill and decode steps (port of
+``repro/distributed/steps.py``).
 
 Workers are data-parallel groups: the global batch's leading axis splits
 into W worker shards; each worker's gradient comes from one forward and
@@ -8,50 +9,66 @@ no cross-worker reduction. The paper's mixing + robust aggregation then
 REPLACES the gradient all-reduce (``robust_gradient_sync`` with the packed
 engine and its kernels), and the optimizer update runs.
 
-``mesh=None`` runs all W workers on one device. Over a
-``torch.distributed`` group of R ranks (``launch/mesh.py``) rank r runs
-workers ``r W/R .. (r+1) W/R - 1`` and keeps only their momenta; the
-packed sync takes the rows worker-sharded (one ``all_to_all`` in), runs
-the sharded kernels on column slices (``shard_kernels.py``) and
-replicates the aggregate (one all-reduce out), and every rank applies the
-same optimizer update to its replicated parameters.
+``mesh=None`` runs all W workers on one device. Over a mesh of R ranks
+(``launch/mesh.py``: a ``Mesh``, or a bare ``torch.distributed`` group,
+the mesh ``("data",)``) the workers split over the worker axes (``pod``,
+``data``): the G = ``n_workers(mesh)`` worker groups run workers
+``g W/G .. (g+1) W/G - 1`` each, every rank of a group (its ``model``
+ranks) the same ones, and keep only their momenta. The packed sync takes
+the rows worker-sharded (one ``all_to_all`` in, from the ranks at model
+coordinate 0: CUDA's embedding backward adds atomically, so the ranks of
+one group may differ in the last bit) and runs the sharded kernels on
+column slices over all R ranks (``shard_kernels.py``).
+
+Parameters live as the placements of ``sharding.param_shardings(...,
+fsdp=cfg.fsdp, overrides=overrides_from_config(cfg))`` say
+(``state["shardings"]``): each rank holds only its blocks of the
+parameters and of the optimizer moments (the step counter replicated).
+A step gathers the leaves for the workers' forward and backward and frees
+them after; the sync's egress is the param-sharded ``unpack_to_shardings``
+for an fsdp config, the replicated row (then cut) for any other, as in
+the reference; and the optimizer, elementwise, updates the blocks, so the
+bits are the replicated step's. The model axis shards storage (parameters,
+the sync's columns, cache heads); compute along it stays gathered.
+
+Serving: ``make_prefill_step`` splits the batch rows over the worker axes
+(``batch_shardings``), and each rank prefills its own. ``make_serve_step``
+decodes one token against a cache placed by ``sharding.cache_shardings``:
+batch-sharded (each rank its own rows), or for a batch smaller than the
+workers sequence-sharded over ``data`` with the heads over ``model``,
+where each rank attends over its own positions and the partial softmax
+statistics are combined across ranks (``_softmax_across``).
 
 Momentum modes (the reference's DESIGN.md §5):
-  worker : Algorithm 2, per-worker momentum leaves [W, ...] (fp32)
+  worker : Algorithm 2, per-worker momentum leaves [W, ...] (fp32), held
+           whole by the ranks of the worker's group
   server : Remark 7, raw per-worker grads robust-aggregated, momentum in
            the optimizer state.
-
-FSDP configs (``cfg.fsdp``) run on one rank: there the reference's
-param-sharded egress places every leaf whole, so the step is the
-replicated one, bit for bit. Not ported: that egress over R > 1 ranks
-(``packing.unpack_to_shardings``), the mesh-sharded prefill and the decode
-step; they raise.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.distributed.robust_sync import robust_gradient_sync
-from repro_torch.launch.mesh import n_devices
+from repro_torch.distributed.sharding import (Placement, batch_spec, cache_shardings,
+                                              overrides_from_config, param_shardings)
+from repro_torch.launch.mesh import as_mesh, worker_axes
+from repro_torch.launch.mesh import n_workers as mesh_n_workers
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import make_optimizer
+from repro_torch.optim.optimizers import OptState
 from repro_torch.telemetry import phase
-from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils.tree import (TensorSpec, tree_flatten, tree_flatten_with_path, tree_map,
+                                    tree_map_with_path, tree_unflatten)
 
 
 # ------------------------------------------------------------- input specs
-class TensorSpec(NamedTuple):
-    """Shape and dtype of one model input (``jax.ShapeDtypeStruct``'s place)."""
-
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
-
-
 def input_specs(cfg, shape) -> Dict[str, TensorSpec]:
     """Stand-ins for every model input of this ``InputShape``."""
     B, S = shape.global_batch, shape.seq_len
@@ -65,6 +82,37 @@ def input_specs(cfg, shape) -> Dict[str, TensorSpec]:
         return specs
     # decode: ONE new token against a seq_len cache
     return {"token": TensorSpec((B, cfg.n_codebooks) if cfg.n_codebooks else (B,), i32)}
+
+
+def _rows_entry(mesh, n: int):
+    """The spec entry of a batch dim of ``n`` rows: the worker axes where
+    the worker groups divide it, else ``None`` (every rank all rows)."""
+    G = mesh_n_workers(mesh)
+    return batch_spec(mesh)[0] if n % G == 0 and n >= G else None
+
+
+def batch_shardings(cfg, shape, mesh) -> Dict[str, Placement]:
+    """A ``Placement`` for every model input of this ``InputShape``: the
+    batch dim over the worker axes where they divide it."""
+    return {k: Placement(mesh, (_rows_entry(mesh, v.shape[0]),) + (None,) * (len(v.shape) - 1))
+            for k, v in input_specs(cfg, shape).items()}
+
+
+def gather_batch(local: torch.Tensor, mesh, batch: int) -> torch.Tensor:
+    """The whole ``[batch, ...]`` tensor on every rank from each rank's rows
+    (a prefill's or decode step's logits), as ``batch_shardings`` split the
+    ``batch`` rows."""
+    pl = Placement(as_mesh(mesh), (_rows_entry(as_mesh(mesh), batch),))
+    return pl.gather(local)
+
+
+def _worker_group(mesh) -> int:
+    """This rank's worker-group index: its coordinates on the worker axes,
+    row-major."""
+    g = 0
+    for a in worker_axes(mesh):
+        g = g * mesh.shape[a] + mesh.coords[a]
+    return g
 
 
 # -------------------------------------------------------------- train step
@@ -82,38 +130,53 @@ def make_train_step(
     ``step_fn(params, opt_state, worker_m, mix, batch) ->
     (params, opt_state, worker_m, metrics)``.
 
-    ``n_workers`` is W (0: one worker a rank). ``mix`` is the round's
-    ``[m, W]`` mixing matrix (``aggregator.mixing_matrix``), the same on
-    every rank, in the place of the reference's ``key``; ``None`` is the
-    reference's ``key=None`` (the identity permutation). ``batch`` holds
-    the global ``[B_global, ...]`` "tokens" and "labels" on every rank.
-    ``worker_m`` (this rank's workers, leaves ``[W/R, ...]`` fp32; ``{}``
-    when worker momentum is off) is updated in place, as the optimizer's
-    moments are (``optim/optimizers.py``), and returned. ``metrics`` holds
-    the mean loss over all W workers and, with ``telemetry=True``, the
-    sync's metrics under ``"telemetry"``.
+    ``n_workers`` is W (0: one worker a worker group). ``mix`` is the
+    round's ``[m, W]`` mixing matrix (``aggregator.mixing_matrix``), the
+    same on every rank, in the place of the reference's ``key``; ``None``
+    is the reference's ``key=None`` (the identity permutation). ``batch``
+    holds the global ``[B_global, ...]`` "tokens" and "labels" on every
+    rank. ``params`` and ``opt_state`` are this rank's blocks
+    (``state["shardings"]``; whole tensors without a mesh). ``worker_m``
+    (this rank's workers, leaves ``[W/G, ...]`` fp32; ``{}`` when worker
+    momentum is off) is updated in place, as the optimizer's moments are
+    (``optim/optimizers.py``), and returned. ``metrics`` holds the mean
+    loss over all W workers and, with ``telemetry=True``, the sync's
+    metrics under ``"telemetry"``.
 
     ``state["worker_m"]`` describes the worker momenta (``{}`` when off, so
     ``if state["worker_m"]`` reads as in the reference);
     ``state["init_params"](generator)``, ``state["init_opt_state"](params)``
-    and ``state["init_worker_m"](params)`` build the arguments in the
-    reference's shapes on ``device``."""
+    and ``state["init_worker_m"](params)`` build the arguments on
+    ``device``, this rank's blocks of them on a mesh;
+    ``state["shardings"]`` (``None`` without a mesh) holds the
+    ``Placement`` trees of ``params``, ``opt_state`` and ``worker_m`` and
+    ``params_shape``, the ``TensorSpec`` tree."""
     dev = resolve_device(device)
-    R = 1 if mesh is None else n_devices(mesh)
-    W = n_workers or R
-    if W % R:
-        raise ValueError(f"{W} workers do not split over {R} ranks")
-    if cfg.fsdp and R > 1:
-        raise NotImplementedError("the param-sharded egress (FSDP) over more than one rank is "
-                                  "queued in ROADMAP.md, Queue 1")
-    w_local = W // R
-    first = 0 if R == 1 else dist.get_rank(mesh) * w_local
+    m = None if mesh is None else as_mesh(mesh)
+    G = 1 if m is None else mesh_n_workers(m)
+    W = n_workers or G
+    if W % G:
+        raise ValueError(f"{W} workers do not split over {G} ranks' worker groups")
+    w_local = W // G
+    first = 0 if m is None else _worker_group(m) * w_local
+    # the ranks at model coordinate 0 speak for their worker group in sums
+    speaks = m is None or not m.coords.get("model", 0)
     aggregator = byz.make_aggregator(W)
     opt_init, opt_update = make_optimizer(optimizer, lr=lr, beta1=byz.worker_momentum or 0.9,
                                           m_dtype=cfg.opt_m_dtype)
     use_worker_momentum = cfg.momentum_mode == "worker" and byz.worker_momentum > 0
     is_plain_mean = byz.aggregator in ("mean", "avg") and byz.mixing in ("none", "")
     beta = byz.worker_momentum
+    params_shape = None if m is None else tfm.params_shape(cfg)
+    placements = None if m is None else param_shardings(
+        params_shape, m, fsdp=cfg.fsdp, overrides=overrides_from_config(cfg))
+    # the param-sharded egress for fsdp configs; the replicated row, then
+    # cut, for the rest (the reference's egress_sh)
+    egress = placements if (cfg.fsdp and m is not None and m.size > 1) else None
+
+    def blocks(tree):
+        return tree if placements is None else tree_map(lambda x, pl: pl.local(x), tree,
+                                                        placements)
 
     def worker_batches(batch):
         """This rank's workers' rows: ``[B_global, ...] -> [W, b_local, ...]``
@@ -132,21 +195,26 @@ def make_train_step(
             grads = torch.autograd.grad(loss, live, materialize_grads=True)
         return loss.detach(), grads
 
-    def mean_loss(losses):
-        if R == 1:
-            return torch.mean(torch.stack(losses))
-        total = torch.sum(torch.stack(losses))
-        dist.all_reduce(total, group=mesh)
-        return total / W
+    def group_sum(t):
+        """``t`` summed over the worker groups (in place)."""
+        if m is not None and m.size > 1:
+            if not speaks:
+                t.zero_()
+            dist.all_reduce(t, group=m.group)
+        return t
 
     def step_fn(params, opt_state, worker_m, mix, batch):
-        leaves, treedef = tree_flatten(params)
+        with phase("gather"):
+            whole = params if placements is None else tree_map(lambda b, pl: pl.gather(b),
+                                                               params, placements)
+        leaves, treedef = tree_flatten(whole)
+        del whole
         live = [p.detach().requires_grad_() for p in leaves]
         p_live = tree_unflatten(treedef, live)
         losses = []
         if is_plain_mean and not use_worker_momentum:
             # BASELINE: the mean gradient over all W workers (the paper's Avg),
-            # summed in fp32 over this rank's workers, then over the ranks
+            # summed in fp32 over this rank's workers, then over the groups
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             for b in worker_batches(batch):
                 loss, grads = one_worker(p_live, live, b)
@@ -154,12 +222,10 @@ def make_train_step(
                 for a, g in zip(acc, grads):
                     a.add_(g.float())
                 del grads
-            if R > 1:
-                for a in acc:
-                    dist.all_reduce(a, group=mesh)
-            agg_grads = tree_unflatten(treedef, [(a / W).to(p.dtype)
-                                                 for a, p in zip(acc, leaves)])
-            del acc
+            del live, p_live
+            agg_grads = blocks(tree_unflatten(treedef, [
+                (group_sum(a) / W).to(p.dtype) for a, p in zip(acc, leaves)]))
+            del acc, leaves
             info = {}
         else:
             if use_worker_momentum:
@@ -177,17 +243,20 @@ def make_train_step(
                         else:
                             row[w].copy_(g)
                 del grads
+            del live, p_live, leaves  # the gathered parameters
             messages = worker_m if use_worker_momentum else tree_unflatten(treedef, rows)
             del rows
             with phase("sync"):
                 agg_grads, info = robust_gradient_sync(
-                    messages, aggregator, mix=mix, mesh=mesh, engine="packed",
-                    telemetry=telemetry, worker_sharded=R > 1)
+                    messages, aggregator, mix=mix, mesh=m, engine="packed",
+                    out_shardings=egress, telemetry=telemetry,
+                    worker_sharded=m is not None and m.size > 1)
             del messages
-        del live, p_live
+            if egress is None:
+                agg_grads = blocks(agg_grads)
         with phase("optimizer"):
             params, opt_state = opt_update(agg_grads, opt_state, params)
-        metrics = {"loss": mean_loss(losses)}
+        metrics = {"loss": group_sum(torch.sum(torch.stack(losses))) / W}
         if telemetry and "telemetry" in info:
             metrics["telemetry"] = info["telemetry"]
         return params, opt_state, worker_m, metrics
@@ -195,14 +264,33 @@ def make_train_step(
     def init_worker_m(params):
         if not use_worker_momentum:
             return {}
-        return tree_map(lambda p: torch.zeros((w_local,) + tuple(p.shape), dtype=torch.float32,
-                                              device=p.device), params)
+        # whole leaves: the parameters' shapes (on a mesh their specs, as
+        # ``params`` holds blocks)
+        return tree_map(lambda s: torch.zeros((w_local,) + tuple(s.shape), dtype=torch.float32,
+                                              device=dev),
+                        params if params_shape is None else params_shape)
 
+    shardings = None
+    if m is not None:
+        rep = Placement(m, ())
+        w_entry = batch_spec(m)[0]
+        shardings = {
+            "params": placements,
+            # moments mirror the parameters; the step counter is replicated
+            "opt_state": OptState(step=rep, m=placements,
+                                  v=placements if optimizer == "adamw" else None),
+            # each worker group's momentum rows, whole on its model ranks
+            "worker_m": tree_map(lambda s: Placement(m, (w_entry,) + (None,) * len(s.shape)),
+                                 params_shape) if use_worker_momentum else {},
+            "params_shape": params_shape,
+            "replicated": rep,
+        }
     state = {
         "worker_m": {"rows": w_local, "dtype": torch.float32} if use_worker_momentum else {},
         "workers": (first, first + w_local),
         "aggregator": aggregator,
-        "init_params": lambda generator: tfm.init_params(cfg, generator, device=dev),
+        "shardings": shardings,
+        "init_params": lambda generator: blocks(tfm.init_params(cfg, generator, device=dev)),
         "init_opt_state": opt_init,
         "init_worker_m": init_worker_m,
     }
@@ -216,19 +304,125 @@ def make_prefill_step(cfg, mesh=None, last_only: bool = True, device=None) -> Ca
     logits a server needs ([B, 1, V]); the full-sequence [B, S, V] fp32
     logits would dominate peak memory. ``batch["tokens"]`` ([B, S] ints;
     [B, K, S] for codebooks) and ``batch["prefix_embeds"]`` ([B, n_prefix,
-    D], optional) are moved to ``device``, where the parameters must lie."""
-    if mesh is not None:
-        raise NotImplementedError("a sharded prefill is queued in ROADMAP.md, Queue 1")
+    D], optional) are moved to ``device``, where the parameters must lie
+    (whole on every rank).
+
+    On a mesh the B rows split over the worker axes (``batch_shardings``),
+    each rank prefills its own and returns their logits; ``gather_batch``
+    puts the ``[B, ...]`` logits together."""
     dev = resolve_device(device)
+    m = None if mesh is None else as_mesh(mesh)
 
     def prefill(params, batch):
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         prefix = batch.get("prefix_embeds")
         if prefix is not None:
             prefix = torch.as_tensor(prefix, device=dev)
+        if m is not None:
+            rows = Placement(m, (_rows_entry(m, tokens.shape[0]),))
+            tokens = rows.local(tokens)
+            prefix = None if prefix is None else rows.local(prefix)
         h, _ = tfm.forward_hidden(params, cfg, tokens, prefix_embeds=prefix)
         if last_only:
             h = h[:, -1:]
         return tfm.unembed(params, cfg, h)
 
     return prefill
+
+
+# ------------------------------------------------------------- decode step
+def _softmax_across(pl: Placement) -> Callable:
+    """The ``attention.decode_attention`` combine for a KV cache block
+    whose positions (dim 2 of the stacked cache) and heads (dim 3) ``pl``
+    may split over ranks.
+
+    Over the position ranks each rank's logits give, per head, a partial
+    max and a partial sum of exponentials; one gather brings every rank's
+    two, and each rank finds the max, then the sum rescaled to it, in rank
+    order. The probabilities are rounded to the cache dtype, as
+    ``softmax_values`` rounds them, and each rank's values weighted by them
+    are summed in fp32; a second gather sums those in rank order and
+    rounds once, so every rank holds the same bits. The heads' outputs are
+    then gathered over the head ranks."""
+    m = pl.mesh
+    seq = Placement(m, (pl.spec[2],))  # a leading dim over the position ranks
+    heads = Placement(m, (None, None, pl.spec[3]))
+
+    def combine(logits, v_e, dtype):
+        if seq.parts(0) == 1:
+            return heads.gather(attn_mod.softmax_values(logits, v_e, dtype))
+        B, h = logits.shape[:2]
+        m_loc = torch.amax(logits, dim=-1, keepdim=True)  # [B, h, 1, 1]
+        # a block with no valid slot has m_loc = NEG_INF, and its sum is
+        # scaled by exp(NEG_INF - max) = 0 below
+        l_loc = torch.sum(torch.exp(logits - m_loc), dim=-1, keepdim=True)
+        stats = seq.gather(torch.cat([m_loc.reshape(-1), l_loc.reshape(-1)])[None])
+        m_r = stats[:, :B * h].reshape(-1, B, h, 1, 1)  # [n, ...] in rank order
+        l_r = stats[:, B * h:].reshape(-1, B, h, 1, 1)
+        m_all = torch.amax(m_r, dim=0)
+        l_all = torch.sum(torch.exp(m_r - m_all) * l_r, dim=0)
+        probs = (torch.exp(logits - m_all) / l_all).to(dtype)
+        part = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v_e.float())
+        out = torch.sum(seq.gather(part[None]), dim=0).to(dtype)
+        return heads.gather(out)
+
+    return combine
+
+
+def make_serve_step(cfg, mesh, shape, device=None) -> Tuple[Callable, Any, Any]:
+    """Returns ``(serve_fn, cache_spec, cache_placements)``:
+    ``serve_fn(params, cache, token, position) -> (logits, cache)`` decodes
+    one token for the ``shape.global_batch`` rows of a ``shape.seq_len``
+    cache; ``cache_spec`` is the whole cache's ``TensorSpec`` tree and
+    ``cache_placements`` its ``Placement`` tree (``cache_shardings``;
+    ``sharding.local_zeros`` builds this rank's empty blocks).
+
+    ``params`` are whole on every rank; ``cache`` is this rank's blocks;
+    ``token`` the global ``[B]`` (``[B, K]``) tokens. Where the worker
+    groups divide B the cache is batch-sharded and each rank decodes its
+    own rows, returning their logits (``gather_batch``); else (batch 1,
+    long context) the KV cache is sequence-sharded over ``data`` with the
+    heads over ``model`` and every rank returns all B rows' logits, the
+    attention crossing the ranks (``_softmax_across``). A cache
+    dim the rules place elsewhere (an SSM state's channels, a head dim)
+    is gathered for the step and cut again after it."""
+    dev = resolve_device(device)
+    m = as_mesh(mesh)
+    B = shape.global_batch
+    cache_spec = tfm.cache_shape(cfg, B, shape.seq_len)
+    placements = cache_shardings(cache_spec, m, B)
+    rows = Placement(m, (_rows_entry(m, B),))
+    pl_at = dict(tree_flatten_with_path(placements)[0])
+
+    def kv(path: str, ndim: int) -> bool:
+        return path.split("/")[-1] in ("k", "v") and ndim == 5
+
+    # the dims gathered for the step: all but batch and a KV cache's
+    # positions and heads, which the step handles as they lie
+    specs = tree_flatten_with_path(cache_spec)[0]
+    gathered = {path: [d for d in pl_at[path].sharded_dims(len(s.shape))
+                       if d not in ((1, 2, 3) if kv(path, len(s.shape)) else (1,))]
+                for path, s in specs}
+    # each attention layer's block of the ring (slots, kv heads) and combine
+    combines, spans = {}, {}
+    for path, s in specs:
+        if kv(path, len(s.shape)) and path.endswith("/k"):
+            i, pl = path.split("/")[0], pl_at[path]
+            (l0, l1), (k0, k1) = pl.ranges(s.shape)[2:4]
+            combines[i], spans[i] = _softmax_across(pl), ((l0, l1, s.shape[2]), (k0, k1))
+    spread = any(pl_at[f"{i}/k"].parts(2) * pl_at[f"{i}/k"].parts(3) > 1 for i in spans)
+
+    def attend(i, p, x, layer_cache, position):
+        return attn_mod.decode_attention(p, x, layer_cache, cfg, position, span=spans[str(i)],
+                                         combine=combines[str(i)])
+
+    def serve(params, cache, token, position):
+        token = rows.local(torch.as_tensor(token, device=dev))
+        whole = tree_map_with_path(lambda path, x: pl_at[path].gather(x, dims=gathered[path]),
+                                   cache)
+        logits, new = tfm.decode_step(params, cfg, whole, token, position,
+                                      attend=attend if spread else None)
+        new = tree_map_with_path(lambda path, x: pl_at[path].local(x, dims=gathered[path]), new)
+        return logits, new
+
+    return serve, cache_spec, placements

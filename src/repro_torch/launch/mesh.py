@@ -6,6 +6,15 @@ axes). The port does the same over a ``torch.distributed`` process group:
 rank r of an R-rank group holds column slice r, and the group's size is the
 mesh's device count.
 
+``Mesh`` names the group's ranks by axes, as ``jax.make_mesh`` lays
+devices out: ``make_host_mesh(group, data=2, model=2)`` reads rank r as
+the row-major coordinates ``(r // 2, r % 2)`` over ``("data", "model")``,
+and builds one sub-group per axis (the ranks that differ only along it),
+through ``dist.new_group`` on every rank in the same order. The sharding
+rules (``distributed/sharding.py``) place tensor dims on these axes. A bare
+``ProcessGroup`` stays valid wherever a mesh is taken: it is the mesh
+``("data",)`` of its size (``as_mesh``).
+
 ``spawn_ranks`` starts such a group: R fresh processes (start method
 ``spawn``), each joining one group through a ``file://`` rendezvous with the
 backend and the device it is given. The caller names both; nothing is
@@ -17,13 +26,14 @@ R ranks can share one card. ``"nccl"`` needs a card per rank.
 from __future__ import annotations
 
 import datetime
+import math
 import multiprocessing
 import os
 import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,8 +42,100 @@ import torch.distributed as dist
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
 
 
+class Mesh:
+    """A process group read as a named mesh of ranks (module docstring).
+
+    ``axis_names`` and ``shape`` (axis -> size, in order) are the
+    reference's ``mesh.axis_names`` and ``mesh.shape``; ``coords`` is this
+    rank's coordinate on each axis; ``axis_group(a)`` is the sub-group of
+    the ranks that differ from this one only along ``a``, its ranks in the
+    order of their coordinate on ``a``."""
+
+    def __init__(self, group, axis_names: Sequence[str], sizes: Sequence[int]):
+        if not isinstance(group, dist.ProcessGroup):
+            raise TypeError(f"expected a torch.distributed ProcessGroup, "
+                            f"got {type(group).__name__}")
+        R = dist.get_world_size(group)
+        if math.prod(sizes) != R:
+            raise ValueError(f"a mesh of shape {tuple(sizes)} over {R} ranks")
+        self.group = group
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, (int(n) for n in sizes)))
+        self.size = R
+        self.rank = dist.get_rank(group)
+        self.coords = self.coords_of(self.rank)
+        self._axis_groups = {}
+        for a in self.axis_names:  # the same calls in the same order on every rank
+            n = self.shape[a]
+            if n == 1 or n == R:
+                continue
+            for r in range(R):
+                c = self.coords_of(r)
+                if c[a]:
+                    continue
+                ranks = [self.rank_of({**c, a: i}) for i in range(n)]
+                sub = dist.new_group([dist.get_global_rank(group, q) for q in ranks])
+                if self.rank in ranks:
+                    self._axis_groups[a] = sub
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of group rank ``rank``, row-major."""
+        out = {}
+        for a in reversed(self.axis_names):
+            rank, out[a] = divmod(rank, self.shape[a])
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def axis_group(self, axis: str):
+        """The sub-group along ``axis`` (``None`` for an axis of size 1)."""
+        n = self.shape[axis]
+        if n == 1:
+            return None
+        return self.group if n == self.size else self._axis_groups[axis]
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
+
+
+def as_mesh(mesh) -> Mesh:
+    """``mesh`` itself, or a bare ``ProcessGroup`` as the mesh ``("data",)``."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    if not isinstance(mesh, dist.ProcessGroup):
+        raise TypeError(f"expected a torch.distributed ProcessGroup or a Mesh, "
+                        f"got {type(mesh).__name__}")
+    return Mesh(mesh, ("data",), (dist.get_world_size(mesh),))
+
+
+def make_host_mesh(group, data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
+    """The mesh ``("data", "model")`` of shape ``(data, model)`` over
+    ``group`` (``("pod", "data", "model")`` with ``pod`` > 0): the
+    counterpart of the reference's ``make_host_mesh``. Every rank of the
+    group calls it with the same arguments."""
+    if pod:
+        return Mesh(group, ("pod", "data", "model"), (pod, data, model))
+    return Mesh(group, ("data", "model"), (data, model))
+
+
+def worker_axes(mesh) -> Tuple[str, ...]:
+    """The axes the workers split over: ``pod`` and ``data``, where present."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def n_workers(mesh) -> int:
+    """The number of worker groups: the product of the worker axes' sizes."""
+    return math.prod(mesh.shape[a] for a in worker_axes(mesh))
+
+
 def n_devices(group) -> int:
-    """The number of ranks in ``group`` (the mesh's device count)."""
+    """The number of ranks in ``group`` or mesh (the mesh's device count)."""
+    if isinstance(group, Mesh):
+        return group.size
     if not isinstance(group, dist.ProcessGroup):
         raise TypeError(f"expected a torch.distributed ProcessGroup, got {type(group).__name__}")
     return dist.get_world_size(group)

@@ -20,7 +20,7 @@ KV cache.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -175,39 +175,60 @@ def init_kv_cache(batch: int, length: int, cfg, dtype, device) -> dict:
     }
 
 
-def decode_attention(p, x, cache, cfg, position: int) -> Tuple[torch.Tensor, dict]:
+def softmax_values(logits: torch.Tensor, v_e: torch.Tensor, dtype) -> torch.Tensor:
+    """One token's attention output ``[B, 1, h, dh]`` from its fp32 logits
+    ``[B, h, 1, L]`` (masked) and the values ``[B, L, h, dh]``: the softmax,
+    rounded to ``dtype``, times the values."""
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v_e)
+
+
+def decode_attention(p, x, cache, cfg, position: int, span=None,
+                     combine: Optional[Callable] = None) -> Tuple[torch.Tensor, dict]:
     """One-token decode. x: [B, 1, D]; cache k/v: [B, L, KV, dh];
     position: int, the absolute position of the new token.
 
     The cache is a ring buffer of capacity L: slot = position % L. Attention
     masks out unwritten (future-of-window) slots via per-slot positions.
     Returns a new cache; the one passed in is left as it was.
+
+    A cache sharded over ranks passes its block: ``span = ((l0, l1, L),
+    (k0, k1))`` says it holds slots ``l0 .. l1 - 1`` of the L-slot ring and
+    kv heads ``k0 .. k1 - 1``, and the new k / v are written only where the
+    block holds the slot. ``combine(logits, v_e, dtype)`` then turns the
+    block's logits and values into the output of all ``n_heads`` heads
+    (``softmax_values``, the default, for a whole cache).
     """
     B = x.shape[0]
-    h, dh = cfg.n_heads, cfg.head_dim_
-    L = cache["k"].shape[1]
+    H, dh = cfg.n_heads, cfg.head_dim_
+    if span is None:
+        L = cache["k"].shape[1]
+        span = ((0, L, L), (0, cfg.n_kv_heads))
+    (l0, l1, L), (k0, k1) = span
     pos_arr = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, pos_arr)
 
     slot = position % L
     k = cache["k"].clone()
     v = cache["v"].clone()
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
+    if l0 <= slot < l1:
+        k[:, slot - l0] = k_new[:, 0, k0:k1]
+        v[:, slot - l0] = v_new[:, 0, k0:k1]
+    rep = H // cfg.n_kv_heads
+    q = q[:, :, k0 * rep:k1 * rep]
 
     # absolute position held in each ring slot (<= position, stride L)
-    idx = torch.arange(L, device=x.device)
+    idx = l0 + torch.arange(l1 - l0, device=x.device)
     slot_pos = position - torch.remainder(position - idx, L)
     valid = slot_pos >= 0
     if cfg.sliding_window > 0:
         valid &= slot_pos > position - cfg.sliding_window
 
     scale = dh**-0.5
-    k_e = _expand_kv(k, h)
-    v_e = _expand_kv(v, h)
+    k_e = _expand_kv(k, q.shape[2])
+    v_e = _expand_kv(v, q.shape[2])
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k_e).float() * scale
     logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v_e)
-    out = out.reshape(B, 1, h * dh) @ p["wo"]
+    out = (combine or softmax_values)(logits, v_e, x.dtype)
+    out = out.reshape(B, 1, H * dh) @ p["wo"]
     return out, {"k": k, "v": v}

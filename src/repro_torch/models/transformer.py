@@ -50,7 +50,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_init, init_mlp_block,
                                        init_rmsnorm, mlp_block, rmsnorm)
-from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_specs, tree_unflatten
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -112,6 +112,16 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
         else:
             params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dtype, dev)
     return params
+
+
+def params_shape(cfg) -> Dict[str, Any]:
+    """The ``TensorSpec`` tree of ``init_params(cfg, ...)``, built on fake
+    tensors that allocate nothing (a full-width model in a moment), as the
+    reference's ``jax.eval_shape``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return tree_specs(init_params(cfg, torch.Generator(), device="cpu"))
 
 
 # ================================================================== embed
@@ -272,11 +282,22 @@ def init_cache(cfg, batch: int, seq_len: int, device=None) -> Dict[str, Any]:
     return cache
 
 
-def decode_step(params, cfg, cache, token, position: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+def cache_shape(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
+    """The ``TensorSpec`` tree of ``init_cache(cfg, batch, seq_len)``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return tree_specs(init_cache(cfg, batch, seq_len, device="cpu"))
+
+
+def decode_step(params, cfg, cache, token, position: int,
+                attend=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode. token: [B] int ([B, K] for codebooks); position:
     int. Returns (logits [B, V] or [B, K, V], new cache); the cache passed
     in is left as it was. A MoE layer routes the B decode tokens together
-    and its aux is discarded."""
+    and its aux is discarded. ``attend(i, p, x, cache, position)`` takes
+    the place of ``attention.decode_attention`` for pattern index ``i``
+    (the cache sharded over ranks: ``distributed/steps.py``)."""
     h = embed_tokens(params, cfg, token)[:, None, :]
     new_cache = []
     for p in range(cfg.n_periods):
@@ -285,7 +306,9 @@ def decode_step(params, cfg, cache, token, position: int) -> Tuple[torch.Tensor,
         for i, (mixer, ff) in enumerate(cfg.pattern_):
             lp = lp_p[str(i)]
             x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
-            if mixer == "attn":
+            if mixer == "attn" and attend is not None:
+                out, nc[str(i)] = attend(i, lp["mixer"], x, cache_p[str(i)], position)
+            elif mixer == "attn":
                 out, nc[str(i)] = attn_mod.decode_attention(lp["mixer"], x, cache_p[str(i)],
                                                             cfg, position)
             else:

@@ -6,6 +6,13 @@ visited in SORTED key order, as JAX does, so a packed buffer, a flattened
 gradient and a parameter dict share one column layout with the reference
 (the MLP's ``{"w0", "b0", "w1", "b1"}`` flattens as b0, b1, w0, w1).
 
+``tree_flatten_with_path`` and ``tree_map_with_path`` name every leaf
+by the reference's path string: the ``"/".join`` of dict keys, list
+indices and NamedTuple field names (``blocks/0/ff/w_up``, ``m/embed``,
+``step``), as ``jax.tree_util``'s key paths print in the reference's
+sharding rules and checkpoints. All of them walk a tree alike: ``None``
+is an empty subtree and a NamedTuple keeps its type, as in JAX.
+
 Beside them the reference's pytree arithmetic (``tree_add`` ...
 ``tree_unstack_flat``), so that optimizer and aggregator code reads like
 vector algebra; ``tree_dot`` and ``tree_global_norm`` accumulate in fp32.
@@ -13,6 +20,7 @@ vector algebra; ``tree_dot`` and ``tree_global_norm`` accumulate in fp32.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -20,14 +28,35 @@ import torch
 _LEAF = "*"
 
 
-def _walk(node: Any, leaves: List[Any]) -> Any:
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of a tensor that need not exist (the place of
+    ``jax.ShapeDtypeStruct``); a leaf of a tree, not a container."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def tree_specs(tree: Any) -> Any:
+    """The ``TensorSpec`` of every tensor leaf."""
+    return tree_map(lambda x: TensorSpec(tuple(x.shape), x.dtype), tree)
+
+
+def _walk(node: Any, prefix: Tuple[str, ...], items: List[Tuple[str, Any]]) -> Any:
+    """``node``'s treedef; its ``(path, leaf)`` pairs appended to ``items``."""
+    if node is None:
+        return ("none", None, ())
     if isinstance(node, dict):
         keys = tuple(sorted(node))
-        return ("dict", keys, tuple(_walk(node[k], leaves) for k in keys))
+        return ("dict", keys, tuple(_walk(node[k], prefix + (str(k),), items) for k in keys))
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return (type(node), None, tuple(_walk(getattr(node, f), prefix + (f,), items)
+                                        for f in node._fields))
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
-        return (kind, len(node), tuple(_walk(x, leaves) for x in node))
-    leaves.append(node)
+        return (kind, len(node), tuple(_walk(x, prefix + (str(i),), items)
+                                       for i, x in enumerate(node)))
+    items.append(("/".join(prefix), node))
     return _LEAF
 
 
@@ -36,19 +65,31 @@ def _build(node: Any, it) -> Any:
         return next(it)
     kind, meta, children = node
     built = [_build(c, it) for c in children]
+    if kind == "none":
+        return None
     if kind == "dict":
         return dict(zip(meta, built))
-    return built if kind == "list" else tuple(built)
+    if kind == "list":
+        return built
+    return tuple(built) if kind == "tuple" else kind(*built)
 
 
 # The walkers are module functions, not closures: a recursive closure is a
 # reference cycle, and the cycle would keep the leaves alive until Python's
 # cyclic collector ran (tens of GB at full width).
+def tree_flatten_with_path(tree: Any) -> Tuple[List[Tuple[str, Any]], Any]:
+    """``([(path, leaf), ...], treedef)`` in the reference's leaf order
+    (dict keys sorted), each path the reference's string (module
+    docstring); ``treedef`` is a hashable description."""
+    items: List[Tuple[str, Any]] = []
+    treedef = _walk(tree, (), items)
+    return items, treedef
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
-    """``(leaves, treedef)``; ``treedef`` is a hashable description."""
-    leaves: List[Any] = []
-    treedef = _walk(tree, leaves)
-    return leaves, treedef
+    """``(leaves, treedef)``, as ``jax.tree_util.tree_flatten``."""
+    items, treedef = tree_flatten_with_path(tree)
+    return [leaf for _, leaf in items], treedef
 
 
 def tree_unflatten(treedef: Any, leaves) -> Any:
@@ -64,6 +105,13 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         if other_def != treedef:
             raise ValueError("tree_map: the trees differ in structure")
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *(o for o, _ in others))])
+
+
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` leaf by leaf, as ``jax.tree_util.tree_map_with_path``
+    with the path as the reference's string."""
+    items, treedef = tree_flatten_with_path(tree)
+    return tree_unflatten(treedef, [fn(path, leaf) for path, leaf in items])
 
 
 # --------------------------------------------------------------- arithmetic

@@ -215,8 +215,11 @@ def test_packed_sync_rejects_mesh_and_handles_empty_tree():
     ra = aragg.RobustAggregator.from_spec("rfa", mixing="none")
     with pytest.raises(TypeError, match="ProcessGroup"):
         packing.packed_robust_sync([torch.zeros(4, 8)], ra, mesh=object())
-    with pytest.raises(NotImplementedError):
-        packing.packed_robust_sync([torch.zeros(4, 8)], ra, out_shardings=[None])
+    # without a mesh the placements are ignored, as the reference ignores them
+    xs = [torch.arange(32, dtype=torch.float32).reshape(4, 8)]
+    plain, _ = packing.packed_robust_sync(xs, ra)
+    placed, _ = packing.packed_robust_sync(xs, ra, out_shardings=[None])
+    assert torch.equal(plain[0], placed[0])
     out, info = packing.packed_robust_sync({"e": torch.zeros(4, 0)}, ra)
     assert out["e"].shape == (0,) and info == {}
 
@@ -232,7 +235,8 @@ def _imported_modules(path):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     assert len(files) > 20
     for path in files:
         for mod in _imported_modules(path):

@@ -307,10 +307,11 @@ def test_bf16_tree_round_trip_is_bit_exact():
 
 
 def test_unported_paths_raise():
-    """The sharded prefill is still not ported; the engine refuses
-    codebooks, as the reference's does."""
+    """The prefill takes a mesh (``tests/test_torch_sharding.py``), but not
+    an object that is none; the engine refuses codebooks, as the
+    reference's does."""
     cfg, _, _, tp = _model("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         make_prefill_step(cfg, mesh=object(), device="cpu")
     mcfg, _, _, mp = _model("musicgen-medium")
     with pytest.raises(NotImplementedError, match="plain-LM"):

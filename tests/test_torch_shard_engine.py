@@ -228,10 +228,18 @@ def test_per_leaf_engine_bit_matches_packed(agg, kwargs, mixing):
 
 
 def test_what_is_not_ported_raises():
+    """What the engines still refuse: an unknown engine, a mesh that is no
+    process group, worker-sharded rows in the per-leaf engine. Placements
+    without a mesh are ignored (the reference's egress needs a mesh), by
+    either engine."""
     ra = RobustAggregator.from_spec("rfa", mixing="none")
-    tree = {"a": torch.zeros(4, 8)}
-    with pytest.raises(NotImplementedError):
-        packing.packed_robust_sync(tree, ra, out_shardings={"a": None})
+    tree = {"a": torch.arange(32, dtype=torch.float32).reshape(4, 8)}
+    for engine in ("packed", "per_leaf"):
+        plain, _ = robust_gradient_sync(tree, ra, engine=engine)
+        placed, _ = robust_gradient_sync(tree, ra, engine=engine, out_shardings={"a": None})
+        assert torch.equal(plain["a"], placed["a"])
+    with pytest.raises(NotImplementedError, match="packed engine"):
+        robust_gradient_sync(tree, ra, engine="per_leaf", worker_sharded=True)
     with pytest.raises(ValueError):
         robust_gradient_sync(tree, ra, engine="nope")
     with pytest.raises(TypeError):

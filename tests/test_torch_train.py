@@ -575,8 +575,10 @@ def test_train_step_telemetry_changes_no_bit(agg):
 def test_train_step_rejects_fsdp_and_uneven_workers():
     """On one rank an fsdp config trains: the reference's param-sharded
     egress places every leaf whole there, so its step is the replicated
-    one, bit for bit. Over 2 gloo ranks fsdp still raises (the egress over
-    ranks is not ported), and so do 3 workers over 2 ranks."""
+    one, bit for bit. Over 2 gloo ranks an fsdp config builds, its
+    parameters sharded over data (``tests/test_torch_sharding.py`` holds
+    its steps); 3 workers over 2 ranks raise, and so does a mesh that is
+    no process group."""
     mix = np.asarray(RByzConfig(aggregator="rfa", mixing="bucketing", s=2)
                      .make_aggregator(W).mixing_matrix(jax.random.PRNGKey(6), W))
     steps = [_port_step("rfa", "bucketing", mode, "sgdm", 0.9, mix, fsdp=fsdp)
@@ -588,8 +590,11 @@ def test_train_step_rejects_fsdp_and_uneven_workers():
     refusals = spawn_ranks(torch_shard_ranks.train_step_refusals, 2, backend="gloo",
                            devices=["cpu", "cpu"], timeout_s=300)
     for r in refusals:
-        assert r["fsdp"].startswith("NotImplementedError") and "ROADMAP" in r["fsdp"]
+        assert r["fsdp"] == ("data", None)  # the embed's rows over the 2 ranks
         assert r["uneven"].startswith("ValueError") and "3 workers" in r["uneven"]
+    cfg = configs.smoke_config("tinyllama-1.1b")
+    with pytest.raises(TypeError, match="ProcessGroup"):
+        make_train_step(cfg, ByzConfig(), mesh=object(), device="cpu")
 
 
 def test_train_step_mean_baseline_matches_robust_with_mean():

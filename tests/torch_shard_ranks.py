@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.aragg import RobustAggregator
 from repro_torch.distributed import packing, shard_kernels
 from repro_torch.distributed.robust_sync import robust_gradient_sync
+from repro_torch.utils.tree import tree_flatten
 
 #: shard_kernels functions the engine may route through, counted per sync
 ROUTED = ("gram", "mix_apply", "cm_aggregate", "tm_aggregate", "coordinatewise_combine",
@@ -151,9 +152,9 @@ def run_train(rank, group, device, payload):
 
 
 def train_step_refusals(rank, group, device):
-    """What ``make_train_step`` refuses over a group: an fsdp config (its
-    param-sharded egress is not ported) and workers that do not split over
-    the ranks; the message of each refusal."""
+    """``make_train_step`` over a group: an fsdp config builds (its embed's
+    placement), workers that do not split over the ranks raise (the
+    message)."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -165,7 +166,8 @@ def train_step_refusals(rank, group, device):
     for label, c, n in (("fsdp", dataclasses.replace(cfg, fsdp=True), 2),
                         ("uneven", cfg, 3)):
         try:
-            make_train_step(c, ByzConfig(), mesh=group, n_workers=n, device=device)
+            _, state = make_train_step(c, ByzConfig(), mesh=group, n_workers=n, device=device)
+            out[label] = state["shardings"]["params"]["embed"].spec
         except (NotImplementedError, ValueError) as e:
             out[label] = f"{type(e).__name__}: {e}"
     return out
@@ -179,3 +181,250 @@ def fail_on_rank_one(rank, group, device):
     import time
 
     time.sleep(600)
+
+
+# --------------------------------------------------------- sharding on a mesh
+def _counting_all_to_all():
+    """A stand-in for ``dist.all_to_all_single`` that records each call's
+    received elements, and the list it records into."""
+    import torch.distributed as dist
+
+    calls, original = [], dist.all_to_all_single
+
+    def counted(output, input, output_split_sizes=None, input_split_sizes=None, **kw):
+        calls.append(int(output.numel()))
+        return original(output, input, output_split_sizes, input_split_sizes, **kw)
+
+    return calls, original, counted
+
+
+def _egress(mesh, tree, mixes):
+    """Each rule's packed sync on the mesh with the replicated and the
+    param-sharded egress; the per-leaf engine's kernel route on the mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.utils.tree import TensorSpec, tree_map
+
+    specs = tree_map(lambda x: TensorSpec(tuple(x.shape[1:]), x.dtype), tree)
+    placements = param_shardings(specs, mesh, fsdp=True)
+    out = {"specs": tree_map(lambda pl: pl.spec, placements), "rules": {}}
+    for label, (agg, kwargs, mix) in mixes.items():
+        ra = RobustAggregator.from_spec(agg, mixing="bucketing", s=2, **kwargs)
+        mix = torch.tensor(mix)
+        rep, _ = robust_gradient_sync(tree, ra, mix=mix, mesh=mesh)
+        calls, original, counted = _counting_all_to_all()
+        unshard = shard_kernels.unshard_cols
+        hits = []
+        shard_kernels.unshard_cols = lambda *a, **k: hits.append(1) or unshard(*a, **k)
+        dist.all_to_all_single = counted
+        try:
+            par, info = robust_gradient_sync(tree, ra, mix=mix, mesh=mesh,
+                                             out_shardings=placements, telemetry=True)
+        finally:
+            dist.all_to_all_single = original
+            shard_kernels.unshard_cols = unshard
+        leaf, _ = robust_gradient_sync(tree, ra, mix=mix, mesh=mesh, engine="per_leaf",
+                                       use_kernels=True)
+        leaf_par, _ = robust_gradient_sync(tree, ra, mix=mix, mesh=mesh, engine="per_leaf",
+                                           use_kernels=True, out_shardings=placements)
+        out["rules"][label] = dict(
+            replicated=rep, sharded=par,
+            cut=tree_map(lambda g, pl: pl.local(g), rep, placements),
+            egress_recv=calls, unshard_calls=len(hits),
+            block_elems=sum(int(torch.tensor(pl.local_shape(s.shape)).prod())
+                            for pl, s in zip(tree_flatten(placements)[0],
+                                             tree_flatten(specs)[0])),
+            egress_bytes=int(info["telemetry"]["sync_egress_bytes"]),
+            per_leaf=leaf, per_leaf_cut=leaf_par)
+    return out
+
+
+def _train(mesh, p, rank):
+    """The fsdp config's steps on the mesh, and the same config with fsdp
+    off (the replicated egress) on the same mesh: gathered parameters and
+    momenta, losses, and the placements."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.training.checkpoint import save_checkpoint
+    from repro_torch.utils.tree import tree_map
+
+    base = dataclasses.replace(smoke_config(p["arch"]), **p["cfg"])
+    batch = {k: torch.tensor(v) for k, v in p["batch"].items()}
+    out = {}
+    for fsdp in (True, False):
+        cfg = dataclasses.replace(base, fsdp=fsdp)
+        for agg, mixes in p["runs"].items():
+            byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2)
+            step_fn, state = make_train_step(cfg, byz, mesh=mesh, lr=p["lr"],
+                                             n_workers=p["W"], device="cpu")
+            sh = state["shardings"]
+            params = state["init_params"](torch.Generator().manual_seed(0))
+            opt_state = state["init_opt_state"](params)
+            worker_m = state["init_worker_m"](params)
+            losses = []
+            for mix in mixes:
+                params, opt_state, worker_m, metrics = step_fn(
+                    params, opt_state, worker_m, torch.tensor(mix), batch)
+                losses.append(metrics["loss"])
+            gather = lambda t: tree_map(lambda b, pl: pl.gather(b), t, sh["params"])  # noqa: E731
+            run = dict(params=gather(params), m=gather(opt_state.m), losses=losses,
+                       local_elems=sum(int(x.numel()) for x in tree_flatten(params)[0]),
+                       specs=tree_map(lambda pl: pl.spec, sh["params"]))
+            if fsdp and agg == "rfa":
+                tree = {"params": params, "opt_state": opt_state, "worker_m": worker_m}
+                shardings = {"params": sh["params"], "opt_state": sh["opt_state"],
+                             "worker_m": sh["worker_m"]}
+                save_checkpoint(p["ckpt_dir"], 3, tree, shardings=shardings)
+                restored = _restore_blocks(p["ckpt_dir"], tree, shardings)
+                run["restored"] = [restored["params"], restored["opt_state"].m,
+                                   restored["opt_state"].step]
+                run["blocks"] = [params, opt_state.m, opt_state.step]
+            out[(fsdp, agg)] = run
+    return out
+
+
+def _restore_blocks(directory, tree, shardings):
+    from repro_torch.training.checkpoint import restore_checkpoint
+    from repro_torch.utils.tree import tree_map_with_path
+
+    like = tree_map_with_path(lambda _, x: torch.zeros_like(x), tree)
+    return restore_checkpoint(directory, like, shardings=shardings)
+
+
+def _serve(mesh, p):
+    """The sharded prefill, and greedy decode through ``make_serve_step``
+    with a batch-sharded and with a sequence-sharded cache."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed.sharding import local_zeros
+    from repro_torch.distributed.steps import gather_batch, make_prefill_step, make_serve_step
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config(p["arch"]), **p["cfg"])
+    params = params_from_jax(p["params"], "cpu")
+    prompt = torch.tensor(p["prompt"])
+    out = {}
+    prefill = make_prefill_step(cfg, mesh, device="cpu")
+    local = prefill(params, {"tokens": prompt})
+    out["prefill_local"] = local
+    out["prefill"] = gather_batch(local, mesh, prompt.shape[0])
+    for label, B in (("batch", prompt.shape[0]), ("sequence", 1)):
+        shape = InputShape("test", seq_len=p["cache_len"], global_batch=B, kind="decode")
+        serve, spec, placements = make_serve_step(cfg, mesh, shape, device="cpu")
+        cache = local_zeros(spec, placements, "cpu")
+        tokens = prompt[:B]
+        logits_seq, chosen = [], []
+        for pos in range(tokens.shape[1] + p["new_tokens"]):
+            tok = tokens[:, pos] if pos < tokens.shape[1] else chosen[-1]
+            logits, cache = serve(params, cache, tok, pos)
+            logits = gather_batch(logits, mesh, B) if label == "batch" else logits
+            logits_seq.append(logits)
+            chosen.append(torch.argmax(logits, dim=-1))
+        out[label] = dict(logits=torch.stack(logits_seq), tokens=torch.stack(chosen),
+                          specs={k: v["k"].spec for k, v in placements.items()},
+                          cache_elems=sum(int(x.numel()) for x in tree_flatten(cache)[0]))
+    # the sequence-sharded cache in bf16, fed the prompt and then the fp32
+    # run's tokens
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    shape = InputShape("test", seq_len=p["cache_len"], global_batch=1, kind="decode")
+    serve, spec, placements = make_serve_step(cfg16, mesh, shape, device="cpu")
+    cache = local_zeros(spec, placements, "cpu")
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    feed = torch.cat([prompt[:1], out["sequence"]["tokens"][prompt.shape[1] - 1:-1].T], dim=1)
+    logits_seq = []
+    for pos in range(feed.shape[1]):
+        logits, cache = serve(p16, cache, feed[:, pos], pos)
+        logits_seq.append(logits.float())
+    out["sequence_bf16"] = dict(logits=torch.stack(logits_seq), feed=feed)
+    return out
+
+
+def _qwen_serve(mesh, p):
+    """``tests/test_steps.py::test_serve_step_executes`` on the mesh: one
+    decode step of smoke qwen2.5-14b (qkv bias) from an empty cache."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed.sharding import local_zeros
+    from repro_torch.distributed.steps import gather_batch, make_serve_step
+
+    cfg = smoke_config("qwen2.5-14b")
+    shape = InputShape("test_decode", seq_len=64, global_batch=2, kind="decode")
+    serve, spec, placements = make_serve_step(cfg, mesh, shape, device="cpu")
+    logits, _ = serve(params_from_jax(p, "cpu"), local_zeros(spec, placements, "cpu"),
+                      torch.zeros(2, dtype=torch.long), 0)
+    return {"local": tuple(logits.shape), "logits": gather_batch(logits, mesh, 2)}
+
+
+def _three_axes(group):
+    """A ("pod", "data", "model") mesh of (2, 2, 1): coordinates, worker
+    axes, and a dim placed on ("pod", "data") gathered back; the worker
+    rows ``constrain_worker_tree`` cuts."""
+    from repro_torch.distributed.sharding import Placement, constrain_worker_tree
+    from repro_torch.launch.mesh import make_host_mesh, n_workers, worker_axes
+
+    mesh = make_host_mesh(group, data=2, model=1, pod=2)
+    full = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+    pl = Placement(mesh, (("pod", "data"), None))
+    rows = constrain_worker_tree({"w": full}, {"w": Placement(mesh, (None,))}, mesh)["w"]
+    return {"coords": mesh.coords, "worker_axes": worker_axes(mesh),
+            "n_workers": n_workers(mesh), "block": pl.local(full),
+            "gathered": pl.gather(pl.local(full)), "rows": rows}
+
+
+#: the cross-rank softmax's inputs: 1 row, H heads, L positions, dh
+COMBINE_SHAPE = (8, 256, 64)
+
+
+def combine_inputs(dtype):
+    """Masked fp32 logits ``[1, H, 1, L]`` (the last 40 slots empty) and
+    values ``[1, L, H, dh]`` in ``dtype``, from a fixed seed."""
+    H, L, dh = COMBINE_SHAPE
+    gen = torch.Generator().manual_seed(9)
+    logits = 3.0 * torch.randn((1, H, 1, L), generator=gen)
+    logits[..., L - 40:] = -1e30
+    values = torch.randn((1, L, H, dh), generator=gen).to(dtype)
+    return logits, values
+
+
+def _combine(mesh):
+    """``steps._softmax_across`` on this rank's positions (over data) and
+    heads (over model) of ``combine_inputs``, in fp32 and bf16."""
+    from repro_torch.distributed.sharding import Placement
+    from repro_torch.distributed.steps import _softmax_across
+
+    H, L, dh = COMBINE_SHAPE
+    pl = Placement(mesh, (None, None, "data", "model", None))
+    (l0, l1), (h0, h1) = pl.ranges((1, 1, L, H, dh))[2:4]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        logits, values = combine_inputs(dtype)
+        out[str(dtype)] = _softmax_across(pl)(logits[:, h0:h1, :, l0:l1],
+                                              values[:, l0:l1, h0:h1], dtype).float()
+    return out
+
+
+def run_mesh(rank, group, device, p):
+    """Everything the mesh tests hold on one ``make_host_mesh`` of the
+    group: the param-sharded egress, the per-leaf engine on the mesh, the
+    fsdp train step and its checkpoint, the sharded prefill and decode;
+    and a three-axis mesh of the same group."""
+    from repro_torch.launch.mesh import make_host_mesh, n_workers, worker_axes
+
+    mesh = make_host_mesh(group, *p["mesh"])
+    tree = {k: torch.tensor(v, device=device) for k, v in p["tree"].items()}
+    return {"coords": mesh.coords, "worker_axes": worker_axes(mesh),
+            "n_workers": n_workers(mesh),
+            "egress": _egress(mesh, tree, p["mixes"]),
+            "train": _train(mesh, p["train"], rank),
+            "serve": _serve(mesh, p["serve"]),
+            "combine": _combine(mesh),
+            "qwen": _qwen_serve(mesh, p["qwen_params"]),
+            "three_axes": _three_axes(group)}
