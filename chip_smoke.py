@@ -217,6 +217,25 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    round otherwise than over all of them and can move a near tie); no
    kernel of ours launches (counted). (d) (b)'s fsdp state on (4, 1) saved from the mesh, restored on one device
    and onto the mesh, bit for bit. (b) to (d) run in one group.
+16. The CNN of App. Table 5 (``models/mlp.py::init_cnn``, HWIO convolutions
+   run by cuDNN under ``ieee_fp32()``) and the static-analysis gate. (a)
+   ``ByzantineSim`` with the CNN at phase 9's scale (n = 25, 300 steps) for
+   two of phase 9's pairs with their learning rates (``CNN_RUNS``): one
+   step on the card against the step on the CPU with the same draws
+   (parameters and momenta, rtol 1e-4 / atol 1e-6), no kernel launched,
+   the test accuracy within ``CNN_MARGIN`` of the JAX reference's on the
+   CPU at the same seeds (``CNN_REFERENCE``), steps/s, peak memory,
+   profiled. (b) ``CrossDeviceSim`` with the CNN on phase 3's pool at
+   scale 1 and 4 (d = 52,114 / 824,362) under RFA, CM and TM with
+   bucketing: one round on the card against the CPU's (rtol 1e-4 / atol
+   1e-5), the aggregate of the card's own messages through the kernels
+   against the plain versions (CM / TM bit for bit), ``CNN_ROUNDS`` rounds
+   with the route's exact launches (``launches_by_path`` ``cnn.slice.*``),
+   rounds/s, peak memory, busy share; the four kernels held and timed at
+   scale 4's packed width (X[10, 825,344]). (c) ``python -m
+   repro_torch.analysis --layers ast,trace --device cuda``'s ``main``: the
+   six targets on the card's one rank, no finding (f64, host syncs, kernel
+   presence read from ``LAUNCHES``), exit 0, exact launches.
 
 The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
@@ -357,6 +376,33 @@ SYNC_ROUTE = {
     "krum": {"pairwise_gram": 1, "bucket_mix": 1},
     "acclip": {"pairwise_gram": 1, "bucket_mix": 1},
 }
+
+
+#: phase 16: the CNN of App. Table 5. (a) two of phase 9's pairs, with their
+#: learning rates, through ByzantineSim at phase 9's scale with the CNN
+#: (scale 1): the two whose CNN leaves chance within 300 steps in the JAX
+#: reference (scripts/paper_loop_cnn_reference.py; rfa+bitflip and
+#: cm+mimic stay at 0.1 there at lr 0.1)
+CNN_RUNS = [
+    ("cnn cclip+ipm s=2", 5, 0.5, dict(aggregator="cclip", mixing="bucketing", s=2,
+                                       worker_momentum=0.9, attack="ipm",
+                                       attack_kwargs=(("eps", 0.1),))),
+    ("cnn mean/none", 0, 0.1, dict(aggregator="mean", attack="none")),
+]
+#: the JAX reference's CNN test accuracy for each run, on the CPU with the
+#: same n, f, steps and seeds (scripts/paper_loop_cnn_reference.py); the
+#: card's must lie within CNN_MARGIN of it. At step 300 both reference
+#: curves still rise (mean/none by 0.103, cclip+ipm by 0.012 over the last
+#: 50 steps), and the port draws its own data and batches, so the bar is
+#: about one such 50-step rise; a CNN that stays at chance (0.1) misses it
+CNN_REFERENCE = {"cnn cclip+ipm s=2": 0.672, "cnn mean/none": 0.42}
+CNN_MARGIN = 0.1
+#: (b) CrossDeviceSim with the CNN on the slice's pool: scale -> d (App.
+#: A.2.3's knob), the rule/attack pairs (no accuracy threshold), rounds a run
+CNN_SCALES = {1: 52_114, 4: 824_362}
+CNN_SLICE_RUNS = [("rfa", "bitflip", None), ("cm", "bitflip", None),
+                  ("tm", "alie", None)]
+CNN_ROUNDS = 60
 
 
 def log(msg: str) -> None:
@@ -541,6 +587,21 @@ def close(rtol, atol):
     return lambda got, want: torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
+def gram_close(x):
+    """The Gram's check. fp32 summation error scales with sum_k |x_ik x_jk|,
+    not with the value: off-diagonal terms cancel, and at d = 16.7 M an
+    entry of a few thousand carries rounding of ~1e-2 in any fp32 order. So
+    the reference's rtol 1e-5 is taken against |X| |X|^T, atol 1e-3."""
+    scale = x.abs() @ x.abs().T
+
+    def check(got, want):
+        excess = (got - want).abs() - (1e-3 + 1e-5 * scale)
+        if bool((excess > 0).any()):
+            raise AssertionError(f"pairwise_gram off by {float(excess.max())} "
+                                 "beyond 1e-3 + 1e-5 |X||X|^T")
+    return check
+
+
 def kernel_cases(dev):
     """Inputs at the shapes the path gives each kernel."""
     import torch
@@ -571,20 +632,6 @@ def kernel_phase(dev):
     results = {name: [] for name in ("bucket_mix", "pairwise_gram", "cwise_median",
                                      "cwise_trimmed_mean")}
     record = functools.partial(measure, results)
-
-    def gram_close(x):
-        # fp32 summation error scales with sum_k |x_ik x_jk|, not with the
-        # value: off-diagonal terms cancel, and at d = 16.7 M an entry of a
-        # few thousand carries rounding of ~1e-2 in any fp32 order. So the
-        # reference's rtol 1e-5 is taken against |X| |X|^T, atol 1e-3.
-        scale = x.abs() @ x.abs().T
-
-        def check(got, want):
-            excess = (got - want).abs() - (1e-3 + 1e-5 * scale)
-            if bool((excess > 0).any()):
-                raise AssertionError(f"pairwise_gram off by {float(excess.max())} "
-                                     "beyond 1e-3 + 1e-5 |X||X|^T")
-        return check
 
     for case in kernel_cases(dev):
         W, d = case["W"], case["d"]
@@ -650,7 +697,7 @@ def kernel_phase(dev):
     log(f"check pairwise_gram X[10,{d_odd}]: gram_ldg, within tolerance, bitwise equal to "
         "the TMA call on the same columns padded to 2048")
     del x, padded
-    wide_kernel_rows(dev, record, gram_close)
+    wide_kernel_rows(dev, record)
     selection_rows(dev, record)
     return results
 
@@ -736,7 +783,7 @@ def selection_rows(dev, record):
         torch.cuda.empty_cache()
 
 
-def wide_kernel_rows(dev, record, gram_close):
+def wide_kernel_rows(dev, record):
     """Phase 2's rows above 64 workers (W = 65, 128) at the one-device d:
     mix (bucketing s = 2) and combine, the Gram (one launch per pair of
     32-row groups); CM and TM there are ``selection_rows``'."""
@@ -805,7 +852,8 @@ def slice_task(dev):
     return torch.tensor(wx, device=dev), torch.tensor(wy, device=dev), Xt, Yt
 
 
-def slice_sim(agg, attack, device, telemetry=False):
+def slice_sim(agg, attack, device, telemetry=False, loss_fn=None):
+    """The slice's ``CrossDeviceSim`` (the MLP's ``nll_loss`` by default)."""
     from repro_torch.configs.base import ByzConfig
     from repro_torch.models.mlp import nll_loss
     from repro_torch.training.cross_device import CrossDeviceSim
@@ -813,64 +861,101 @@ def slice_sim(agg, attack, device, telemetry=False):
     kwargs = (("n", 10), ("f", 2)) if attack == "alie" else ()
     byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2, attack=attack,
                     attack_kwargs=kwargs, n_byzantine=0)
-    return CrossDeviceSim(loss_fn=nll_loss, byz=byz, n_clients=50, byz_frac=0.1,
+    return CrossDeviceSim(loss_fn=loss_fn or nll_loss, byz=byz, n_clients=50, byz_frac=0.1,
                           clients_per_round=10, lr=1.0, batch_size=16,
                           server_momentum=0.9, telemetry=telemetry, device=device)
 
 
-def slice_phase(dev):
+#: the kernels a ``CrossDeviceSim`` round launches, once each, by rule (the
+#: Gram route folds the mixing into the combine weights), and no other
+SLICE_ROUTE = {"rfa": ("pairwise_gram", "bucket_mix"),
+               "acclip": ("pairwise_gram", "bucket_mix"),
+               "cm": ("bucket_mix", "cwise_median"), "tm": ("bucket_mix", "cwise_trimmed_mean")}
+
+
+def held_out_accuracy(apply_fn, params, x, y) -> float:
+    """Test accuracy, in IEEE fp32 as the reference computes it (cuDNN would
+    convolve in TF32)."""
+    import torch
+
+    from repro_torch import ieee_fp32
+
+    with ieee_fp32():
+        return float(torch.mean((torch.argmax(apply_fn(params, x), dim=-1) == y).float()))
+
+
+def slice_phase(dev, smi: str, task=None, runs=None, loss_fn=None, init=None, apply_fn=None,
+                rounds=None, prefix: str = "", check=None):
+    """Phase 3 (and 16(b)): ``CrossDeviceSim`` on the slice's pool (``task``,
+    ``slice_task``'s by default) under ``runs`` ((rule, attack, accuracy
+    threshold or None), ``SLICE_RUNS`` by default), with ``loss_fn``,
+    ``init`` and ``apply_fn`` (the MLP's by default). Each run: one round on
+    the card held against the same round on the CPU (plain versions), then
+    ``check(label, rule, sim_gpu, sim_cpu, params_gpu, draws_gpu, draws)``
+    if given; then ``rounds`` (``ROUNDS``) rounds with the route's exact launches (under
+    ``prefix + label``), finite parameters and the threshold; rounds/s, peak
+    memory, profiled."""
     import torch
 
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models.mlp import accuracy, init_mlp
+    from repro_torch.models.mlp import init_mlp, mlp_apply, nll_loss
 
-    wx, wy, Xt, Yt = slice_task(dev)
+    runs = SLICE_RUNS if runs is None else runs
+    rounds = rounds or ROUNDS
+    loss_fn, init, apply_fn = loss_fn or nll_loss, init or init_mlp, apply_fn or mlp_apply
+    wx, wy, Xt, Yt = task or slice_task(dev)
     # one round on the card against the same round on the CPU (plain versions)
-    for agg, attack, _ in SLICE_RUNS:
-        sim_gpu, sim_cpu = slice_sim(agg, attack, dev), slice_sim(agg, attack, "cpu")
-        params = init_mlp(torch.Generator().manual_seed(1), device="cpu")
+    for agg, attack, _ in runs:
+        label = f"{prefix}{agg}+{attack}"
+        sim_gpu = slice_sim(agg, attack, dev, loss_fn=loss_fn)
+        sim_cpu = slice_sim(agg, attack, "cpu", loss_fn=loss_fn)
+        params = init(torch.Generator().manual_seed(1), device="cpu")
         draws = sim_cpu.draw(torch.Generator().manual_seed(5), wx.shape[1])
+        p_gpu = {k: v.to(dev) for k, v in params.items()}
+        d_gpu = draws._replace(mix=draws.mix.to(dev))
         s_cpu, _ = sim_cpu.step(sim_cpu.init_state(params), wx.cpu(), wy.cpu(), draws)
-        s_gpu, _ = sim_gpu.step(sim_gpu.init_state({k: v.to(dev) for k, v in params.items()}),
-                                wx, wy, draws._replace(mix=draws.mix.to(dev)))
+        s_gpu, _ = sim_gpu.step(sim_gpu.init_state(p_gpu), wx, wy, d_gpu)
         for k in params:
             torch.testing.assert_close(s_gpu.params[k].cpu(), s_cpu.params[k],
                                        rtol=1e-4, atol=1e-5)
-        log(f"check {agg}+{attack}: one round on the card == the round on the CPU "
+        log(f"check {label}: one round on the card == the round on the CPU "
             "(rtol 1e-4, atol 1e-5)")
+        if check is not None:
+            check(label, agg, sim_gpu, sim_cpu, p_gpu, d_gpu, draws)
+        del s_gpu, s_cpu
 
     # Each path is counted on its own: counts set to 0 just before its run,
-    # read just after. A round launches each of its route's kernels once (the
-    # Gram route folds the mixing into the combine weights) and no other.
-    route = {"rfa": ("pairwise_gram", "bucket_mix"), "acclip": ("pairwise_gram", "bucket_mix"),
-             "cm": ("bucket_mix", "cwise_median"), "tm": ("bucket_mix", "cwise_trimmed_mean")}
+    # read just after.
     round_us, launches = {}, {}
-    for agg, attack, threshold in SLICE_RUNS:
-        label = f"{agg}+{attack}"
-        sim = slice_sim(agg, attack, dev)
-        params = init_mlp(torch.Generator().manual_seed(1), device=dev)
+    for agg, attack, threshold in runs:
+        label = f"{prefix}{agg}+{attack}"
+        sim = slice_sim(agg, attack, dev, loss_fn=loss_fn)
+        params = init(torch.Generator().manual_seed(1), device=dev)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
         reset_launches()
         t0 = time.perf_counter()
-        state, hist = sim.run(params, wx, wy, ROUNDS, torch.Generator().manual_seed(2))
+        state, _ = sim.run(params, wx, wy, rounds, torch.Generator().manual_seed(2))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = dict(LAUNCHES)
-        launches[label] = counts
-        acc = float(accuracy(state.params, Xt, Yt))
+        launches[label] = counts = dict(LAUNCHES)
         flat = torch.cat([p.reshape(-1) for p in state.params.values()])
         if not bool(torch.isfinite(flat).all()):
             raise AssertionError(f"{label}: non-finite parameters")
-        round_us[(agg, attack)] = seconds / ROUNDS * 1e6
-        log(f"slice {label}: {ROUNDS} rounds, test accuracy {acc:.4f}, "
-            f"{ROUNDS / seconds:.1f} rounds/s, launches {json.dumps(counts)}")
-        want = {k: ROUNDS if k in route[agg] else 0 for k in counts}
+        acc = held_out_accuracy(apply_fn, state.params, Xt, Yt)
+        round_us[(agg, attack)] = seconds / rounds * 1e6
+        log(f"slice {label}: d {flat.numel()}, {rounds} rounds, test accuracy {acc:.4f}, "
+            f"{rounds / seconds:.1f} rounds/s, {peak_above(live)}, "
+            f"launches {json.dumps(counts)} on {smi}")
+        want = {k: rounds if k in SLICE_ROUTE[agg] else 0 for k in counts}
         if counts != want:
             raise AssertionError(f"{label}: kernel launches {counts}, expected {want}")
         if threshold is not None and not acc > threshold:
             raise AssertionError(f"{label}: accuracy {acc} <= {threshold}")
     for (agg, attack), us in round_us.items():
-        profile_rounds(slice_sim(agg, attack, dev), wx, wy, dev, f"{agg}+{attack}", us)
+        profile_rounds(slice_sim(agg, attack, dev, loss_fn=loss_fn), wx, wy, dev,
+                       f"{prefix}{agg}+{attack} ({smi})", us, init=init)
     return launches
 
 
@@ -1485,10 +1570,10 @@ def serve_phase(dev, results):
     return launches
 
 
-def paper_task(dev):
+def paper_task(dev, runs):
     """Phase 9's data: SynthMNIST at benchmarks/common.py's scale (4,000
     train / 1,000 test), split non-iid over ``PAPER_N`` workers with f of
-    them Byzantine, for each f of ``PAPER_RUNS``; on the card."""
+    them Byzantine, for each f of ``runs``; on the card."""
     import torch
 
     from repro_torch.data.partition import worker_datasets
@@ -1497,19 +1582,20 @@ def paper_task(dev):
     X, Y, Xt, Yt = make_train_test(torch.Generator().manual_seed(0), n_train=4000,
                                    n_test=1000, device=dev)
     split = {}
-    for f in sorted({f for _, f, _, _ in PAPER_RUNS}):
+    for f in sorted({f for _, f, _, _ in runs}):
         wx, wy = worker_datasets(X.cpu().numpy(), Y.cpu().numpy(), n_good=PAPER_N - f,
                                  n_byz=f, noniid=True)
         split[f] = (torch.tensor(wx, device=dev), torch.tensor(wy, device=dev))
     return split, Xt, Yt
 
 
-def paper_sim(fields, f, lr, device, telemetry=False):
+def paper_sim(fields, f, lr, device, telemetry=False, loss_fn=None):
+    """Phase 9's ``ByzantineSim`` (the MLP's ``nll_loss`` by default)."""
     from repro_torch.configs.base import ByzConfig
     from repro_torch.models.mlp import nll_loss
     from repro_torch.training.byzantine import ByzantineSim
 
-    return ByzantineSim(loss_fn=nll_loss, byz=ByzConfig(n_byzantine=f, **fields),
+    return ByzantineSim(loss_fn=loss_fn or nll_loss, byz=ByzConfig(n_byzantine=f, **fields),
                         n_workers=PAPER_N, n_byzantine=f, lr=lr, batch_size=32,
                         telemetry=telemetry, device=device)
 
@@ -1531,20 +1617,31 @@ def paper_gates(acc) -> None:
     log("check paper loop gates (tests/test_sim.py): " + "; ".join(n for n, _ in gates))
 
 
-def paper_phase(dev, smi: str):
-    """Phase 9: the paper's experiment loop, ``ByzantineSim``, at the
-    benchmark's scale on the card."""
+def paper_phase(dev, smi: str, runs=None, loss_fn=None, init=None, apply_fn=None,
+                gate=None, reference=None, prefix: str = "paper."):
+    """Phase 9 (and 16(a)): the paper's experiment loop, ``ByzantineSim``, at
+    the benchmark's scale on the card, under ``runs`` (``PAPER_RUNS`` by
+    default) with ``loss_fn``, ``init`` and ``apply_fn`` (the MLP's by
+    default): one step held against the CPU's, then ``PAPER_STEPS`` steps a
+    run (no launch, finite state; counted under ``prefix + label``), the
+    accuracies gated by ``gate`` (``paper_gates``) and printed beside the
+    JAX reference's (``reference``, ``PAPER_REFERENCE``); steps/s, peak
+    memory, profiled."""
     import torch
 
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models.mlp import accuracy, init_mlp
+    from repro_torch.models.mlp import init_mlp, mlp_apply, nll_loss
 
-    split, Xt, Yt = paper_task(dev)
+    runs = PAPER_RUNS if runs is None else runs
+    loss_fn, init, apply_fn = loss_fn or nll_loss, init or init_mlp, apply_fn or mlp_apply
+    gate, reference = gate or paper_gates, reference or PAPER_REFERENCE
+    split, Xt, Yt = paper_task(dev, runs)
     # one step on the card against the same step on the CPU, same draws
-    for label, f, lr, fields in PAPER_RUNS:
+    for label, f, lr, fields in runs:
         wx, wy = split[f]
-        sim_gpu, sim_cpu = paper_sim(fields, f, lr, dev), paper_sim(fields, f, lr, "cpu")
-        params = init_mlp(torch.Generator().manual_seed(1), device="cpu")
+        sim_gpu = paper_sim(fields, f, lr, dev, loss_fn=loss_fn)
+        sim_cpu = paper_sim(fields, f, lr, "cpu", loss_fn=loss_fn)
+        params = init(torch.Generator().manual_seed(1), device="cpu")
         draws = sim_cpu.draw(torch.Generator().manual_seed(5), wx.shape[1])
         s_cpu, _ = sim_cpu.step(sim_cpu.init_state(params), wx.cpu(), wy.cpu(), draws)
         s_gpu, _ = sim_gpu.step(sim_gpu.init_state({k: v.to(dev) for k, v in params.items()}),
@@ -1553,38 +1650,41 @@ def paper_phase(dev, smi: str):
             torch.testing.assert_close(s_gpu.params[k].cpu(), s_cpu.params[k],
                                        rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(s_gpu.momentum.cpu(), s_cpu.momentum, rtol=1e-4, atol=1e-6)
-    log(f"check paper loop: one step on the card == the step on the CPU with the same draws "
-        f"(parameters and momenta, rtol 1e-4, atol 1e-6), for all {len(PAPER_RUNS)} runs")
+    log(f"check {prefix}*: one step on the card == the step on the CPU with the same draws "
+        f"(parameters and momenta, rtol 1e-4, atol 1e-6), for all {len(runs)} runs")
 
     # each run counted on its own: ByzantineSim aggregates through
     # RobustAggregator, as the reference does, and launches no kernel
     acc, step_us, launches = {}, {}, {}
-    for label, f, lr, fields in PAPER_RUNS:
+    for label, f, lr, fields in runs:
         wx, wy = split[f]
-        sim = paper_sim(fields, f, lr, dev)
-        params = init_mlp(torch.Generator().manual_seed(1), device=dev)
+        sim = paper_sim(fields, f, lr, dev, loss_fn=loss_fn)
+        params = init(torch.Generator().manual_seed(1), device=dev)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
         reset_launches()
         t0 = time.perf_counter()
         state, _ = sim.run(params, wx, wy, PAPER_STEPS, torch.Generator().manual_seed(2))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches[f"paper.{label}"] = counts = dict(LAUNCHES)
+        launches[f"{prefix}{label}"] = counts = dict(LAUNCHES)
         if any(counts.values()):
-            raise AssertionError(f"paper {label}: launched {counts}; the loop runs no kernel")
+            raise AssertionError(f"{prefix}{label}: launched {counts}; the loop runs no kernel")
         flat = torch.cat([p.reshape(-1) for p in state.params.values()])
         if not bool(torch.isfinite(flat).all()) or not bool(torch.isfinite(state.momentum).all()):
-            raise AssertionError(f"paper {label}: non-finite parameters or momenta")
-        acc[label] = float(accuracy(state.params, Xt, Yt))
+            raise AssertionError(f"{prefix}{label}: non-finite parameters or momenta")
+        acc[label] = held_out_accuracy(apply_fn, state.params, Xt, Yt)
         step_us[label] = seconds / PAPER_STEPS * 1e6
-        log(f"paper {label}: n {PAPER_N}, f {f}, lr {lr}, {PAPER_STEPS} steps: test accuracy "
-            f"{acc[label]:.4f} (the JAX reference on the CPU: {PAPER_REFERENCE[label]:.4f}); "
-            f"{PAPER_STEPS / seconds:.1f} steps/s on {smi}")
-    paper_gates(acc)
-    for label, f, lr, fields in PAPER_RUNS:
+        log(f"{prefix}{label}: d {flat.numel()}, n {PAPER_N}, f {f}, lr {lr}, {PAPER_STEPS} "
+            f"steps: test accuracy {acc[label]:.4f} (the JAX reference on the CPU: "
+            f"{reference[label]:.4f}); {PAPER_STEPS / seconds:.1f} steps/s, "
+            f"{peak_above(live)} on {smi}")
+    gate(acc)
+    for label, f, lr, fields in runs:
         wx, wy = split[f]
-        profile_rounds(paper_sim(fields, f, lr, dev), wx, wy, dev, f"paper {label} ({smi})",
-                       step_us[label], unit="step")
+        profile_rounds(paper_sim(fields, f, lr, dev, loss_fn=loss_fn), wx, wy, dev,
+                       f"{prefix}{label} ({smi})", step_us[label], unit="step", init=init)
     return launches, split
 
 
@@ -2986,6 +3086,233 @@ def mesh_phase(dev, smi):
     return launches
 
 
+def peak_above(live: int) -> str:
+    """The peak device memory since ``reset_peak_memory_stats`` above ``live``,
+    the bytes already allocated when it was reset (earlier phases' tensors)."""
+    import torch
+
+    return (f"peak {(torch.cuda.max_memory_allocated() - live) / 2**20:.1f} MiB above the "
+            f"{live / 2**20:.1f} MiB already allocated")
+
+
+def cnn_gates(acc) -> None:
+    """Phase 16(a)'s gate: each CNN accuracy within ``CNN_MARGIN`` of the JAX
+    reference's (``CNN_REFERENCE``)."""
+    gaps = {label: abs(a - CNN_REFERENCE[label]) for label, a in acc.items()}
+    missed = {label: gap for label, gap in gaps.items() if not gap <= CNN_MARGIN}
+    if missed:
+        raise AssertionError(f"cnn paper loop: accuracies {acc} miss the reference's "
+                             f"{CNN_REFERENCE} by {missed} (margin {CNN_MARGIN})")
+    log("check cnn paper loop: |accuracy - the JAX reference's| " + "; ".join(
+        f"{label} {gap:.4f}" for label, gap in gaps.items()) + f" <= {CNN_MARGIN}")
+
+
+def conv_precision(dev, workers, reps: int = 20) -> None:
+    """What IEEE fp32 costs the CNN's convolutions: conv1 and conv2 forward
+    and backward (input and weight gradients) on one step's images (n = 25
+    workers x 32), as ``cnn_apply`` runs them, in IEEE fp32 (the setting the
+    simulators pick) and in cuDNN's default TF32; device ms a pass (CUDA
+    events over ``reps`` passes), and how far TF32's gradients lie from
+    IEEE's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.mlp import init_cnn
+
+    wx, _ = workers
+    x = wx[:, :32].reshape(-1, 1, 28, 28)
+    params = init_cnn(torch.Generator().manual_seed(1), device=dev)
+    w1, w2 = (params[k].permute(3, 2, 0, 1).contiguous().requires_grad_()
+              for k in ("conv1", "conv2"))
+    h1 = F.max_pool2d(torch.relu(F.conv2d(x, w1.detach(), padding=1)), 2, 2)
+    h1 = h1.detach().requires_grad_()
+    g1 = torch.randn((x.shape[0], w1.shape[0], 28, 28), device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+    g2 = torch.randn((x.shape[0], w2.shape[0], 14, 14), device=dev,
+                     generator=torch.Generator(dev).manual_seed(1))
+
+    def one_pass():
+        a = F.conv2d(x, w1, padding=1)
+        b = F.conv2d(h1, w2, padding=1)
+        return torch.autograd.grad((a, b), (w1, w2, h1), (g1, g2))
+
+    saved = torch.backends.cudnn.allow_tf32
+    out = {}
+    try:
+        for name, tf32 in (("ieee", False), ("tf32", True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            grads = one_pass()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                one_pass()
+            end.record()
+            end.synchronize()
+            out[name] = (start.elapsed_time(end) / reps, grads)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    dev_rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(out["tf32"][1], out["ieee"][1]))
+    log(f"cnn conv precision: conv1 + conv2 forward and backward on {x.shape[0]} images, "
+        f"device ms a pass: IEEE fp32 {out['ieee'][0]:.4f}, cuDNN TF32 {out['tf32'][0]:.4f}; "
+        f"TF32's gradients off IEEE's by up to {dev_rel:.3g} of a tensor's largest entry")
+
+
+def cnn_messages(sim, params, wx, wy, draws):
+    """What a ``CrossDeviceSim`` round hands the packed engine: the
+    cohort's per-client CNN gradients after the attack, ``[C, d]``."""
+    import torch
+
+    from repro_torch import ieee_fp32
+    from repro_torch.training.byzantine import stack_flatten_workers
+
+    cohort, idx = draws.cohort.to(wx.device), draws.idx.to(wx.device)
+    with ieee_fp32():
+        grads = sim.grad_fn(params, wx[cohort[:, None], idx], wy[cohort[:, None], idx])
+    sent, _ = sim.attack(stack_flatten_workers(grads).float(), cohort < sim.n_byz_pool, None)
+    return sent.contiguous()
+
+
+def cnn_kernel_rows(results, sent, mix, W: int, d: int, timing=(20, 20)) -> None:
+    """The four kernels of the CNN's cross-device path, at the packed width
+    ``d`` of its round, on the round's own messages: held, timed and bounded
+    as in phase 2."""
+    import torch
+
+    from repro_torch.distributed.packing import packer_for
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bucket_mix import bucket_mix
+    from repro_torch.kernels.cwise_median import cwise_median
+    from repro_torch.kernels.pairwise_gram import pairwise_gram
+    from repro_torch.kernels.trimmed_mean import cwise_trimmed_mean
+
+    record = functools.partial(measure, results)
+    n_pad = packer_for([sent]).n_pad
+    x = torch.nn.functional.pad(sent, (0, n_pad - d)).contiguous()
+    m_rows = mix.shape[0]
+    tag = f"CNN d={d}"
+    record("bucket_mix", f"{tag}: mix M[{m_rows},{W}] X[{W},{n_pad}]",
+           lambda: bucket_mix(mix, x), lambda: ref.bucket_mix(mix, x),
+           lambda: torch.matmul(mix, x), (W * n_pad + m_rows * W + m_rows * n_pad) * 4,
+           2 * m_rows * W * n_pad, timing, close(1e-5, 1e-4))
+    record("pairwise_gram", f"{tag}: X[{W},{n_pad}]", lambda: pairwise_gram(x),
+           lambda: ref.pairwise_gram(x), lambda: torch.matmul(x, x.T),
+           (W * n_pad + W * W) * 4, W * (W + 1) * n_pad, timing, gram_close(x))
+    mixed = bucket_mix(mix, x)
+
+    def bitwise(got, want):
+        if not same_bits(got, want):
+            raise AssertionError("kernel and plain version differ bitwise")
+
+    record("cwise_median", f"{tag}: X[{m_rows},{n_pad}]", lambda: cwise_median(mixed),
+           lambda: ref.cwise_median(mixed), lambda: torch.median(mixed, dim=0).values,
+           (m_rows + 1) * n_pad * 4, selection_ops(m_rows, n_pad), timing, bitwise,
+           PEAK_MINMAX_PER_S)
+    b = 1
+    record("cwise_trimmed_mean", f"{tag}: X[{m_rows},{n_pad}] b={b}",
+           lambda: cwise_trimmed_mean(mixed, b), lambda: ref.cwise_trimmed_mean(mixed, b),
+           lambda: torch.sort(mixed, dim=0).values[b:m_rows - b].mean(dim=0),
+           (m_rows + 1) * n_pad * 4, selection_ops(m_rows, n_pad, b), timing, bitwise,
+           PEAK_MINMAX_PER_S)
+
+
+def cnn_slice_phase(dev, smi: str, results):
+    """Phase 16(b): ``slice_phase`` with the CNN at each of ``CNN_SCALES``
+    under ``CNN_SLICE_RUNS``; after each round's comparison, the round's
+    aggregate of the card's own messages through the kernels against the
+    plain versions on the same values (CM / TM bit for bit); the kernels
+    held and timed at the largest scale's packed width."""
+    import torch
+
+    from repro_torch.distributed.packing import packed_aggregate
+    from repro_torch.models.mlp import cnn_apply, cnn_nll_loss, init_cnn
+
+    task = slice_task(dev)
+    wx, wy = task[:2]
+    launches = {}
+    for scale, d in CNN_SCALES.items():
+        init = functools.partial(init_cnn, scale=scale)
+        n = sum(p.numel() for p in init(torch.Generator().manual_seed(1), device="cpu").values())
+        if n != d:
+            raise AssertionError(f"cnn scale {scale}: {n} parameters, expected {d}")
+
+        def check(label, agg, sim_gpu, sim_cpu, p_gpu, d_gpu, draws, scale=scale, d=d):
+            sent = cnn_messages(sim_gpu, p_gpu, wx, wy, d_gpu)
+            got = packed_aggregate(sent, sim_gpu.aggregator, mix=d_gpu.mix).cpu()
+            want = packed_aggregate(sent.cpu(), sim_cpu.aggregator, mix=draws.mix)
+            if agg in ("cm", "tm"):
+                if not same_bits(got, want):
+                    raise AssertionError(f"{label}: the kernel aggregate differs bitwise "
+                                         "from the plain one")
+                how = "bit for bit"
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+                how = "rtol 1e-4, atol 1e-6"
+            log(f"check {label}: its aggregate of the card's messages "
+                f"X[{sent.shape[0]},{d}] == the plain versions' {how}")
+            if scale == max(CNN_SCALES) and agg == "cm":
+                cnn_kernel_rows(results, sent, d_gpu.mix, sent.shape[0], d)
+
+        launches.update(slice_phase(
+            dev, smi, task=task, runs=CNN_SLICE_RUNS, loss_fn=cnn_nll_loss, init=init,
+            apply_fn=cnn_apply, rounds=CNN_ROUNDS, prefix=f"cnn.slice.s{scale}.",
+            check=check))
+    return launches
+
+
+def analysis_phase(dev):
+    """Phase 16(c): ``python -m repro_torch.analysis --layers ast,trace
+    --device cuda``'s function on the card: every target once on one rank,
+    kernel presence read from ``LAUNCHES``; exit 0 and the exact launches."""
+    import torch
+
+    from repro_torch.analysis import cli
+    from repro_torch.analysis.targets import TARGET_NAMES
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as tmp:
+        path = os.path.join(tmp, "report.json")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["--layers", "ast,trace", "--device", str(dev), "--json", path])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        with open(path, encoding="utf-8") as fh:
+            report = json.load(fh)
+    if rc != 0 or not report["ok"] or report["meta"]["device"] != str(dev):
+        raise AssertionError(f"analysis on the card: exit {rc}, findings {report['findings']}")
+    # one device: the Gram route for RFA and CCLIP, the mix and CM for CM
+    want = dict.fromkeys(counts, 0)
+    want.update(bucket_mix=len(TARGET_NAMES), pairwise_gram=len(TARGET_NAMES) - 1,
+                cwise_median=1)
+    if counts != want:
+        raise AssertionError(f"analysis on the card: launches {counts}, expected {want}")
+    log(f"check analysis --layers ast,trace --device cuda: exit 0, no finding, "
+        f"{len(report['meta']['targets'])} targets on {report['meta']['device_name']}, "
+        f"launches {json.dumps(counts)}, {seconds:.1f} s")
+    return {"analysis.trace": counts}
+
+
+def cnn_phase(dev, smi: str, results):
+    """Phase 16: the CNN through both paper loops, and the static-analysis
+    gate's trace layer on the card."""
+    from repro_torch.models.mlp import cnn_apply, cnn_nll_loss, init_cnn
+
+    t0 = time.perf_counter()
+    launches, split = paper_phase(dev, smi, runs=CNN_RUNS, loss_fn=cnn_nll_loss, init=init_cnn,
+                                  apply_fn=cnn_apply, gate=cnn_gates,
+                                  reference=CNN_REFERENCE, prefix="cnn.paper.")
+    conv_precision(dev, split[0])
+    launches.update(cnn_slice_phase(dev, smi, results))
+    launches.update(analysis_phase(dev))
+    log(f"cnn / analysis phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def np_same_bits(got, want) -> bool:
     """Bit-for-bit equality of two numpy arrays (any dtype)."""
     import numpy as np
@@ -2996,14 +3323,15 @@ def np_same_bits(got, want) -> bool:
 
 
 def profile_rounds(sim, wx, wy, dev, label, round_us: float, rounds: int = 20,
-                   unit: str = "round") -> None:
-    """Profile ``rounds`` rounds (steps) of ``sim`` after 5 warm-up rounds."""
+                   unit: str = "round", init=None) -> None:
+    """Profile ``rounds`` rounds (steps) of ``sim`` after 5 warm-up rounds,
+    from ``init(generator, device=)``'s parameters (the MLP's by default)."""
     import torch
 
     from repro_torch.models.mlp import init_mlp
 
     gen = torch.Generator().manual_seed(3)
-    state = sim.init_state(init_mlp(torch.Generator().manual_seed(1), device=dev))
+    state = sim.init_state((init or init_mlp)(torch.Generator().manual_seed(1), device=dev))
     for _ in range(5):
         state, _ = sim.step(state, wx, wy, sim.draw(gen, wx.shape[1]))
 
@@ -3074,7 +3402,7 @@ def main() -> int:
     done("2")
     results.update(norm_kernel_phase(dev))
     done("4")
-    launches = slice_phase(dev)
+    launches = slice_phase(dev, smi)
     done("3")
     launches.update(ops_phase(dev))
     launches.update(sync_phase())
@@ -3100,6 +3428,8 @@ def main() -> int:
     done("14")
     launches.update(mesh_phase(dev, smi))
     done("15")
+    launches.update(cnn_phase(dev, smi, results))
+    done("16")
     for rows_by_kernel in (train_rows, ssm_rows):
         for name, rows in rows_by_kernel.items():
             results[name].extend(rows)
@@ -3156,7 +3486,7 @@ def main() -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
             **other.get(name, {})))
-    log(f"chip_smoke: phases 1-15 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-16 passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

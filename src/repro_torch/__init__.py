@@ -6,9 +6,10 @@ it. Plain tensor code is PyTorch; every Pallas kernel on a ported path is a
 CUDA C++ kernel for Hopper (``repro_torch/kernels/csrc``), built with
 ``nvcc`` at first use.
 
-Numerics: the aggregation math is IEEE fp32. TF32 is switched off for
-matmuls and cuDNN on import, so a float32 product on the card keeps full
-precision.
+Numerics: the aggregation math is IEEE fp32. PyTorch's float32 matmuls
+are IEEE by default; cuDNN's convolutions default to TF32, so the code that
+convolves (the CNN's per-worker gradients in both simulators) runs under
+``ieee_fp32()``. Importing the package changes no global flag.
 
 Devices: every entry point takes ``device``. It defaults to ``"cuda"`` and
 raises when no GPU is present; the port never falls back to the CPU on its
@@ -17,10 +18,9 @@ own. Tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
-import torch
+import contextlib
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+import torch
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,3 +33,17 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Float32 matmuls and cuDNN convolutions in IEEE fp32 (no TF32) inside
+    the block, forward and backward alike when the backward runs inside it;
+    the caller's settings come back after it."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

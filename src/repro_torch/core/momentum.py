@@ -26,6 +26,12 @@ def momentum_update(m, g, beta: float, convention: Convention = "ema"):
     return step(m, g)
 
 
+def init_worker_momentum(g0):
+    """Paper initialization: m^1 = g(x^0) (alpha = 0 at t = 1); the
+    counterpart of the reference's ``init_worker_momentum``."""
+    return g0
+
+
 def cclip_radius(beta: float, base_tau: float = 10.0, scaling: str = "linear") -> float:
     """The paper's clipping-radius rule for CCLIP (App. A.2.1).
 

@@ -38,7 +38,26 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import n_devices
+from repro_torch.launch.mesh import as_mesh, n_devices
+
+
+def _flat(mesh):
+    """Every axis of ``mesh`` (a ``Mesh`` or a bare group, the mesh
+    ``("data",)``) as one spec entry: a tuple, or the one name."""
+    axes = as_mesh(mesh).axis_names
+    return axes if len(axes) > 1 else axes[0]
+
+
+def col_spec(mesh) -> tuple:
+    """``[W, n]`` with the column axis over ALL mesh axes, the layout
+    ``shard_cols`` gives: the reference's ``col_spec`` as the port's tuple
+    spec (``sharding.Placement``)."""
+    return (None, _flat(mesh))
+
+
+def vec_spec(mesh) -> tuple:
+    """``[n]`` laid over ALL mesh axes: the reference's ``vec_spec``."""
+    return (_flat(mesh),)
 
 
 def _pad_cols(x: torch.Tensor, group) -> Tuple[torch.Tensor, int]:

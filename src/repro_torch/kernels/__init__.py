@@ -13,6 +13,12 @@ that it went through the kernels. ``VARIANT_LAUNCHES`` splits the
 tensor-core kernel for bf16) or ``simt`` (the CUDA-core kernel); and the
 ``pairwise_gram`` count by how the kernel staged its input: ``gram_tma``
 (a TMA tensor map) or ``gram_ldg`` (predicated loads).
+
+``CALLS`` counts, per kernel, the calls of its wrapper on any device, the
+plain version's included: on the CPU, where no kernel launches, it shows
+which kernels a route reached (the static-analysis gate's kernel-presence
+rule reads it there, ``repro_torch.analysis.op_trace``). Counting changes
+nothing a wrapper computes.
 """
 
 from __future__ import annotations
@@ -30,9 +36,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
 }
 VARIANT_LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "gram_tma": 0, "gram_ldg": 0}
+CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+    for counts in (LAUNCHES, VARIANT_LAUNCHES, CALLS):
         for name in counts:
             counts[name] = 0

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, _build, ref
 
 _ARGS = {"bucket_mix_launch": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -34,6 +34,7 @@ def bucket_mix(mix: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """mix: ``[m, W]``; xs: ``[W, d]`` -> ``[m, d]`` fp32. CPU tensors take the
     plain version; CUDA tensors launch the kernel (fp32, contiguous, any
     m, W >= 1)."""
+    CALLS["bucket_mix"] += 1
     m, W = mix.shape
     W2, d = xs.shape
     if W != W2:

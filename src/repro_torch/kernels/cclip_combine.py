@@ -12,7 +12,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, _build, ref
 from repro_torch.kernels.cclip_fused import check_update_args
 
 __all__ = ["cclip_combine", "sources"]
@@ -35,6 +35,7 @@ def cclip_combine(xs: torch.Tensor, v: torch.Tensor, lam: torch.Tensor) -> torch
     """xs: ``[W, d]``; v: ``[d]``; lam: ``[W]`` -> updated centre ``[d]`` fp32.
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32,
     contiguous, any W >= 1)."""
+    CALLS["cclip_combine"] += 1
     if check_update_args("cclip_combine", xs, v, lam):
         return ref.cclip_combine(xs, v, lam)
     W, d = xs.shape

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, _build, ref
 from repro_torch.kernels import weiszfeld_norms as wn
 
 
@@ -65,6 +65,7 @@ def cclip_fused_iter(xs: torch.Tensor, v: torch.Tensor,
     """xs: ``[W, d]``; v: ``[d]``; lam: ``[W]`` -> ``(v' [d], ||x_i - v'||^2
     [W])`` fp32. CPU tensors take the plain version; CUDA tensors launch the
     kernel (fp32, contiguous, any W >= 1)."""
+    CALLS["cclip_fused_iter"] += 1
     if check_update_args("cclip_fused_iter", xs, v, lam):
         return ref.cclip_fused_iter(xs, v, lam)
     W, d = xs.shape

@@ -16,7 +16,7 @@ import ctypes
 import functools
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, _build, ref
 from repro_torch.kernels.selection_network import emit_cuda, median_ranks
 
 SELECT_ARGS = {"select_launch": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -66,6 +66,7 @@ def cwise_median(xs: torch.Tensor) -> torch.Tensor:
     """xs: ``[W, d]`` -> median over workers ``[d]`` fp32. CPU tensors take the
     plain version; CUDA tensors launch the kernel (fp32, contiguous,
     any W >= 1)."""
+    CALLS["cwise_median"] += 1
     W, d = xs.shape
     if xs.device.type == "cpu":
         return ref.cwise_median(xs)

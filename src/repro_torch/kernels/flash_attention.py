@@ -20,7 +20,7 @@ from typing import Iterable
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, VARIANT_LAUNCHES, _build, ref
 
 _COMMON = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v out
            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B Sq Skv H KV
@@ -30,6 +30,10 @@ _ARGS = {"simt": {"flash_attention_launch": _COMMON + (ctypes.c_int, ctypes.c_vo
          "wgmma": {"flash_attention_wgmma_launch": _COMMON + (ctypes.c_void_p,)}}
 _NAMES = {"simt": "flash_attention", "wgmma": "flash_attention_wgmma"}  # csrc/<name>.cu
 
+#: a masked logit: the reference kernel's ``NEG_INF``, the plain version's
+#: (``ref.attention``) and the fp32 kernel's ``FA_NEG_INF``; the bf16
+#: kernel masks its edge tiles with -inf
+NEG_INF = -1e30
 #: largest head dim the kernel's templates cover
 MAX_HEAD_DIM = 256
 _GRID_LIMIT = 65535  # gridDim.y and gridDim.z: heads and batch (simt), batch (wgmma)
@@ -70,6 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     the CUDA tiles are the kernels' own. CPU tensors take the plain version
     (``ref.attention``); CUDA tensors launch the kernel that ``variant``
     names (fp32 or bf16, contiguous, dh <= 256)."""
+    CALLS["flash_attention"] += 1
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if Sq % block_q or Skv % block_kv:

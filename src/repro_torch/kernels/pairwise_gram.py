@@ -23,7 +23,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, VARIANT_LAUNCHES, _build, ref
 
 #: columns per unit of the kernel (``GR_UNIT`` in the source) and per tile
 #: of the plain version's sum
@@ -111,6 +111,7 @@ def pairwise_gram(xs: torch.Tensor, acc: Optional[torch.Tensor] = None) -> torch
     the plain version; CUDA tensors launch the kernel (fp32, contiguous,
     d >= 1; above ``MAX_ROWS`` rows, one launch per pair of row groups,
     ``grouped_gram``)."""
+    CALLS["pairwise_gram"] += 1
     W, d = xs.shape
     if acc is not None and tuple(acc.shape) != (W, W):
         raise ValueError(f"pairwise_gram: acc {tuple(acc.shape)} for W={W}")

@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, _build, ref
 from repro_torch.kernels.cwise_median import SELECT_ARGS, select
 from repro_torch.kernels.selection_network import band_scale, emit_cuda, trim_ranks
 
@@ -48,6 +48,7 @@ def cwise_trimmed_mean(xs: torch.Tensor, n_trim: int) -> torch.Tensor:
     ``[d]`` fp32; ``ValueError`` unless ``0 <= n_trim <= (W - 1) // 2``. CPU
     tensors take the plain version; CUDA tensors launch the kernel (fp32,
     contiguous, any W >= 1)."""
+    CALLS["cwise_trimmed_mean"] += 1
     W, d = xs.shape
     _check_trim(W, n_trim)
     if xs.device.type == "cpu":

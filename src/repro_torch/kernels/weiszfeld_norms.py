@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, _build, ref
 
 _P = ctypes.c_void_p
 _ARGS = {
@@ -81,6 +81,7 @@ def residual_norms(xs: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *,
     ``[W]``) or an explicit ``center`` ``[d]``; exactly one of the two, else
     ``ValueError``. CPU tensors take the plain version; CUDA tensors launch
     the kernel (fp32, contiguous, any W >= 1)."""
+    CALLS["residual_norms"] += 1
     if (coeffs is None) == (center is None):
         raise ValueError("provide exactly one of coeffs / center")
     W, d = xs.shape

@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.func import grad, vmap
 
-from repro_torch import resolve_device
+from repro_torch import ieee_fp32, resolve_device
 from repro_torch.configs.base import ByzConfig
 from repro_torch.core.attacks import get_attack
 from repro_torch.data.pipeline import draw_batch_idx, sample_worker_batches
@@ -120,7 +120,8 @@ class ByzantineSim:
         bx, by = sample_worker_batches(draws.idx, data_x, data_y)
 
         # per-worker gradients (vmap over the worker axis)
-        grads = self.grad_fn(state.params, bx, by)
+        with ieee_fp32():  # forward and backward: cuDNN's convolutions default to TF32
+            grads = self.grad_fn(state.params, bx, by)
         g_flat = stack_flatten_workers(grads).float()  # [W, d]
 
         # worker momentum (Algorithm 2); step 0 initializes m = g

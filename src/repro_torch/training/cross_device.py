@@ -27,7 +27,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.func import grad, vmap
 
-from repro_torch import resolve_device
+from repro_torch import ieee_fp32, resolve_device
 from repro_torch.configs.base import ByzConfig
 from repro_torch.core.attacks import get_attack
 from repro_torch.distributed.packing import packed_aggregate
@@ -93,7 +93,8 @@ class CrossDeviceSim:
 
         bx = data_x[cohort[:, None], idx]
         by = data_y[cohort[:, None], idx]
-        grads = self.grad_fn(state.params, bx, by)
+        with ieee_fp32():  # forward and backward: cuDNN's convolutions default to TF32
+            grads = self.grad_fn(state.params, bx, by)
         g_flat = stack_flatten_workers(grads).float()
 
         # attacks are stateless here (no persistent cohort across rounds)

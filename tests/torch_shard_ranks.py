@@ -428,3 +428,29 @@ def run_mesh(rank, group, device, p):
             "combine": _combine(mesh),
             "qwen": _qwen_serve(mesh, p["qwen_params"]),
             "three_axes": _three_axes(group)}
+
+
+# ------------------------------------------------------ collective records
+def record_each_collective(rank, group, device):
+    """Every collective ``launch.collectives.record_collectives`` wraps, once,
+    on 2 ranks: what each rank recorded."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.collectives import record_collectives
+
+    x = torch.arange(6, dtype=torch.float32) + rank
+    original = dist.all_reduce
+    with record_collectives() as calls:
+        dist.all_reduce(x.clone(), group=group)
+        dist.all_gather([torch.empty(6), torch.empty(6)], x, group=group)
+        dist.all_gather_into_tensor(torch.empty(12), x, group=group)
+        dist.all_to_all_single(torch.empty(6), x, group=group)
+        dist.broadcast(x.clone(), src=0, group=group)
+        dist.reduce_scatter_tensor(torch.empty(3), x, group=group)
+        if rank == 0:
+            dist.send(x, dst=1, group=group)
+        else:
+            dist.recv(torch.empty(6), src=0, group=group)
+        dist.barrier(group=group)
+    assert dist.all_reduce is original  # the originals are back after the block
+    return [(c.kind, c.fn, c.sent, c.received, c.buffers) for c in calls]
