@@ -30,7 +30,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    X[5, 26,624]; X[13, 16.7 M] and X[27, 16.7 M] with b = 5; X[65 / 128,
    106,496] with b = W // 4) are held bit for bit, on random values and on
    the same values with NaN, signed-zero and infinite columns, and bounded
-   by min / max and add instruction rates (``selection_ops``).
+   by min / max and add instruction rates (``kernels/cost.py::selection_ops``).
 3. Drive the main path: ``CrossDeviceSim`` trains the MLP for 120 rounds
    under four rule/attack pairs. For each pair the kernel launch counts are
    set to 0 just before its run and read just after: each kernel of its
@@ -236,6 +236,23 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    repro_torch.analysis --layers ast,trace --device cuda``'s ``main``: the
    six targets on the card's one rank, no finding (f64, host syncs, kernel
    presence read from ``LAUNCHES``), exit 0, exact launches.
+17. 16-bit worker rows, the dry-run and the examples. (a) Every
+   aggregation kernel and form on bf16 X at the path shape (X[10, 106,496];
+   CM / TM X[5, 106,496]), at TinyLlama-1.1B's training shape X[4, n_pad]
+   and at an unaligned d = 100,003, and on fp16 X at the path shape:
+   ``kernel(X16)`` equals ``kernel(X16.float())`` bit for bit, the same
+   launches; held against the plain version, timed, bounded by
+   ``kernels/cost.py`` at 2 bytes an element of X, the fp32 row's library
+   call timed on ``X16.float()`` with the cast. (b) The per-leaf engine on
+   TinyLlama-1.1B's full-width tree of bf16 leaves (W = 4, bucketing s = 2,
+   rfa and cm): each aggregate equals the packed engine's bit for bit,
+   with the launches stated from the leaf count (``x16.per_leaf.*``,
+   ``x16.packed.*``), host ms, device ms and peak memory of each engine.
+   (c) ``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
+   train_4k`` in a subprocess, started first and run beside (a) and (b):
+   exit 0 and its four lines. (d) ``examples/quickstart_torch.py``,
+   ``attack_defense_matrix_torch.py --steps 50`` and
+   ``serve_decode_torch.py`` in subprocesses, each exiting 0.
 
 The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
@@ -403,6 +420,19 @@ CNN_SCALES = {1: 52_114, 4: 824_362}
 CNN_SLICE_RUNS = [("rfa", "bitflip", None), ("cm", "bitflip", None),
                   ("tm", "alie", None)]
 CNN_ROUNDS = 60
+#: phase 17: the 16-bit element types, the selection kernels' rows at the
+#: path shape (the mix's 5 buckets of the W = 10 cohort), the unaligned d,
+#: the dry-run's combination, the examples (script, arguments) and the
+#: phase's budget in seconds
+X16_DTYPES = ("bfloat16", "float16")
+X16_SEL_W = 5
+X16_ODD_D = 100_003
+X16_DRYRUN = ("--arch", "tinyllama-1.1b", "--shape", "train_4k")
+X16_EXAMPLES = [("examples/quickstart_torch.py", ()),
+                ("examples/attack_defense_matrix_torch.py", ("--steps", "50")),
+                ("examples/serve_decode_torch.py", ())]
+X16_BUDGET_S = 90.0
+X16_TIMEOUT_S = 240.0     # the most a subprocess may take before the phase fails
 
 
 def log(msg: str) -> None:
@@ -447,39 +477,6 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def selection_ops(W: int, d: int, n_trim=None) -> float:
-    """Operations of a CM (``n_trim`` None) or TM call, as min / max
-    instructions at ``PEAK_MINMAX_PER_S``: per column, each min or max of
-    the program whose result is read again (``live_minmax``), and the adds
-    and the multiply that form the result (TM's band, the even median's
-    midpoint) at ``PEAK_FADD_PER_S``. Min / max and add run on separate
-    pipes, so the larger of the two counts."""
-    from repro_torch.kernels.selection_network import median_ranks, trim_ranks
-
-    if n_trim is None:
-        ranks = median_ranks(W)
-        n_minmax, n_add = live_minmax(W, ranks), 2 * (len(ranks) - 1)
-    else:
-        n_minmax = live_minmax(W, trim_ranks(W, n_trim)) if n_trim else 0
-        n_add = W - 2 * n_trim
-    return max(n_minmax, n_add * PEAK_MINMAX_PER_S / PEAK_FADD_PER_S) * d
-
-
-def live_minmax(W: int, ranks) -> int:
-    """Mins and maxes of ``selection_program(W, ranks)`` whose result a later
-    comparator or the result reads: a comparator whose lower (upper) slot
-    is dead afterwards needs no min (max); ptxas drops those."""
-    from repro_torch.kernels.selection_network import selection_program
-
-    live, n = set(ranks), 0
-    for i, j in reversed(selection_program(W, tuple(ranks))):
-        need = (i in live) + (j in live)
-        n += need
-        if need:
-            live |= {i, j}
-    return n
-
-
 def build_phase():
     from repro_torch.kernels import (_build, bucket_mix, cclip_combine, cclip_fused,
                                      cwise_median, flash_attention, pairwise_gram,
@@ -493,11 +490,22 @@ def build_phase():
         "cwise_trimmed_mean": list(dict.fromkeys(
             src for W, _, trims, _ in SELECTION_SHAPES for b in trims
             for src in trimmed_mean.sources(W, b)))}
+    # phase 17's 16-bit libraries: one per source and element type
+    import torch
+
+    dtypes16 = [getattr(torch, name) for name in X16_DTYPES]
+    for dt in dtypes16:
+        selection["cwise_median"] += [src for W in (X16_SEL_W, TRAIN_W)
+                                      for src in cwise_median.sources(W, dt)]
+        selection["cwise_trimmed_mean"] += [src for W in (X16_SEL_W, TRAIN_W)
+                                            for src in trimmed_mean.sources(W, 1, dt)]
+    x16 = [src for dt in dtypes16 for src in bucket_mix.sources(dt)
+           + pairwise_gram.sources(dt) + weiszfeld_norms.sources(dt) + cclip_combine.sources(dt)]
     # cclip_fused_iter launches the residual_norms library: each source once
     sources = list(dict.fromkeys(
         bucket_mix.sources() + pairwise_gram.sources() + weiszfeld_norms.sources()
         + cclip_fused.sources() + cclip_combine.sources() + flash_attention.sources()
-        + selection["cwise_median"] + selection["cwise_trimmed_mean"]))
+        + selection["cwise_median"] + selection["cwise_trimmed_mean"] + x16))
     seconds = _build.build_all(sources)
     log(f"build: {len(sources)} CUDA sources for sm_90a ready in {seconds:.1f} s "
         f"({_build.BUILD_DIR})")
@@ -508,7 +516,8 @@ def build_phase():
     # A spill in any instance fails the phase.
     checked = [("flash_attention_wgmma", "DH"), ("pairwise_gram", "L"), ("bucket_mix", ""),
                ("residual_norms", ""), ("cclip", "")] + [
-        (n, "") for srcs in selection.values() for n, _ in srcs]
+        (n, "") for srcs in selection.values() for n, _ in srcs] + [
+        (n, "L" if n.startswith("pairwise_gram") else "") for n, _ in x16]
     for name, param in checked:
         (text,) = [t for n, t in sources if n == name]
         ptxas[name] = res = ptxas_resources(_build.build_log(name, text), param)
@@ -554,12 +563,14 @@ def ptxas_resources(text: str, param: str = ""):
 
 
 def measure(results, name, label, kernel, plain, library, n_bytes, n_ops, timing, check,
-            peak_ops=PEAK_FP32_PER_S, extra=None):
+            peak_ops=PEAK_FP32_PER_S, extra=None, once=False):
     """Hold ``kernel()`` against ``plain()`` with ``check``, time kernel, plain
     version and library call, and append the row (with ``extra``'s keys) to
     ``results[name]``. A kernel with several outputs returns a tuple, checked
     by a tuple of checks; the error is the largest. ``peak_ops`` is the
-    card's peak for the inputs' type (fp32 on the CUDA cores unless given)."""
+    card's peak for the inputs' type (fp32 on the CUDA cores unless given).
+    ``once``: the plain version and the library call are timed by
+    ``time_once``."""
     import torch
 
     got, want = kernel(), plain()
@@ -569,10 +580,14 @@ def measure(results, name, label, kernel, plain, library, n_bytes, n_ops, timing
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     for g, w, c in zip(got, want, check):
         c(g, w)
+    del got, want, g, w
     b_ms, b_by = bound_ms(n_bytes, n_ops, peak_ops)
+    slow = time_once if once else (lambda fn: time_ms(fn, *timing))
+    if once and library is not None:
+        library()  # its warm-up
     row = dict(shape=label, max_abs_err=err, ms=time_ms(kernel, *timing),
-               plain_ms=time_ms(plain, *timing),
-               library_ms=None if library is None else time_ms(library, *timing),
+               plain_ms=slow(plain),
+               library_ms=None if library is None else slow(library),
                bound_ms=b_ms, bound_by=b_by, bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
                ops_ms=n_ops / peak_ops * 1e3, **(extra or {}))
     results[name].append(row)
@@ -743,6 +758,8 @@ def selection_rows(dev, record):
     mean, bounded by ``selection_ops``; then the same values with
     ``plant_specials``' NaN, signed-zero and infinite columns, bit for bit."""
     import torch
+
+    from repro_torch.kernels.cost import selection_ops
 
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.cwise_median import cwise_median, threads_for
@@ -1227,16 +1244,6 @@ def sync_phase():
     return launches
 
 
-def visible_pairs(Sq: int, Skv: int, window: int, q_offset: int) -> int:
-    """Query-key pairs the causal (and windowed) mask lets through."""
-    import numpy as np
-
-    qpos = q_offset + np.arange(Sq, dtype=np.int64)
-    hi = np.minimum(Skv, qpos + 1)
-    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros_like(qpos)
-    return int(np.maximum(0, hi - lo).sum())
-
-
 def attention_fp64(q, k, v, window: int = 0, q_offset=None):
     """``ref.attention`` in fp64: the yardstick of both bf16 versions' error."""
     from repro_torch.kernels import ref
@@ -1253,6 +1260,7 @@ def attention_row(results, label, q, k, v, window=0, q_offset=-1, timing=(5, 2),
     import torch.nn.functional as F
 
     from repro_torch.kernels import VARIANT_LAUNCHES, ref
+    from repro_torch.kernels.cost import visible_pairs
     from repro_torch.kernels.flash_attention import flash_attention
 
     B, Sq, H, dh = q.shape
@@ -1989,6 +1997,8 @@ def train_kernel_rows(run, dev, label: str, timing=(2, 1)):
     ``train_full_width``'s ``run``, as in phase 2; the momenta are freed.
     Returns the rows by kernel."""
     import torch
+
+    from repro_torch.kernels.cost import selection_ops
 
     from repro_torch.distributed.packing import packer_for
     from repro_torch.kernels import ref
@@ -3184,6 +3194,7 @@ def cnn_kernel_rows(results, sent, mix, W: int, d: int, timing=(20, 20)) -> None
     from repro_torch.distributed.packing import packer_for
     from repro_torch.kernels import ref
     from repro_torch.kernels.bucket_mix import bucket_mix
+    from repro_torch.kernels.cost import selection_ops
     from repro_torch.kernels.cwise_median import cwise_median
     from repro_torch.kernels.pairwise_gram import pairwise_gram
     from repro_torch.kernels.trimmed_mean import cwise_trimmed_mean
@@ -3375,6 +3386,304 @@ def profile_steps(step, label, step_us: float, steps: int, unit: str = "step") -
         for e in host))
 
 
+# ---------------------------------------------------------------- phase 17
+def time_once(fn) -> float:
+    """Device ms of one call between CUDA events: for the plain versions and
+    library calls at X[4, n_pad], where a call takes up to six seconds and
+    ``time_ms``' five would eat the phase's budget. ``measure`` has just
+    made the plain call once for its check (the warm-up); a library call
+    is made once before."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def x16_calls(x16, W, d, dev, seed, big):
+    """Phase 17(a)'s calls at one shape, ``(name, label, call, plain, library,
+    cost, check)``: ``call(X)`` runs the kernel on rows X (16-bit or their
+    fp32 copy), ``plain(X)`` its plain version, ``library(X)`` the fp32 row's
+    yardstick on ``X.float()`` (the cast included; none for TM at X[4,
+    n_pad] (``big``), where the sort's int64 indices alone take 35 GB),
+    ``cost(x_bytes)`` the call's ``kernels/cost.py`` record. Side inputs are
+    fp32, drawn from the rows' values and ``seed``."""
+    import torch
+
+    from repro_torch.core.mixing import Bucketing
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels.bucket_mix import bucket_mix
+    from repro_torch.kernels.cclip_combine import cclip_combine
+    from repro_torch.kernels.cclip_fused import cclip_fused_iter
+    from repro_torch.kernels.cwise_median import cwise_median
+    from repro_torch.kernels.pairwise_gram import pairwise_gram
+    from repro_torch.kernels.trimmed_mean import cwise_trimmed_mean
+    from repro_torch.kernels.weiszfeld_norms import residual_norms
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    mix = Bucketing(2).matrix(W, perm=torch.randperm(W, generator=torch.Generator()
+                                                     .manual_seed(seed)), device=dev)
+    weights = torch.rand((1, W), device=dev, generator=gen)
+    weights = weights / weights.sum()
+    c = torch.softmax(torch.randn(W, device=dev, generator=gen), 0)
+    v = x16.float().mean(0)
+    norms = torch.sqrt(ref.residual_norms(x16, center=v))
+    lam = torch.clamp(0.5 * norms.median() / norms, max=1.0)  # about half clipped
+    beta = 1.0 - float(lam.mean())
+    Ws = min(W, X16_SEL_W)  # CM / TM take the mix's rows on the path: 5 of W = 10
+    # phase 11's check at X[4, n_pad], phase 2's elsewhere
+    gram_check = gram_close(x16.float()) if not big else (
+        lambda got, want: torch.testing.assert_close(
+            got, want, rtol=0, atol=TRAIN_GRAM_RTOL * float(torch.diagonal(want).max())))
+    sort_band = None if big else (
+        lambda X: torch.sort(X[:Ws].float(), dim=0).values[1:Ws - 1].mean(dim=0))
+
+    def bitwise(got, want):
+        if not same_bits(got, want):
+            raise AssertionError("kernel and plain version differ bitwise")
+
+    m = mix.shape[0]
+    return [
+        ("bucket_mix", f"mix M[{m},{W}] X[{W},{d}]", lambda X: bucket_mix(mix, X),
+         lambda X: ref.bucket_mix(mix, X), lambda X: torch.matmul(mix, X.float()),
+         lambda b: cost.bucket_mix(m, W, d, b), close(1e-5, 1e-4)),
+        ("bucket_mix", f"combine M[1,{W}] X[{W},{d}]", lambda X: bucket_mix(weights, X),
+         lambda X: ref.bucket_mix(weights, X), lambda X: torch.matmul(weights, X.float()),
+         lambda b: cost.bucket_mix(1, W, d, b), close(1e-5, 1e-4)),
+        ("pairwise_gram", f"X[{W},{d}]", lambda X: pairwise_gram(X),
+         lambda X: ref.pairwise_gram(X), lambda X: (lambda y: torch.matmul(y, y.T))(X.float()),
+         lambda b: cost.pairwise_gram(W, d, b), gram_check),
+        ("cwise_median", f"X[{Ws},{d}]", lambda X: cwise_median(X[:Ws]),
+         lambda X: ref.cwise_median(X[:Ws]),
+         lambda X: torch.median(X[:Ws].float(), dim=0).values,
+         lambda b: cost.selection(Ws, d, None, b), bitwise),
+        ("cwise_trimmed_mean", f"X[{Ws},{d}] b=1", lambda X: cwise_trimmed_mean(X[:Ws], 1),
+         lambda X: ref.cwise_trimmed_mean(X[:Ws], 1), sort_band,
+         lambda b: cost.selection(Ws, d, 1, b), bitwise),
+        ("residual_norms", f"coeffs X[{W},{d}]", lambda X: residual_norms(X, c),
+         lambda X: ref.residual_norms(X, c), None, lambda b: cost.residual_norms(W, d, b),
+         close(1e-4, 1e-3)),
+        ("residual_norms", f"center X[{W},{d}]", lambda X: residual_norms(X, center=v),
+         lambda X: ref.residual_norms(X, center=v),
+         lambda X: torch.cdist(X.float(), v[None, :]),
+         lambda b: cost.residual_norms(W, d, b, center=True), close(1e-4, 1e-3)),
+        ("cclip_fused_iter", f"X[{W},{d}]", lambda X: cclip_fused_iter(X, v, lam),
+         lambda X: ref.cclip_fused_iter(X, v, lam), None,
+         lambda b: cost.cclip_fused_iter(W, d, b), (close(1e-5, 1e-4), close(1e-4, 1e-3))),
+        ("cclip_combine", f"X[{W},{d}]", lambda X: cclip_combine(X, v, lam),
+         lambda X: ref.cclip_combine(X, v, lam),
+         lambda X: torch.addmv(v, X.float().T, lam, beta=beta, alpha=1.0 / W),
+         lambda b: cost.cclip_combine(W, d, b), close(1e-5, 1e-4)),
+    ]
+
+
+def x16_rows(dev, results, dtype, W, d, timing, seed, big=False):
+    """Phase 17(a) at one shape: rows X16 ``[W, d]`` of ``dtype``. Each call
+    on X16 must equal the same call on ``X16.float()`` bit for bit with the
+    same launches (the Gram through ``gram_ldg`` on X16); then kernel, plain
+    version and library call are held and timed (``measure``; ``big``: the
+    plain version and the library call once, ``time_once``) and bounded at
+    X16's element size."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+
+    x16 = torch.randn((W, d), device=dev, dtype=dtype,
+                      generator=torch.Generator(dev).manual_seed(seed))
+    calls = x16_calls(x16, W, d, dev, seed, big)
+    name16 = str(dtype).replace("torch.", "")
+    for name, label, call, plain, library, cost_of, check in calls:
+        runs = []
+        for fp32 in (False, True):
+            x = x16.float() if fp32 else x16
+            before, kinds = dict(LAUNCHES), dict(VARIANT_LAUNCHES)
+            out = call(x)
+            torch.cuda.synchronize()
+            runs.append((out if isinstance(out, tuple) else (out,),
+                         {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]},
+                         {k: n - kinds[k] for k, n in VARIANT_LAUNCHES.items() if n != kinds[k]}))
+            del x, out
+        (got, n16, v16), (want, n32, v32) = runs
+        if n16 != n32 or not all(same_bits(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} [{name16} {label}]: {n16} launches vs {n32}, or "
+                                 "not the bits of the fp32 call")
+        if name == "pairwise_gram" and v16 != {"gram_ldg": n16[name]}:
+            raise AssertionError(f"pairwise_gram [{name16} {label}] ran {v16}, not gram_ldg")
+        del got, want, runs
+        c = cost_of(x16.element_size())
+        extra = dict(x_dtype=name16, same_bits_as_fp32=True, variants=v16)
+        measure(results, name, f"{name16} {label}", lambda: call(x16), lambda: plain(x16),
+                None if library is None else (lambda: library(x16)), c.bytes, c.ops, timing,
+                check, c.peak, extra, once=big)
+        torch.cuda.empty_cache()
+    log(f"check 16-bit rows {name16} X[{W},{d}]: every kernel and form gave the bits of "
+        f"the fp32 call on X.float() with the same launches; the Gram ran gram_ldg")
+    del x16, calls
+    torch.cuda.empty_cache()
+
+
+def train_n_pad(arch: str = "tinyllama-1.1b") -> int:
+    """The packed width of ``arch``'s full-width tree (``packing.packer_for``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.packing import packer_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import TensorSpec, tree_map
+
+    specs = tfm.params_shape(get_config(arch))
+    return packer_for(tree_map(lambda s: TensorSpec((TRAIN_W,) + tuple(s.shape), s.dtype),
+                               specs)).n_pad
+
+
+def x16_per_leaf(dev, smi: str):
+    """Phase 17(b): the per-leaf engine's bf16 route at TinyLlama-1.1B's full
+    width. Each rule (rfa, cm; bucketing s = 2) runs on one tree of seeded
+    bf16 leaves [TRAIN_W, ...] through the packed engine, then the per-leaf
+    engine with its kernels: the aggregates must be equal bit for bit, and
+    each engine's launches exact (per leaf: the Gram and the combine for
+    rfa, the mix and the median for cm; packed: one of each). Host ms,
+    device ms and peak memory above what was allocated."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.aragg import RobustAggregator
+    from repro_torch.distributed.robust_sync import robust_gradient_sync
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_flatten, tree_map
+
+    cfg = get_config("tinyllama-1.1b")
+    gen = torch.Generator(dev).manual_seed(17)
+    tree = tree_map(lambda s: torch.randn((TRAIN_W,) + tuple(s.shape), device=dev,
+                                          dtype=torch.bfloat16, generator=gen),
+                    tfm.params_shape(cfg))
+    leaves = tree_flatten(tree)[0]
+    n_leaves = sum(1 for t in leaves if t.numel())
+    n_params = sum(t[0].numel() for t in leaves)
+    routes = {"rfa": ("pairwise_gram", "bucket_mix"), "cm": ("bucket_mix", "cwise_median")}
+    launches = {}
+    for agg, route in routes.items():
+        ra = RobustAggregator.from_spec(agg, mixing="bucketing", s=2)
+        mix = ra.mixing_matrix(TRAIN_W, torch.Generator().manual_seed(5), device=dev)
+        outs = {}
+        for engine, per in (("packed", 1), ("per_leaf", n_leaves)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            reset_launches()
+            t0 = time.perf_counter()
+            start.record()
+            outs[engine], _ = robust_gradient_sync(tree, ra, mix=mix, engine=engine,
+                                                   use_kernels=True)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(LAUNCHES)
+            want = {k: (per if k in route else 0) for k in counts}
+            if counts != want:
+                raise AssertionError(f"x16.{engine}.{agg}: launches {counts}, expected {want}")
+            launches[f"x16.{engine}.{agg}"] = counts
+            log(f"per-leaf bf16 [{agg}, {engine}]: TinyLlama-1.1B W={TRAIN_W} x "
+                f"{n_params:,} bf16 parameters ({n_leaves} leaves): host "
+                f"{host_ms:.1f} ms, device {start.elapsed_time(end):.3f} ms, "
+                f"{peak_above(live)}, launches {json.dumps({k: n for k, n in counts.items() if n})} "
+                f"({smi})")
+        got, want = (tree_flatten(outs[e])[0] for e in ("per_leaf", "packed"))
+        if not all(g.dtype == w.dtype == torch.bfloat16 and torch.equal(
+                g.view(torch.int16), w.view(torch.int16)) for g, w in zip(got, want)):
+            raise AssertionError(f"per-leaf bf16 [{agg}]: differs from the packed engine")
+        log(f"check per-leaf bf16 [{agg}]: the aggregate equals the packed engine's bit "
+            f"for bit ({len(got)} bf16 leaves)")
+        del outs, got, want
+    del tree, leaves
+    torch.cuda.empty_cache()
+    return launches
+
+
+def start_subprocess(args, label: str):
+    """``(process, log file, start time)`` of ``python args`` from the
+    checkout's root, its output to a temporary file."""
+    root = Path(__file__).resolve().parent
+    out = tempfile.TemporaryFile(mode="w+")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.Popen([sys.executable, *args], cwd=root, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    log(f"phase 17: started {label} (pid {proc.pid})")
+    return proc, out, time.perf_counter()
+
+
+def finish_subprocess(started, label: str, timeout: float) -> str:
+    """Wait for a ``start_subprocess`` process, log its output, and raise
+    unless it exited 0; returns the output."""
+    proc, out, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    out.seek(0)
+    text = out.read()
+    out.close()
+    for line in text.splitlines():
+        log(f"  [{label}] {line}")
+    log(f"phase 17: {label} exited {rc} after {seconds:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"{label} exited {rc}")
+    return text
+
+
+def x16_phase(dev, smi: str, results):
+    """Phase 17: (c) the dry-run started in a subprocess, beside (a) the
+    16-bit rows and (b) the per-leaf engine's bf16 route; then (d) the
+    examples, each in a subprocess, all at once; then the dry-run's
+    result. Returns (b)'s launches by path."""
+    import torch
+
+    t0 = time.perf_counter()
+    dryrun = start_subprocess(["-m", "repro_torch.launch.dryrun", *X16_DRYRUN],
+                              "dry-run " + " ".join(X16_DRYRUN))
+    started = [dryrun]
+    try:
+        bf16, f16 = torch.bfloat16, torch.float16
+        for dtype, W, d, timing, seed, big in [
+                (bf16, 10, MAIN_D, (20, 50), 1, False), (f16, 10, MAIN_D, (20, 50), 2, False),
+                (bf16, 10, X16_ODD_D, (20, 50), 3, False),
+                (bf16, TRAIN_W, train_n_pad(), (1, 1), 4, True)]:
+            x16_rows(dev, results, dtype, W, d, timing, seed, big)
+        log(f"phase 17(a) done at {time.perf_counter() - t0:.1f} s of the phase")
+        launches = x16_per_leaf(dev, smi)
+        log(f"phase 17(b) done at {time.perf_counter() - t0:.1f} s of the phase")
+        examples = [start_subprocess([path, *args], path) for path, args in X16_EXAMPLES]
+        started += examples
+        for run, (path, _) in zip(examples, X16_EXAMPLES):
+            finish_subprocess(run, path, X16_TIMEOUT_S)
+        log(f"phase 17(d) done at {time.perf_counter() - t0:.1f} s of the phase")
+        text = finish_subprocess(dryrun, "dry-run", X16_TIMEOUT_S)
+    finally:  # a phase that fails leaves no process behind
+        for proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    head = "== tinyllama-1.1b x train_4k x 16x16 (train) =="
+    lines = text.splitlines()
+    if head not in lines or [line.split(":")[0] for line in
+                             lines[lines.index(head) + 1:lines.index(head) + 4]] != [
+            "memory_analysis", "cost_analysis", "roofline"] or \
+            "1/1 combinations traced" not in text:
+        raise AssertionError("the dry-run did not print its four lines")
+    seconds = time.perf_counter() - t0
+    log(f"phase 17: {seconds:.1f} s ({'within' if seconds <= X16_BUDGET_S else 'over'} the "
+        f"budget of {X16_BUDGET_S:.0f} s)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3430,6 +3739,8 @@ def main() -> int:
     done("15")
     launches.update(cnn_phase(dev, smi, results))
     done("16")
+    launches.update(x16_phase(dev, smi, results))
+    done("17")
     for rows_by_kernel in (train_rows, ssm_rows):
         for name, rows in rows_by_kernel.items():
             results[name].extend(rows)
@@ -3486,7 +3797,7 @@ def main() -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
             **other.get(name, {})))
-    log(f"chip_smoke: phases 1-16 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-17 passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

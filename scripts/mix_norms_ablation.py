@@ -80,8 +80,8 @@ EDITS = {
                      "#define BM_WB(MC) ((MC) == 16 || (MC) == 1 ? 8 : 16)"),
                     ("#define BM_MIN_BLOCKS(MC) ((MC) == 16 ? 2 : 1)",
                      "#define BM_MIN_BLOCKS(MC) ((MC) == 16 ? 2 : (MC) == 1 ? 3 : 1)")],
-        "ldcs": [("return __ldg(reinterpret_cast<const float4*>(row + c0));",
-                  "return __ldcs(reinterpret_cast<const float4*>(row + c0));")],
+        "ldcs": [("return __ldg(reinterpret_cast<const float4*>(p));",
+                  "return __ldcs(reinterpret_cast<const float4*>(p));")],
     },
     "residual_norms": {
         # 32 rows a chunk at every W (one block an SM)

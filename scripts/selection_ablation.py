@@ -16,7 +16,7 @@ both in a view whose rows start 4 bytes off a 16-byte boundary. It times
 the kernel (a CUDA graph of back-to-back calls, as ``chip_smoke.py``) beside
 ``torch.median(dim=0)`` or ``torch.sort`` and the band's mean, twice in
 turns, and profiles 20 calls with ``torch.profiler`` to count the CUDA
-kernels a call launches. Bounds: ``chip_smoke.selection_ops``.
+kernels a call launches. Bounds: ``repro_torch.kernels.cost.selection_ops``.
 
 Inputs come from seeded generators on the card, so two runs on one card
 see the same values. Every output's SHA-256 is written to ``--out``
@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib.util
 import json
 import subprocess
 import sys
@@ -209,7 +210,14 @@ def main() -> int:
     sys.path.insert(1, str(ROOT / "scripts"))
     from chip_smoke import (PEAK_BYTES_PER_S, PEAK_MINMAX_PER_S, SELECTION_SHAPES, bound_ms,
                             plant_specials, profile_kernels, ptxas_resources, same_bits,
-                            selection_ops, time_ms)
+                            time_ms)
+    # the bounds' counts from this checkout's kernels/cost.py, loaded by path:
+    # a --root tree (the parent) may predate it
+    spec = importlib.util.spec_from_file_location(
+        "kernel_cost", ROOT / "src" / "repro_torch" / "kernels" / "cost.py")
+    kernel_cost = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kernel_cost)
+    selection_ops = kernel_cost.selection_ops
     from mix_norms_ablation import digest
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import cwise_median as cm

@@ -7,12 +7,17 @@ Layers (select with ``--layers``):
   collective  collective count / byte budgets and the replicated-egress rule
               over each rank's ``torch.distributed`` calls
 
-On the CPU (the default ``--device cpu``) ``main`` spawns the 8 gloo ranks
-itself (``targets.run_on_ranks``; ``launch.mesh.spawn_ranks`` gives each
-rank its share of the host's threads) and reads both traced layers from
-one run. ``--device cuda`` runs the trace layer's targets on the card, one
-rank, with kernel presence read from ``kernels.LAUNCHES``; the collective
-layer always runs over the gloo ranks on the CPU.
+``--device`` is ``cuda`` by default, as for every entry point of the port:
+without a card ``main`` raises (``repro_torch.resolve_device``); pass
+``--device cpu`` to run on the CPU. Only the op-trace layer follows it.
+``--device cuda`` runs the trace layer's targets on the card, one rank,
+with kernel presence read from ``kernels.LAUNCHES``; with ``--device cpu``
+the trace layer reads the gloo ranks' run. The AST layer reads source
+files, and the collective layer always runs over 8 gloo ranks on the CPU
+(``targets.run_on_ranks``; ``launch.mesh.spawn_ranks`` gives each rank
+its share of the host's threads), whatever the device: the reference
+counts its collectives on 8 host devices, and gloo's ``all_to_all``
+aborts on CUDA tensors (``shard_kernels.exchange``).
 
 Exit status is nonzero iff an error-severity finding fired. ``--json``
 writes the machine-readable report; ``--update-budgets`` regenerates the
@@ -26,6 +31,7 @@ import argparse
 import os
 from typing import List, Optional
 
+from repro_torch import resolve_device
 from repro_torch.analysis.findings import Report
 
 #: the AST layer's default tree: this package's own
@@ -46,9 +52,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--update-budgets", action="store_true",
                     help="regenerate committed collective budgets from the current tree "
                          "instead of checking them")
-    ap.add_argument("--device", type=str, default="cpu",
-                    help="where the trace layer runs: cpu (the gloo ranks) or cuda")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="where the trace layer runs: cuda (default; raises without a "
+                         "card) or cpu (the gloo ranks)")
     args = ap.parse_args(argv)
+    resolve_device(args.device)
 
     layers = (list(ALL_LAYERS) if args.layers == "all"
               else [l.strip() for l in args.layers.split(",") if l.strip()])

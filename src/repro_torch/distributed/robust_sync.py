@@ -9,7 +9,10 @@ Port of ``repro/distributed/robust_sync.py``. Two engines:
   group (``shard_kernels.py``).
 - ``engine="per_leaf"``: each leaf contracted on its own (Gram, mixing,
   combine per leaf), kept as the bit-exactness oracle of the packed engine.
-  With ``use_kernels=True`` its Gram chains through the Gram kernel's
+  With ``use_kernels=True`` each leaf goes to the kernels as ``[W, N_leaf]``
+  in its own dtype (fp32, bf16 or fp16: the kernels convert at the load,
+  exactly, as the reference's do), with no fp32 copy; its Gram chains
+  through the Gram kernel's
   fixed 2048-column tiles (``acc``), the same sum as the packed engine's
   one call, so on one device the two engines agree bit for bit. With the
   default ``use_kernels=False`` it runs plain PyTorch contractions. Over a
@@ -42,15 +45,20 @@ def _flat32(leaf: torch.Tensor, n_workers: int) -> torch.Tensor:
     return leaf.reshape(n_workers, -1).float().contiguous()
 
 
+def _rows(leaf: torch.Tensor, n_workers: int) -> torch.Tensor:
+    """A leaf's ``[W, N_leaf]`` stack in its own dtype: what the kernels take."""
+    return leaf.reshape(n_workers, -1).contiguous()
+
+
 def _tree_map(fn, tree: Any) -> Any:
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(treedef, [fn(leaf) for leaf in leaves])
 
 
 def _columns(leaf: torch.Tensor, n_workers: int, group) -> torch.Tensor:
-    """A leaf's ``[W, N_leaf]`` fp32 stack, or over a group this rank's
-    column slice of it."""
-    flat = _flat32(leaf, n_workers)
+    """A leaf's ``[W, N_leaf]`` stack in its own dtype (``_rows``), or over a
+    group this rank's column slice of it (zero-padded in that dtype)."""
+    flat = _rows(leaf, n_workers)
     return flat if group is None else shard_kernels.shard_cols(flat, group)
 
 
@@ -108,8 +116,8 @@ def tree_mix(grads_w: Any, mix_matrix: torch.Tensor, use_kernels: bool = False) 
         if leaf.numel() == 0:  # guard BEFORE reshape(W, -1)
             return torch.zeros((m,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
                                device=leaf.device)
-        flat = _flat32(leaf, leaf.shape[0])
-        out = ops.mix_apply(mix_matrix, flat) if use_kernels else mix_matrix @ flat
+        out = (ops.mix_apply(mix_matrix, _rows(leaf, leaf.shape[0])) if use_kernels
+               else mix_matrix @ _flat32(leaf, leaf.shape[0]))
         return out.reshape((m,) + tuple(leaf.shape[1:])).to(leaf.dtype)
 
     return _tree_map(one, grads_w)
@@ -135,8 +143,8 @@ def _per_leaf_sync(grads_w: Any, aggregator: RobustAggregator, mix: torch.Tensor
         if not use_kernels:
             return _tree_map(base.combine_leaf, tree_mix(grads_w, mix)), info
 
-        # kernel route: fp32 end to end per leaf, CM/TM through their
-        # kernels, phase for phase the packed engine's
+        # kernel route: each leaf in its own dtype into the mix, fp32 after
+        # it, CM/TM through their kernels, phase for phase the packed engine's
         def one(leaf):
             if leaf.numel() == 0:  # guard BEFORE reshape(W, -1)
                 return torch.zeros(leaf.shape[1:], dtype=leaf.dtype, device=leaf.device)

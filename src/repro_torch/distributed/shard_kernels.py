@@ -72,7 +72,8 @@ def _pad_cols(x: torch.Tensor, group) -> Tuple[torch.Tensor, int]:
 
 
 def shard_cols(x: torch.Tensor, group) -> torch.Tensor:
-    """This rank's (contiguous) column slice of the zero-padded ``x``."""
+    """This rank's (contiguous) column slice of the zero-padded ``x``, in
+    ``x``'s dtype (a 16-bit leaf is padded and sliced as 16-bit columns)."""
     x, _ = _pad_cols(x, group)
     n_local = x.shape[-1] // n_devices(group)
     r = dist.get_rank(group)
@@ -88,7 +89,9 @@ def exchange(send: torch.Tensor, send_sizes, recv_sizes, group) -> torch.Tensor:
     writes the device pointer to its socket and the process aborts
     (``writev ... Bad address``; torch 2.11 with CUDA 12.8 on an H100). So
     under gloo the exchange always runs on a host copy; any other backend
-    exchanges on the tensors' own device."""
+    exchanges on the tensors' own device: NCCL, and the ``"fake"`` backend
+    of the dry-run (``launch/dryrun.py``), which so traces the route a
+    multi-card NCCL run takes."""
     host = dist.get_backend(group) == "gloo" and send.device.type != "cpu"
     src = send.cpu() if host else send
     recv = torch.empty(sum(recv_sizes), dtype=send.dtype, device=src.device)

@@ -89,12 +89,17 @@ class Placement:
         """How many blocks ``dim`` is cut into."""
         return math.prod(self.mesh.shape[a] for a in self.axes(dim))
 
-    def ranges(self, shape: Sequence[int], rank: Optional[int] = None):
+    def ranges(self, shape: Sequence[int], rank: Optional[int] = None,
+               dims: Optional[Sequence[int]] = None):
         """``[(start, stop), ...]`` per dim: the block of ``rank`` (this
-        rank by default) in a tensor of ``shape``."""
+        rank by default) in a tensor of ``shape``; only ``dims`` are cut, if
+        given (the others span the tensor, whatever their size)."""
         coords = self.mesh.coords if rank is None else self.mesh.coords_of(rank)
         out = []
         for d, n in enumerate(shape):
+            if dims is not None and d not in dims:
+                out.append((0, n))
+                continue
             k = self.parts(d)
             if n % k:
                 raise ValueError(f"placement {self.spec}: dim {d} of {tuple(shape)} does not "
@@ -119,7 +124,7 @@ class Placement:
         cut = [d for d in self.sharded_dims(full.dim()) if dims is None or d in dims]
         if not cut:
             return full
-        ranges = self.ranges(full.shape)
+        ranges = self.ranges(full.shape, dims=cut)
         index = tuple(slice(*ranges[d]) if d in cut else slice(None) for d in range(full.dim()))
         return full[index].clone()
 

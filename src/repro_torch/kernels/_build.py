@@ -11,11 +11,19 @@ once, and waits for every one of them. ``ptxas`` reports each kernel's
 registers, shared memory and spills (``-Xptxas -v``); the compiler's output
 is kept beside the library (``build_log``).
 
+The aggregation kernels take the worker rows X as fp32, bf16 or fp16
+(``X_TYPES``): ``x_source`` prepends the element type and ``csrc/xtype.cuh``
+to a source, and each type is a library of its own. Their other inputs
+come in fp32 (``as_f32`` casts a 16-bit one, as the reference's wrappers
+do) and their outputs are fp32.
+
 The wrappers validate their inputs with ``check_inputs`` / ``check_rows``
 (any row count of at least one) before passing raw pointers, launch on
 PyTorch's current stream (``stream_of``), and raise through
 ``check_launch`` when the C entry returns a non-zero
-``cudaGetLastError()``.
+``cudaGetLastError()``. A ``FakeTensor`` input (``is_fake``) launches
+nothing: the wrapper returns an empty output of the right shape before it
+checks or builds anything (``kernels/cost.py`` records the call's cost).
 
 Nothing here runs on import: the CPU tests import every module.
 """
@@ -31,9 +39,10 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake  # noqa: F401  (the wrappers read it here)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -42,9 +51,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[Path, ctypes.CDLL] = {}
 
+#: X's element types the aggregation kernels take: dtype -> (C type, suffix
+#: of the library's name)
+X_TYPES = {torch.float32: ("float", ""), torch.bfloat16: ("__nv_bfloat16", "_bf16"),
+           torch.float16: ("__half", "_f16")}
+X_DTYPES = tuple(X_TYPES)
+
 
 def read_source(filename: str) -> str:
     return (CSRC / filename).read_text()
+
+
+def x_source(name: str, text: str, dtype: torch.dtype = torch.float32) -> Tuple[str, str]:
+    """``(library name, source)`` of an aggregation kernel built for X of
+    ``dtype``: ``#define X_T`` and ``csrc/xtype.cuh`` before ``text``."""
+    if dtype not in X_TYPES:
+        raise TypeError(f"{name}: X is {dtype}; the kernel takes "
+                        + " or ".join(str(d).replace("torch.", "") for d in X_DTYPES))
+    ctype, suffix = X_TYPES[dtype]
+    return name + suffix, f"#define X_T {ctype}\n" + read_source("xtype.cuh") + text
+
+
+def as_f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A 16-bit floating tensor cast to fp32; any other (fp32, fp64, ints,
+    ``None``) as it is, so ``check_inputs`` still refuses what it refuses."""
+    if t is not None and t.dtype in (torch.bfloat16, torch.float16):
+        return t.float()
+    return t
 
 
 def _nvcc() -> str:
@@ -120,15 +153,18 @@ def load(name: str, text: str, functions: Dict[str, tuple]) -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(kernel: str, dtypes=(torch.float32,), **tensors) -> None:
-    """Raise unless every tensor is a contiguous tensor of one of ``dtypes``
-    (float32 by default) on the current CUDA device (the kernels launch there)."""
+def check_inputs(kernel: str, dtypes: Optional[Mapping[str, Tuple[torch.dtype, ...]]] = None,
+                 **tensors) -> None:
+    """Raise unless every tensor is contiguous, on the current CUDA device (the
+    kernels launch there) and of one of its dtypes: ``dtypes[name]`` for
+    the tensors named there, float32 for the others."""
     for name, t in tensors.items():
+        allowed = (dtypes or {}).get(name, (torch.float32,))
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: {name} is on {t.device}, not a CUDA device")
-        if t.dtype not in dtypes:
+        if t.dtype not in allowed:
             raise TypeError(f"{kernel}: {name} is {t.dtype}; the kernel takes "
-                            + " or ".join(str(d).replace("torch.", "") for d in dtypes))
+                            + " or ".join(str(d).replace("torch.", "") for d in allowed))
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
         if t.device.index not in (None, torch.cuda.current_device()):

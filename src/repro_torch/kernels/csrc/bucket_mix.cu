@@ -1,5 +1,5 @@
-// Mixing operator Y = M X for a row-stochastic M [m, W] and X [W, d], fp32,
-// any m, W >= 1.
+// Mixing operator Y = M X for a row-stochastic M [m, W] and X [W, d], any
+// m, W >= 1; X fp32, bf16 or fp16 (xtype.cuh), M and Y fp32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/bucket_mix.py::bucket_mix
 // (pallas_call at bucket_mix.py:42). On the main path it applies the
@@ -35,39 +35,23 @@
 // - The block size is fitted to the card: T threads (64 .. 256, a multiple
 //   of 32) cover d / 4 / n_SM column groups, so at d = 106,496 119 blocks of
 //   224 threads fall one to an SM, not 3 or 4 to some and 2 to others.
-// - Rows that are not 16-byte aligned (d % 4 != 0, or a base off 16 bytes:
-//   the per-leaf oracle's leaves) take predicated scalar loads and stores
-//   (ALIGNED = false); the arithmetic is the same.
+// - Rows whose four elements are not one vector load (d % 4 != 0, or a
+//   base off 16 bytes for fp32, 8 for a 16-bit X: the per-leaf oracle's
+//   leaves) take predicated scalar loads and stores (ALIGNED = false); the
+//   arithmetic is the same. A 16-bit X is read as 8-byte vectors and
+//   converted to fp32 at the load (xtype.cuh): half the bytes, the same
+//   FMAs, the fp32 kernel's bits.
 // Each output is the fmaf chain over w = 0 .. W-1 from 0.0f in that order,
 // one thread per output and no atomics; steps past W are skipped, not
 // multiplied by zero (fmaf(0, 0, -0.0f) is +0.0f, and 0 * Inf is NaN). So
 // the result equals the previous kernel bit for bit, repeats bit for bit,
 // and a column's bits do not depend on where it sits.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
 #define BM_THREADS 256  // most threads a block (the wrapper picks 64 .. 256)
 #define BM_WT 256       // rows of W a shared tile of M^T holds
 // rows of X a thread keeps in flight, and blocks an SM the build asks for
 #define BM_WB(MC) ((MC) == 16 ? 8 : 16)
 #define BM_MIN_BLOCKS(MC) ((MC) == 16 ? 2 : 1)
-
-template <bool ALIGNED>
-__device__ __forceinline__ float4 bm_load4(const float* __restrict__ row, long long c0,
-                                           long long d) {
-    if constexpr (ALIGNED) {
-        return __ldg(reinterpret_cast<const float4*>(row + c0));
-    } else {
-        float4 v;
-        v.x = c0 < d ? __ldg(row + c0) : 0.0f;
-        v.y = c0 + 1 < d ? __ldg(row + c0 + 1) : 0.0f;
-        v.z = c0 + 2 < d ? __ldg(row + c0 + 2) : 0.0f;
-        v.w = c0 + 3 < d ? __ldg(row + c0 + 3) : 0.0f;
-        return v;
-    }
-}
 
 __device__ __forceinline__ void bm_fma4(float (&a)[4], float m, const float4& x) {
     a[0] = fmaf(m, x.x, a[0]);
@@ -100,19 +84,19 @@ __device__ __forceinline__ void bm_fma_rows(float (&acc)[MC][4], const float* mw
 
 // the loads of rows t0 + w0 .. t0 + w0 + WB - 1 below t0 + wt, for a live thread
 template <int WB, bool ALIGNED>
-__device__ __forceinline__ void bm_load_batch(float4 (&x)[WB], const float* __restrict__ xs,
+__device__ __forceinline__ void bm_load_batch(float4 (&x)[WB], const xt* __restrict__ xs,
                                               int t0, int w0, int wt, long long c0, long long d,
                                               bool live) {
 #pragma unroll
     for (int j = 0; j < WB; ++j) {
-        const float* row = xs + (long long)(t0 + w0 + j) * d;
-        if (live && w0 + j < wt) x[j] = bm_load4<ALIGNED>(row, c0, d);
+        const xt* row = xs + (long long)(t0 + w0 + j) * d;
+        if (live && w0 + j < wt) x[j] = xt_load4<ALIGNED>(row, c0, d);
     }
 }
 
 template <int MC, bool ALIGNED>
 __global__ void __launch_bounds__(BM_THREADS, BM_MIN_BLOCKS(MC))
-bucket_mix_kernel(const float* __restrict__ mix, const float* __restrict__ xs,
+bucket_mix_kernel(const float* __restrict__ mix, const xt* __restrict__ xs,
                   float* __restrict__ out, int m, int W, long long d) {
     constexpr int WB = BM_WB(MC);
     __shared__ __align__(16) float smt[BM_WT * MC];
@@ -167,7 +151,7 @@ bucket_mix_kernel(const float* __restrict__ mix, const float* __restrict__ xs,
 }
 
 template <int MC>
-static int bm_launch(const float* mix, const float* xs, float* out, int m, int W, long long d,
+static int bm_launch(const float* mix, const xt* xs, float* out, int m, int W, long long d,
                      bool aligned, unsigned blocks, int threads, cudaStream_t stream) {
     if (aligned) {
         bucket_mix_kernel<MC, true><<<blocks, threads, 0, stream>>>(mix, xs, out, m, W, d);
@@ -177,17 +161,17 @@ static int bm_launch(const float* mix, const float* xs, float* out, int m, int W
     return (int)cudaGetLastError();
 }
 
-// mix [m, W], xs [W, d], out [m, d] fp32, contiguous; m, W, d >= 1;
+// mix [m, W] and out [m, d] fp32, xs [W, d] of X_T, contiguous; m, W, d >= 1;
 // threads a multiple of 32 in 32 .. 256 (the wrapper fits it to the card).
 // Returns cudaGetLastError() after the launch.
-extern "C" int bucket_mix_launch(const float* mix, const float* xs, float* out, int m, int W,
+extern "C" int bucket_mix_launch(const float* mix, const xt* xs, float* out, int m, int W,
                                  long long d, int threads, cudaStream_t stream) {
     if (m < 1 || W < 1 || d < 1 || threads < 32 || threads > BM_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
     const long long n_vec = (d + 3) / 4;
     const long long blocks = (n_vec + threads - 1) / threads;
     if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-    const bool aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+    const bool aligned = d % 4 == 0 && xt_aligned(xs) &&
                          reinterpret_cast<uintptr_t>(out) % 16 == 0;
     const unsigned b = (unsigned)blocks;
     if (m == 1) return bm_launch<1>(mix, xs, out, m, W, d, aligned, b, threads, stream);

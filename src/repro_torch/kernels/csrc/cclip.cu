@@ -1,5 +1,7 @@
 // Centered-clipping update v' = v + (1/W) sum_i lam_i (x_i - v) for
-// X [W, d] fp32, any W >= 1, with the clip weights lam [W] already known.
+// X [W, d] fp32, bf16 or fp16 (xtype.cuh: converted to fp32 at the load),
+// any W >= 1, with the clip weights lam [W] already known; v, lam and v'
+// fp32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/cclip_combine.py::
 // cclip_combine (pallas_call at cclip_combine.py:45): the update alone, the
@@ -18,8 +20,6 @@
 // form computes the same chain, so the two give the same bits. No
 // cross-block reduction and no fold.
 
-#include <cuda_runtime.h>
-
 #define CC_THREADS 256
 #define CC_MAX_W 64  // weights staged in shared memory up to this many rows
 
@@ -27,7 +27,7 @@
 // global memory
 template <bool SHARED_LAM>
 __global__ void __launch_bounds__(CC_THREADS)
-cclip_combine_kernel(const float* __restrict__ xs, const float* __restrict__ v,
+cclip_combine_kernel(const xt* __restrict__ xs, const float* __restrict__ v,
                      const float* __restrict__ lam, float* __restrict__ out, int W, long long d) {
     __shared__ float sl[CC_MAX_W];
     if constexpr (SHARED_LAM) {
@@ -41,12 +41,12 @@ cclip_combine_kernel(const float* __restrict__ xs, const float* __restrict__ v,
 #pragma unroll 8
     for (int w = 0; w < W; ++w) {
         const float lw = SHARED_LAM ? sl[w] : __ldg(lam + w);
-        upd = fmaf(lw, xs[(long long)w * d + col] - vc, upd);
+        upd = fmaf(lw, xt_float(xs[(long long)w * d + col]) - vc, upd);
     }
     out[col] = vc + upd * (1.0f / (float)W);
 }
 
-extern "C" int cclip_combine_launch(const float* xs, const float* v, const float* lam,
+extern "C" int cclip_combine_launch(const xt* xs, const float* v, const float* lam,
                                     float* out, int W, long long d, cudaStream_t stream) {
     const unsigned blocks = (unsigned)((d + CC_THREADS - 1) / CC_THREADS);
     if (W > CC_MAX_W) {

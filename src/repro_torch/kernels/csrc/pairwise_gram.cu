@@ -1,4 +1,5 @@
-// Worker Gram matrix G = acc + X X^T for X [W, d] fp32, W <= 64.
+// Worker Gram matrix G = acc + X X^T for X [W, d], W <= 64: X fp32, bf16 or
+// fp16 (xtype.cuh), acc and G fp32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/pairwise_gram.py::pairwise_gram
 // (pallas_call at pairwise_gram.py:70): the stats phase of Krum, RFA, CCLIP,
@@ -35,7 +36,10 @@
 //   a 16-byte aligned base), else with predicated loads that write the same
 //   layout, zeros included. The wrapper picks the path before the launch
 //   (variant); everything after the staging is one code path, so a unit's
-//   partial is bit for bit the same whichever path loaded it.
+//   partial is bit for bit the same whichever path loaded it. A 16-bit X
+//   always takes the predicated loads, which convert each element to fp32
+//   on its way into the fp32 ring (exact): so its Gram is the Gram of the
+//   same X cast to fp32, bit for bit, and the TMA path stays fp32 only.
 // - The rows form 8-row blocks; a consumer thread owns one upper-triangle
 //   block pair (I <= J) and one of L lanes (L = 32, 16, 8 or 4 with the
 //   number of block pairs). Per 128-column stage it takes 4 adjacent
@@ -80,6 +84,7 @@ namespace cg = cooperative_groups;
 #define GR_FOLD_LD 8                  // float4 loads a thread keeps in flight in the fold
 #define GR_GROUP_MAX 8                // units a group: the tiles summed after one barrier
 #define GR_RED_BYTES 65536            // shared memory for two groups of tiles
+#define XT_IS_F32 (sizeof(xt) == 4)   // TMA stages fp32 X only
 
 // What the lane count fixes: CTAs a cluster (CS), the columns of a CTA's
 // slice and its stages, the pairs a consumer thread sums over the cluster
@@ -187,7 +192,7 @@ __device__ __forceinline__ void fold_store(const float4 (&r)[GR_FOLD_LD], float*
 
 template <int L>
 __global__ void __launch_bounds__(GrShape<L>::THREADS, GrShape<L>::BLOCKS)
-gram_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ xs,
+gram_kernel(const __grid_constant__ CUtensorMap map, const xt* __restrict__ xs,
             const float* __restrict__ acc, float* __restrict__ out,
             float* __restrict__ partial, unsigned* __restrict__ counter, int W, long long d,
             int n_units, int use_tma, int fold_units, int group) {
@@ -233,7 +238,7 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ x
                 if (q >= GR_STAGES) mbar_wait(empty0 + 8 * slot, ((q / GR_STAGES) - 1) & 1);
                 float* dst = ring + slot * stage_floats;
                 const long long c0 = col0 + s * GR_C;
-                if (use_tma) {
+                if (XT_IS_F32 && use_tma) {
                     if (lane == 0) {
                         mbar_expect_tx(full0 + 8 * slot, (uint32_t)stage_floats * 4);
                         tma_load_2d(smem_u32(dst), &map, full0 + 8 * slot, (int)c0, 0);
@@ -244,7 +249,7 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ x
 #pragma unroll
                         for (int k = 0; k < GR_C / 32; ++k) {
                             const long long c = c0 + lane + 32 * k;
-                            v[k] = (r < W && c < d) ? __ldg(xs + (long long)r * d + c) : 0.0f;
+                            v[k] = (r < W && c < d) ? xt_ldg(xs + (long long)r * d + c) : 0.0f;
                         }
 #pragma unroll
                         for (int k = 0; k < GR_C / 32; ++k) dst[r * GR_C + lane + 32 * k] = v[k];
@@ -425,7 +430,7 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ x
 static int gram_lanes(int NB) { return NB <= 7 ? 32 : NB <= 14 ? 16 : NB <= 28 ? 8 : 4; }
 
 template <int L>
-static int gram_launch(const CUtensorMap& map, const float* xs, const float* acc, float* out,
+static int gram_launch(const CUtensorMap& map, const xt* xs, const float* acc, float* out,
                        float* partial, unsigned* counter, int W, long long d, int use_tma,
                        cudaStream_t stream) {
     using Sh = GrShape<L>;
@@ -481,20 +486,20 @@ static int gram_launch(const CUtensorMap& map, const float* xs, const float* acc
     return (int)cudaGetLastError();
 }
 
-// xs [W, d] fp32, contiguous, 1 <= W <= 64, d >= 1; acc [W, W] or null;
+// xs [W, d] of X_T, contiguous, 1 <= W <= 64, d >= 1; acc [W, W] or null;
 // out [W, W]; partial [ceil(d / 2048), P rounded up to 32] scratch (rows
 // of P rounded up to GR_FOLD_PAIRS are used); counter
-// one zeroed unsigned. use_tma only where d % 4 == 0 and xs is 16-byte
-// aligned (the wrapper's variant rule). Returns cudaGetLastError() after
-// the launch, or the error of a step before it.
-extern "C" int pairwise_gram_launch(const float* xs, const float* acc, float* out,
+// one zeroed unsigned. use_tma only for fp32 X where d % 4 == 0 and xs
+// is 16-byte aligned (the wrapper's variant rule). Returns
+// cudaGetLastError() after the launch, or the error of a step before it.
+extern "C" int pairwise_gram_launch(const xt* xs, const float* acc, float* out,
                                     float* partial, unsigned* counter, int W, long long d,
                                     int use_tma, cudaStream_t stream) {
     if (W < 1 || W > 64 || d < 1) return (int)cudaErrorInvalidValue;
     const int Wp = (W + 7) & ~7, nb = Wp / 8, NB = nb * (nb + 1) / 2;
     CUtensorMap map = {};
     if (use_tma) {
-        if (d % 4 != 0 || reinterpret_cast<uintptr_t>(xs) % 16 != 0 ||
+        if (!XT_IS_F32 || d % 4 != 0 || reinterpret_cast<uintptr_t>(xs) % 16 != 0 ||
             d + GR_UNIT >= (1ll << 31))
             return (int)cudaErrorInvalidValue;
         const TmaEncodeTiled encode = tma_encoder();
@@ -505,7 +510,7 @@ extern "C" int pairwise_gram_launch(const float* xs, const float* acc, float* ou
         const cuuint32_t box[2] = {GR_C, (cuuint32_t)Wp};
         const cuuint32_t elem[2] = {1, 1};
         const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                                  const_cast<float*>(xs), dims, strides, box, elem,
+                                  const_cast<xt*>(xs), dims, strides, box, elem,
                                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -1,5 +1,7 @@
-// Per-worker residual norms r_i = ||x_i - v||^2 for X [W, d] fp32, any
-// W >= 1, against a centre v in one of three forms (FORM):
+// Per-worker residual norms r_i = ||x_i - v||^2 for X [W, d], any W >= 1,
+// against a centre v in one of three forms (FORM). X is fp32, bf16 or fp16
+// (xtype.cuh: converted to fp32 at the load, 8-byte vectors of four for a
+// 16-bit X); the centre, coefficients, lam and every output are fp32.
 //
 // RN_GIVEN, RN_COEFF: replace the Pallas TPU kernel repro/kernels/
 //   weiszfeld_norms.py::residual_norms (pallas_call at weiszfeld_norms.py:91),
@@ -14,10 +16,11 @@
 //   out to vout [d], and the norms are taken against it, so an iteration
 //   reads X once. Entry: cclip_fused_launch.
 //
-// Bound on the H100: memory. The call must read X once (W * d * 4 bytes,
-// plus d * 4 for an explicit or old centre, and d * 4 written in the CLIP
-// form) for 3 W d flops (2 W d more in the coefficient form, 3 W d more in
-// the CLIP form): under 2 flops per byte.
+// Bound on the H100: memory. The call must read X once (W * d * 4 bytes, or
+// W * d * 2 for a 16-bit X, plus d * 4 for an explicit or old centre, and
+// d * 4 written in the CLIP form) for 3 W d flops (2 W d more in the
+// coefficient form, 3 W d more in the CLIP form): under 2 flops per byte
+// for fp32 X, under 4 for 16-bit.
 //
 // What held the previous kernel back (one 2048-column tile a block, one
 // column a thread at a time, the fold a second kernel): 13 blocks for 132
@@ -57,8 +60,9 @@
 //   the grid to be co-resident. The last block sets the ticket back to 0,
 //   so the counter is zero before every launch on its stream: the wrapper
 //   keeps one counter per device, stream and graph capture.
-// - Rows that are not 16-byte aligned (d % 4 != 0, or a base off 16 bytes)
-//   take predicated scalar loads (ALIGNED = false).
+// - Rows whose four elements are not one vector load (d % 4 != 0, or a
+//   base of X off 16 bytes for fp32, 8 for 16-bit, or a centre off 16
+//   bytes) take predicated scalar loads (ALIGNED = false).
 // The centre of a column is the fmaf chain over w = 0 .. W-1 in order, as
 // before. In the CLIP form that chain is upd = fmaf(lam_w, x_w - v, upd)
 // from upd = 0, then v' = v + upd * (1/W) with the fp32 reciprocal taken
@@ -66,10 +70,6 @@
 // over columns run in another order than the TPU kernel's (and the
 // previous kernels'), so they agree to a tolerance, not bit for bit; for a
 // given card and shape the order is fixed, so a result repeats bit for bit.
-
-#include <cuda_runtime.h>
-
-#include <cstdint>
 
 #define RN_THREADS 256
 #define RN_FOLD 4096  // partials the folding block stages at a time (16 KB)
@@ -108,7 +108,7 @@ __device__ __forceinline__ void rn_fma4(float4& v, float c, const float4& x) {
 
 // v = c^T X at columns c0 .. c0 + 3, streaming all W rows RN_WB at a time
 template <bool ALIGNED>
-__device__ __forceinline__ float4 rn_stream_center(const float* __restrict__ xs,
+__device__ __forceinline__ float4 rn_stream_center(const xt* __restrict__ xs,
                                                    const float* __restrict__ coeffs, int W,
                                                    long long c0, long long d) {
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -116,7 +116,7 @@ __device__ __forceinline__ float4 rn_stream_center(const float* __restrict__ xs,
         float4 x[RN_WB];
 #pragma unroll
         for (int j = 0; j < RN_WB; ++j) {
-            if (w0 + j < W) x[j] = rn_load4<ALIGNED>(xs + (long long)(w0 + j) * d, c0, d);
+            if (w0 + j < W) x[j] = xt_load4<ALIGNED>(xs + (long long)(w0 + j) * d, c0, d);
         }
 #pragma unroll
         for (int j = 0; j < RN_WB; ++j) {
@@ -154,7 +154,7 @@ __device__ __forceinline__ float4 rn_clip_held(const float4 (&x)[RC],
 }
 
 template <bool ALIGNED>
-__device__ __forceinline__ float4 rn_stream_clip(const float* __restrict__ xs,
+__device__ __forceinline__ float4 rn_stream_clip(const xt* __restrict__ xs,
                                                  const float* __restrict__ lam, int W,
                                                  const float4& v, float inv, long long c0,
                                                  long long d) {
@@ -163,7 +163,7 @@ __device__ __forceinline__ float4 rn_stream_clip(const float* __restrict__ xs,
         float4 x[RN_WB];
 #pragma unroll
         for (int j = 0; j < RN_WB; ++j) {
-            if (w0 + j < W) x[j] = rn_load4<ALIGNED>(xs + (long long)(w0 + j) * d, c0, d);
+            if (w0 + j < W) x[j] = xt_load4<ALIGNED>(xs + (long long)(w0 + j) * d, c0, d);
         }
 #pragma unroll
         for (int j = 0; j < RN_WB; ++j) {
@@ -247,7 +247,7 @@ __device__ __forceinline__ unsigned rn_draw(unsigned* ticket) {
 // (CLIP) centre; vout: v' (CLIP only)
 template <int RC, int NSUB, int FORM, bool ALIGNED>
 __global__ void __launch_bounds__(RN_THREADS, RN_MIN_BLOCKS(RC))
-residual_norms_kernel(const float* __restrict__ xs, const float* __restrict__ coeffs,
+residual_norms_kernel(const xt* __restrict__ xs, const float* __restrict__ coeffs,
                       const float* __restrict__ center, float* __restrict__ vout,
                       float* __restrict__ out, float* __restrict__ partial,
                       unsigned* __restrict__ ticket, int W, long long d, long long per_block) {
@@ -297,17 +297,17 @@ residual_norms_kernel(const float* __restrict__ xs, const float* __restrict__ co
             for (int s = 0; s < NSUB; ++s) {  // RC rows at a time
                 float4 x[RC];
                 if constexpr (STEP_ROWS) {
-                    const float* row = xs + (long long)(r0 + s * RC) * d;
+                    const xt* row = xs + (long long)(r0 + s * RC) * d;
 #pragma unroll
                     for (int r = 0; r < RC; ++r) {
-                        if (s * RC + r < rows) x[r] = rn_load4<ALIGNED>(row, c0, d);
+                        if (s * RC + r < rows) x[r] = xt_load4<ALIGNED>(row, c0, d);
                         row += d;
                     }
                 } else {
 #pragma unroll
                     for (int r = 0; r < RC; ++r) {
                         if (s * RC + r < rows)
-                            x[r] = rn_load4<ALIGNED>(xs + (long long)(r0 + s * RC + r) * d, c0, d);
+                            x[r] = xt_load4<ALIGNED>(xs + (long long)(r0 + s * RC + r) * d, c0, d);
                     }
                 }
                 if (held) {
@@ -378,7 +378,7 @@ residual_norms_kernel(const float* __restrict__ xs, const float* __restrict__ co
 
 template <int RC, int NSUB, int FORM>
 static void rn_launch(bool aligned, unsigned blocks, int threads, cudaStream_t stream,
-                      const float* xs, const float* coeffs, const float* center, float* vout,
+                      const xt* xs, const float* coeffs, const float* center, float* vout,
                       float* out, float* partial, unsigned* ticket, int W, long long d,
                       long long per_block) {
     if (aligned) {
@@ -390,12 +390,12 @@ static void rn_launch(bool aligned, unsigned blocks, int threads, cudaStream_t s
     }
 }
 
-// xs [W, d] fp32 contiguous, W, d >= 1; exactly one of coeffs [W] and
+// xs [W, d] of X_T contiguous, W, d >= 1; exactly one of coeffs [W] and
 // center [d]; out [W]; partial [W, blocks] scratch; ticket one unsigned,
 // zero before the launch (the kernel leaves it zero). threads a multiple of
 // 32 in 32 .. 256, 1 <= blocks <= RN_FOLD (weiszfeld_norms.geometry).
 // Returns cudaGetLastError() after the launch.
-extern "C" int residual_norms_launch(const float* xs, const float* coeffs, const float* center,
+extern "C" int residual_norms_launch(const xt* xs, const float* coeffs, const float* center,
                                      float* out, float* partial, unsigned* ticket, int W,
                                      long long d, int threads, int blocks,
                                      cudaStream_t stream) {
@@ -404,7 +404,7 @@ extern "C" int residual_norms_launch(const float* xs, const float* coeffs, const
         return (int)cudaErrorInvalidValue;
     const long long n_vec = (d + 3) / 4;
     const long long per_block = (n_vec + blocks - 1) / blocks;
-    const bool aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+    const bool aligned = d % 4 == 0 && xt_aligned(xs) &&
                          (center == nullptr || reinterpret_cast<uintptr_t>(center) % 16 == 0);
     const unsigned b = (unsigned)blocks;
 #define RN_ARGS \
@@ -423,13 +423,13 @@ extern "C" int residual_norms_launch(const float* xs, const float* coeffs, const
     return (int)cudaGetLastError();
 }
 
-// The CLIP form: xs [W, d] fp32 contiguous, W, d >= 1; v [d] the old
+// The CLIP form: xs [W, d] of X_T contiguous, W, d >= 1; v [d] the old
 // centre, lam [W] the clip weights; vout [d] gets v', out [W] the norms
 // against it; partial, ticket, threads and blocks as for
 // residual_norms_launch. Up to 32 rows held, above in 64-row passes (the
 // coefficient form's instances). Returns cudaGetLastError() after the
 // launch.
-extern "C" int cclip_fused_launch(const float* xs, const float* v, const float* lam,
+extern "C" int cclip_fused_launch(const xt* xs, const float* v, const float* lam,
                                   float* vout, float* out, float* partial, unsigned* ticket,
                                   int W, long long d, int threads, int blocks,
                                   cudaStream_t stream) {
@@ -438,7 +438,7 @@ extern "C" int cclip_fused_launch(const float* xs, const float* v, const float* 
         return (int)cudaErrorInvalidValue;
     const long long n_vec = (d + 3) / 4;
     const long long per_block = (n_vec + blocks - 1) / blocks;
-    const bool aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+    const bool aligned = d % 4 == 0 && xt_aligned(xs) &&
                          reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(vout) % 16 == 0;
     const unsigned b = (unsigned)blocks;

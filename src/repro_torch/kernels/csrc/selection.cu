@@ -3,9 +3,10 @@
 // kernels/cwise_median.py and kernels/trimmed_mean.py fill the three
 // @-placeholders with the worker count, the unrolled compare-exchange
 // program of selection_network.selection_program(W, ranks) and the
-// statements that form a column's result from the selected slots, then
-// build the generated source (kernels/_build.py). This file is not
-// compiled as is.
+// statements that form a column's result from the selected slots, prepend
+// the element type of X (xtype.cuh: fp32, bf16 or fp16, converted to fp32
+// at the load), then build the generated source (kernels/_build.py). This
+// file is not compiled as is.
 //
 // Replaces the Pallas TPU kernels repro/kernels/cwise_median.py::cwise_median
 // (pallas_call at cwise_median.py:63) and
@@ -13,7 +14,7 @@
 // trimmed_mean.py:63).
 //
 // Bound on the H100: the call reads X [W, d] once and writes [d] once,
-// (W + 1) * d * 4 bytes, and runs a min or a max per live comparator
+// (W + 1) * d * 4 bytes for fp32 X ((2 W + 4) * d for 16-bit X), and runs a min or a max per live comparator
 // output per column. sm_90 completes 64 min / max results a clock an SM, half
 // its fp32 add rate, so the bytes bind at small W and the two meet near
 // W = 128 (2,300 live min / max a column for the median there).
@@ -45,8 +46,6 @@
 // compiled program uses, so the output equals the plain PyTorch version bit
 // for bit. NaN: like torch.minimum and torch.maximum, a NaN in either input
 // is returned.
-
-#include <cuda_runtime.h>
 
 #define SEL_W @W@
 #define SEL_THREADS 256  // most threads a block
@@ -91,18 +90,18 @@ __device__ __forceinline__ float sel_select(float (&v)[SEL_W]) {
 }
 
 __global__ void __launch_bounds__(SEL_THREADS)
-select_kernel(const float* __restrict__ xs, float* __restrict__ out, long long d) {
+select_kernel(const xt* __restrict__ xs, float* __restrict__ out, long long d) {
     const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (col >= d) return;
     float v[SEL_W];
 #pragma unroll
-    for (int w = 0; w < SEL_W; ++w) v[w] = __ldg(xs + (long long)w * d + col);
+    for (int w = 0; w < SEL_W; ++w) v[w] = xt_ldg(xs + (long long)w * d + col);
     out[col] = sel_select(v);
 }
 
-// xs [W, d], out [d] fp32, contiguous; d >= 1; threads a multiple of 32 in
+// xs [W, d] of X_T, out [d] fp32, contiguous; d >= 1; threads a multiple of 32 in
 // 32 .. 256 (the wrapper picks it).
-extern "C" int select_launch(const float* xs, float* out, long long d, int threads,
+extern "C" int select_launch(const xt* xs, float* out, long long d, int threads,
                              cudaStream_t stream) {
     if (d < 1 || threads < 32 || threads > SEL_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;

@@ -20,7 +20,7 @@ from typing import Iterable
 
 import torch
 
-from repro_torch.kernels import CALLS, LAUNCHES, VARIANT_LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, VARIANT_LAUNCHES, _build, cost, ref
 
 _COMMON = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v out
            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B Sq Skv H KV
@@ -84,10 +84,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: need k, v [B, Skv, KV, dh] with H % KV == 0")
     off = Skv - Sq if q_offset == -1 else q_offset
+    if _build.is_fake(q):
+        return cost.fake_call("flash_attention",
+                              cost.flash_attention(B, Sq, Skv, H, KV, dh, window, off,
+                                                   q.element_size()), torch.empty_like(q))
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window, q_offset=off)
-    _build.check_inputs("flash_attention", dtypes=(torch.float32, torch.bfloat16), q=q, k=k,
-                        v=v)
+    fa = (torch.float32, torch.bfloat16)
+    _build.check_inputs("flash_attention", {"q": fa, "k": fa, "v": fa}, q=q, k=k, v=v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v are {q.dtype}, {k.dtype}, {v.dtype}; "
                         "the kernel takes one dtype")

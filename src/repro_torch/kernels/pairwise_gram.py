@@ -10,6 +10,12 @@ every leaf to a ``TILE_D`` multiple). ``variant`` picks how the kernel
 stages X, by TMA or by predicated loads, before the launch;
 ``VARIANT_LAUNCHES`` counts each. Both give the same bits.
 
+X may be fp32, bf16 or fp16 (one library each, ``_build.x_source``); a
+16-bit X always takes the predicated loads (``gram_ldg``), which convert
+each element to fp32 on its way into the kernel's fp32 stages: the Gram of
+``X16`` is the Gram of ``X16.float()`` bit for bit, and TMA stays fp32 only.
+``acc`` is taken in fp32 (a 16-bit one is cast) and the result is fp32.
+
 The kernel takes at most 64 rows (``MAX_ROWS``). More rows go through
 ``grouped_gram``: groups of at most 32 rows, one kernel call for each pair
 of groups on their rows stacked.
@@ -23,7 +29,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import CALLS, LAUNCHES, VARIANT_LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, VARIANT_LAUNCHES, _build, cost, ref
 
 #: columns per unit of the kernel (``GR_UNIT`` in the source) and per tile
 #: of the plain version's sum
@@ -38,22 +44,24 @@ MAX_ROWS = 64
 GROUP_ROWS = MAX_ROWS // 2
 
 
-def sources():
-    return [("pairwise_gram",
-             _build.read_source("tma.cuh") + _build.read_source("pairwise_gram.cu"))]
+def sources(dtype: torch.dtype = torch.float32):
+    return [_build.x_source("pairwise_gram", _build.read_source("tma.cuh")
+                            + _build.read_source("pairwise_gram.cu"), dtype)]
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    (name, text), = sources()
+def _lib(dtype: torch.dtype = torch.float32):
+    (name, text), = sources(dtype)
     return _build.load(name, text, _ARGS)
 
 
-def variant(d: int, data_ptr: int) -> str:
-    """How the kernel stages ``X [W, d]``: ``"gram_tma"`` (a TMA tensor map,
-    which needs 16-byte aligned rows: ``d % 4 == 0`` and a 16-byte aligned
-    base) or ``"gram_ldg"`` (predicated loads into the same layout)."""
-    aligned = d % 4 == 0 and data_ptr % 16 == 0 and d <= _TMA_MAX_D
+def variant(d: int, data_ptr: int, dtype: torch.dtype = torch.float32) -> str:
+    """How the kernel stages ``X [W, d]``: ``"gram_tma"`` (a TMA tensor map of
+    fp32 X, which needs 16-byte aligned rows: ``d % 4 == 0`` and a 16-byte
+    aligned base) or ``"gram_ldg"`` (predicated loads into the same layout;
+    every 16-bit X)."""
+    aligned = (dtype == torch.float32 and d % 4 == 0 and data_ptr % 16 == 0
+               and d <= _TMA_MAX_D)
     return "gram_tma" if aligned else "gram_ldg"
 
 
@@ -108,17 +116,22 @@ def grouped_gram(xs: torch.Tensor, acc: Optional[torch.Tensor],
 
 def pairwise_gram(xs: torch.Tensor, acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """xs: ``[W, d]`` -> ``[W, W]`` fp32 (``acc +`` if given). CPU tensors take
-    the plain version; CUDA tensors launch the kernel (fp32, contiguous,
-    d >= 1; above ``MAX_ROWS`` rows, one launch per pair of row groups,
-    ``grouped_gram``)."""
+    the plain version; CUDA tensors launch the kernel (xs fp32, bf16 or
+    fp16, a 16-bit acc cast to fp32; contiguous, d >= 1; above ``MAX_ROWS``
+    rows, one launch per pair of row groups, ``grouped_gram``)."""
     CALLS["pairwise_gram"] += 1
     W, d = xs.shape
     if acc is not None and tuple(acc.shape) != (W, W):
         raise ValueError(f"pairwise_gram: acc {tuple(acc.shape)} for W={W}")
+    if _build.is_fake(xs):
+        return cost.fake_call("pairwise_gram",
+                              cost.pairwise_gram(W, d, xs.element_size(), acc is not None),
+                              cost.empty_f32(xs, W, W))
     if xs.device.type == "cpu" and (acc is None or acc.device.type == "cpu"):
         return ref.pairwise_gram(xs, acc)
+    acc = _build.as_f32(acc)
     tensors = {"xs": xs} if acc is None else {"xs": xs, "acc": acc}
-    _build.check_inputs("pairwise_gram", **tensors)
+    _build.check_inputs("pairwise_gram", {"xs": _build.X_DTYPES}, **tensors)
     _build.check_rows("pairwise_gram", "W", W)
     if d < 1:
         raise ValueError("pairwise_gram: d must be >= 1")
@@ -130,8 +143,8 @@ def pairwise_gram(xs: torch.Tensor, acc: Optional[torch.Tensor] = None) -> torch
     partial = torch.empty((n_units, -(-pairs // 32) * 32), dtype=torch.float32,
                           device=xs.device)
     counter = torch.zeros(1, dtype=torch.int32, device=xs.device)  # the fold's ticket
-    kind = variant(d, xs.data_ptr())
-    code = _lib().pairwise_gram_launch(
+    kind = variant(d, xs.data_ptr(), xs.dtype)
+    code = _lib(xs.dtype).pairwise_gram_launch(
         xs.data_ptr(), None if acc is None else acc.data_ptr(), out.data_ptr(),
         partial.data_ptr(), counter.data_ptr(), W, d, int(kind == "gram_tma"),
         _build.stream_of(xs))

@@ -74,13 +74,13 @@ def residual_norms(xs: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *,
         raise ValueError("provide exactly one of coeffs / center")
     x32 = xs.float()
     v = coeffs.float() @ x32 if center is None else center.float()
-    return torch.sum(torch.square(x32 - v[None, :]), dim=1)
+    return torch.sum((x32 - v[None, :]).square_(), dim=1)  # in place: one [W, d] temporary
 
 
 def cclip_combine(xs: torch.Tensor, v: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     """One centered-clipping update ``v + mean_i lam_i (x_i - v)`` -> ``[d]`` fp32."""
     x32, v32 = xs.float(), v.float()
-    return v32 + torch.mean(lam.float()[:, None] * (x32 - v32[None, :]), dim=0)
+    return v32 + torch.mean((x32 - v32[None, :]).mul_(lam.float()[:, None]), dim=0)
 
 
 def cclip_fused_iter(xs: torch.Tensor, v: torch.Tensor, lam: torch.Tensor):

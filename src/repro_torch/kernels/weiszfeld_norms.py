@@ -14,6 +14,10 @@ that draws the last ticket of a counter adds them, and sets the counter
 back to zero. The counters belong to this module, one per device and
 stream, and one more for the graph capture under way on a stream
 (``_ticket``), so two launches that may run at once never share one.
+
+X may be fp32, bf16 or fp16: each type is a library of its own
+(``_build.x_source``); the centre or coefficients are taken in fp32 (a
+16-bit one is cast, as the reference's wrapper does) and the norms are fp32.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import CALLS, LAUNCHES, _build, ref
+from repro_torch.kernels import CALLS, LAUNCHES, _build, cost, ref
 
 _P = ctypes.c_void_p
 _ARGS = {
@@ -38,13 +42,13 @@ _ARGS = {
 _TICKETS: Dict[Tuple[int, int, bool], Tuple[int, torch.Tensor]] = {}
 
 
-def sources():
-    return [("residual_norms", _build.read_source("residual_norms.cu"))]
+def sources(dtype: torch.dtype = torch.float32):
+    return [_build.x_source("residual_norms", _build.read_source("residual_norms.cu"), dtype)]
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    (name, text), = sources()
+def _lib(dtype: torch.dtype = torch.float32):
+    (name, text), = sources(dtype)
     return _build.load(name, text, _ARGS)
 
 
@@ -80,7 +84,8 @@ def residual_norms(xs: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *,
     """xs: ``[W, d]`` -> ``[W]`` fp32, against ``v = coeffs^T xs`` (``coeffs``
     ``[W]``) or an explicit ``center`` ``[d]``; exactly one of the two, else
     ``ValueError``. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (fp32, contiguous, any W >= 1)."""
+    the kernel (xs fp32, bf16 or fp16, a 16-bit centre or coefficients cast
+    to fp32; contiguous, any W >= 1)."""
     CALLS["residual_norms"] += 1
     if (coeffs is None) == (center is None):
         raise ValueError("provide exactly one of coeffs / center")
@@ -88,10 +93,15 @@ def residual_norms(xs: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *,
     given = coeffs if center is None else center
     if tuple(given.shape) != ((W,) if center is None else (d,)):
         raise ValueError(f"residual_norms: {tuple(given.shape)} for xs {tuple(xs.shape)}")
+    if _build.is_fake(xs):
+        return cost.fake_call("residual_norms",
+                              cost.residual_norms(W, d, xs.element_size(), center is not None),
+                              cost.empty_f32(xs, W))
     if xs.device.type == "cpu" and given.device.type == "cpu":
         return ref.residual_norms(xs, coeffs, center=center)
-    _build.check_inputs("residual_norms", xs=xs, **({"coeffs": coeffs} if center is None
-                                                     else {"center": center}))
+    coeffs, center = _build.as_f32(coeffs), _build.as_f32(center)
+    _build.check_inputs("residual_norms", {"xs": _build.X_DTYPES}, xs=xs,
+                        **({"coeffs": coeffs} if center is None else {"center": center}))
     _build.check_rows("residual_norms", "W", W)
     out = torch.empty((W,), dtype=torch.float32, device=xs.device)
     if d == 0:
@@ -99,7 +109,7 @@ def residual_norms(xs: torch.Tensor, coeffs: Optional[torch.Tensor] = None, *,
     threads, blocks = geometry(W, d, _build.sm_count(xs.device.index))
     partial = torch.empty((W, blocks), dtype=torch.float32, device=xs.device)
     stream = _build.stream_of(xs)
-    code = _lib().residual_norms_launch(
+    code = _lib(xs.dtype).residual_norms_launch(
         xs.data_ptr(), None if coeffs is None else coeffs.data_ptr(),
         None if center is None else center.data_ptr(), out.data_ptr(), partial.data_ptr(),
         _ticket(xs.device, stream).data_ptr(), W, d, threads, blocks, stream)

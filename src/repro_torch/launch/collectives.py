@@ -12,7 +12,9 @@ reference's HLO names (``all-reduce``, ``all-gather``, ``all-to-all``,
 ...), and the bytes the rank sent and received. Received bytes are those
 of the buffers the call fills on this rank (an all-gather's whole output,
 its own block included), as the reference counts an HLO collective's
-result shape. The wrapped calls run unchanged.
+result shape, and ``site``, the port's function that made the call
+(``scripts/coll_probe_torch.py`` attributes bytes by it). The wrapped
+calls run unchanged.
 
   collective_counts(calls)   calls per kind
   collective_bytes(calls)    received bytes per kind
@@ -25,6 +27,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import sys
 from typing import Dict, Iterator, List, Sequence
 
 import torch
@@ -57,6 +61,21 @@ class CollectiveCall:
     sent: int                   # bytes this rank contributed
     received: int               # bytes of the buffers the call filled here
     buffers: tuple = ()         # (dtype, numel) of each buffer filled here
+    site: str = ""              # "module.py:function" of the port's caller
+
+
+_TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
+
+
+def _site() -> str:
+    """The nearest caller outside this module and PyTorch."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        path = frame.f_code.co_filename
+        if path != __file__ and not path.startswith(_TORCH_DIR):
+            return f"{os.path.basename(path)}:{frame.f_code.co_name}"
+        frame = frame.f_back
+    return "?"
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -109,7 +128,7 @@ def record_collectives() -> Iterator[List[CollectiveCall]]:
             result = original(*args, **kwargs)
             calls.append(CollectiveCall(kind=KINDS[fn], fn=fn, sent=sent,
                                         received=sum(_nbytes(t) for t in out),
-                                        buffers=_buffers(out)))
+                                        buffers=_buffers(out), site=_site()))
             return result
         return recorded
 

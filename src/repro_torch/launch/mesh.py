@@ -122,6 +122,16 @@ def make_host_mesh(group, data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
     return Mesh(group, ("data", "model"), (data, model))
 
 
+def make_production_mesh(group, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes over ``group``: ``(16, 16)`` over
+    ``("data", "model")`` (256 ranks), or with ``multi_pod`` ``(2, 16, 16)``
+    over ``("pod", "data", "model")`` (512). The dry-run builds them on a
+    ``"fake"`` process group of that size (``launch/dryrun.activate``)."""
+    if multi_pod:
+        return make_host_mesh(group, data=16, model=16, pod=2)
+    return make_host_mesh(group, data=16, model=16)
+
+
 def worker_axes(mesh) -> Tuple[str, ...]:
     """The axes the workers split over: ``pod`` and ``data``, where present."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))

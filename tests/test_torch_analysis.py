@@ -537,7 +537,7 @@ def _cli(*args, timeout=300):
 
 
 def test_cli_ast_layer_exits_zero_on_repo():
-    proc = _cli("--layers", "ast")
+    proc = _cli("--layers", "ast", "--device", "cpu")
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "OK" in proc.stdout
 
@@ -545,7 +545,8 @@ def test_cli_ast_layer_exits_zero_on_repo():
 def test_cli_ast_layer_exits_nonzero_on_violation(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text('import os\nos.environ["X"] = "y"\n', encoding="utf-8")
-    proc = _cli("--layers", "ast", "--src", str(bad), "--json", str(tmp_path / "report.json"))
+    proc = _cli("--layers", "ast", "--src", str(bad), "--json", str(tmp_path / "report.json"),
+                "--device", "cpu")
     assert proc.returncode == 1, proc.stdout + proc.stderr
     report = json.loads((tmp_path / "report.json").read_text())
     assert report["ok"] is False
@@ -555,7 +556,7 @@ def test_cli_ast_layer_exits_nonzero_on_violation(tmp_path):
 def test_cli_all_layers_exit_zero_on_the_tree(tmp_path):
     """``python -m repro_torch.analysis``: every layer, every target, against
     the committed budgets, its own 8 ranks."""
-    proc = _cli("--json", str(tmp_path / "report.json"))
+    proc = _cli("--json", str(tmp_path / "report.json"), "--device", "cpu")
     assert proc.returncode == 0, proc.stdout + proc.stderr
     report = json.loads((tmp_path / "report.json").read_text())
     assert report["ok"] and report["findings"] == []

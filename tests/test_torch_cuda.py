@@ -215,9 +215,9 @@ def test_norm_and_clip_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.randn((5, 4096), device=cuda)
     v, lam = torch.randn(4096, device=cuda), torch.rand(5, device=cuda)
     for call in (lambda: residual_norms(x.double(), lam.double()),
-                 lambda: residual_norms(x, center=v.half()),
+                 lambda: residual_norms(x, center=v.to(torch.int32)),
                  lambda: cclip_fused_iter(x, v.double(), lam),
-                 lambda: cclip_combine(x.bfloat16(), v, lam)):
+                 lambda: cclip_combine(x.double(), v, lam)):
         with pytest.raises(TypeError):
             call()
     for call in (lambda: residual_norms(x, center=v.cpu()),
@@ -704,3 +704,153 @@ def test_ssm_layer_and_decode_match_cpu_on_card(cuda, arch, dtype):
         close(out_c, out)
         for k in ("conv", "ssm"):
             close(cache_c[k], cache[k])
+
+
+X16 = (torch.bfloat16, torch.float16)
+
+
+def _x16_calls(W, d, gen, cuda):
+    """``(name, f)`` for every aggregation kernel, form and variant, each
+    ``f(X)`` a call on rows X ``[W, d]`` with fp32 side inputs drawn here."""
+    m = torch.rand((max(1, W // 2), W), device=cuda, generator=gen)
+    m = m / m.sum(1, keepdim=True)
+    c = torch.softmax(torch.randn(W, device=cuda, generator=gen), 0)
+    v = torch.randn(d, device=cuda, generator=gen)
+    lam = torch.rand(W, device=cuda, generator=gen)
+    acc = torch.randn((W, W), device=cuda, generator=gen)
+    acc = acc + acc.T
+    calls = [("mix", lambda X: bucket_mix.bucket_mix(m, X)),
+             ("combine", lambda X: bucket_mix.bucket_mix(m[:1].contiguous(), X)),
+             ("gram", lambda X: pairwise_gram.pairwise_gram(X)),
+             ("gram acc", lambda X: pairwise_gram.pairwise_gram(X, acc)),
+             ("cm", lambda X: cwise_median.cwise_median(X)),
+             ("norms coeffs", lambda X: residual_norms(X, c)),
+             ("norms center", lambda X: residual_norms(X, center=v)),
+             ("cclip_fused_iter", lambda X: cclip_fused_iter(X, v, lam)),
+             ("cclip_combine", lambda X: cclip_combine(X, v, lam))]
+    calls += [(f"tm b={b}", lambda X, b=b: trimmed_mean.cwise_trimmed_mean(X, b))
+              for b in sorted({0, 1, (W - 1) // 2})]
+    return calls
+
+
+def _same(a, b):
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype == torch.float32 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", X16)
+@pytest.mark.parametrize("W", [4, 10, 25, 65])
+@pytest.mark.parametrize("d,offset", [(4096, 0), (4096, 1), (100_003, 0)])
+def test_16bit_rows_give_the_fp32_bits_on_card(cuda, dtype, W, d, offset):
+    """Every aggregation kernel, form and Gram variant on 16-bit rows X16
+    returns the bits of the same call on ``X16.float()``: the element is
+    converted to fp32 at the load, and every instruction after it is the
+    fp32 kernel's. Rows on the vector path (d % 4 == 0, 8-byte base),
+    2 bytes off it (``offset``), and d % 4 != 0; the fp32 copy is aligned,
+    so the Gram compares the predicated loads (16-bit) with TMA."""
+    gen = torch.Generator(cuda).manual_seed(W)
+    x = (torch.randn((W, d), device=cuda, generator=gen) * 3).to(dtype)
+    if offset:
+        buf = torch.empty(W * d + offset, dtype=dtype, device=cuda)
+        x = buf[offset:].view(W, d).copy_(x)
+        assert x.data_ptr() % 8 == 2
+    x32 = x.float()
+    for name, f in _x16_calls(W, d, gen, cuda):
+        reset_launches()
+        got = f(x)
+        n16 = dict(LAUNCHES), dict(VARIANT_LAUNCHES)
+        reset_launches()
+        want = f(x32)
+        assert _same(got, want), name
+        assert n16[0] == dict(LAUNCHES), name
+        if name.startswith("gram") and W <= pairwise_gram.MAX_ROWS:
+            assert n16[1]["gram_ldg"] == 1 and n16[1]["gram_tma"] == 0, name
+            assert VARIANT_LAUNCHES["gram_tma"] == (1 if d % 4 == 0 else 0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", X16)
+def test_16bit_side_inputs_are_cast_on_card(cuda, dtype):
+    """A 16-bit mixing matrix, coefficients, centre, lam or acc is cast to
+    fp32 in the wrapper (as the reference's wrappers do); the outputs stay
+    fp32; float64 and integer rows are still refused."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn((10, 4096), device=cuda, generator=gen).to(dtype)
+    m = (torch.rand((5, 10), device=cuda, generator=gen) / 5).to(dtype)
+    v, lam = torch.randn(4096, device=cuda).to(dtype), torch.rand(10, device=cuda).to(dtype)
+    acc = torch.randn((10, 10), device=cuda).to(dtype)
+    assert torch.equal(bucket_mix.bucket_mix(m, x), bucket_mix.bucket_mix(m.float(), x))
+    assert torch.equal(pairwise_gram.pairwise_gram(x, acc),
+                       pairwise_gram.pairwise_gram(x, acc.float()))
+    assert torch.equal(residual_norms(x, center=v), residual_norms(x, center=v.float()))
+    assert torch.equal(residual_norms(x, lam), residual_norms(x, lam.float()))
+    assert _same(cclip_fused_iter(x, v, lam), cclip_fused_iter(x, v.float(), lam.float()))
+    assert torch.equal(cclip_combine(x, v, lam), cclip_combine(x, v.float(), lam.float()))
+    for bad in (x.double(), x.to(torch.int32)):
+        for call in (lambda: bucket_mix.bucket_mix(m.float(), bad),
+                     lambda: pairwise_gram.pairwise_gram(bad),
+                     lambda: cwise_median.cwise_median(bad),
+                     lambda: trimmed_mean.cwise_trimmed_mean(bad, 1),
+                     lambda: residual_norms(bad, center=v.float()),
+                     lambda: cclip_fused_iter(bad, v.float(), lam.float()),
+                     lambda: cclip_combine(bad, v.float(), lam.float())):
+            with pytest.raises(TypeError):
+                call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["rfa", "cm", "tm"])
+def test_per_leaf_bf16_tree_equals_packed_on_card(cuda, agg):
+    """The per-leaf engine hands bf16 leaves to the kernels as they are and
+    its aggregate equals the packed engine's (which packs to fp32) bit for
+    bit, with one launch of each route kernel a leaf."""
+    from repro_torch.core.aragg import RobustAggregator
+    from repro_torch.distributed.robust_sync import robust_gradient_sync
+
+    gen = torch.Generator(cuda).manual_seed(1)
+    tree = {"a": torch.randn((4, 300, 7), device=cuda, generator=gen).bfloat16(),
+            "b": {"c": torch.randn((4, 4096), device=cuda, generator=gen).bfloat16(),
+                  "d": torch.randn((4, 5), device=cuda, generator=gen).bfloat16()}}
+    aggregator = RobustAggregator.from_spec(agg, mixing="bucketing", s=2)
+    mix = aggregator.mixing_matrix(4, torch.Generator().manual_seed(0), device=cuda)
+    packed, _ = robust_gradient_sync(tree, aggregator, mix=mix)
+    reset_launches()
+    per_leaf, _ = robust_gradient_sync(tree, aggregator, mix=mix, engine="per_leaf",
+                                       use_kernels=True)
+    route = {"rfa": {"pairwise_gram": 3, "bucket_mix": 3},
+             "cm": {"bucket_mix": 3, "cwise_median": 3},
+             "tm": {"bucket_mix": 3, "cwise_trimmed_mean": 3}}[agg]
+    assert {k: n for k, n in LAUNCHES.items() if n} == route
+    for got, want in zip(tree_map(lambda t: t, per_leaf).values(), packed.values()):
+        if isinstance(got, dict):
+            assert all(torch.equal(got[k], want[k]) for k in got)
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", X16)
+def test_ops_aggregates_take_16bit_rows_on_card(cuda, dtype):
+    """``ops.rfa_aggregate``, ``cclip_aggregate`` and ``cclip_aggregate_unfused``
+    on 16-bit rows: each kernel gives the fp32 call's bits, so each
+    composition equals itself on ``X16.float()`` bit for bit, with the same
+    launches, and meets the vector-space oracle at 1e-4."""
+    from repro_torch.kernels import ops
+
+    x = (torch.randn((25, 100_003), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(9)) * 3).to(dtype)
+    for name, call in (("rfa", ops.rfa_aggregate),
+                       ("cclip", lambda X: ops.cclip_aggregate(X, 50.0)),
+                       ("cclip_unfused", lambda X: ops.cclip_aggregate_unfused(X, 50.0))):
+        runs = []
+        for X in (x, x.float()):
+            reset_launches()
+            runs.append((call(X), dict(LAUNCHES)))
+        (got, n16), (want, n32) = runs
+        assert got.dtype == torch.float32 and torch.equal(got, want) and n16 == n32, name
+    torch.testing.assert_close(ops.rfa_aggregate(x), ref.rfa_aggregate(x), rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(ops.cclip_aggregate(x, 50.0), ref.cclip_aggregate(x, 50.0),
+                               rtol=1e-4, atol=1e-4)

@@ -454,3 +454,31 @@ def record_each_collective(rank, group, device):
         dist.barrier(group=group)
     assert dist.all_reduce is original  # the originals are back after the block
     return [(c.kind, c.fn, c.sent, c.received, c.buffers) for c in calls]
+
+
+def per_leaf_16bit(rank, group, device, payload):
+    """The per-leaf engine's kernel route over ``group`` on a tree of 16-bit
+    leaves (``payload``: the fp32 values, the dtype's name, the mixing
+    matrices and keyword arguments by rule), and the dtypes of the column
+    slices the route hands the kernels (``shard_kernels.mix_apply`` spied)."""
+    dtype = getattr(torch, payload["dtype"])
+    tree = {k: torch.tensor(v).to(dtype) for k, v in payload["tree"].items()}
+    seen = []
+    real = shard_kernels.mix_apply
+
+    def spy(mix, local, group_):
+        seen.append(str(local.dtype))
+        return real(mix, local, group_)
+
+    out = {}
+    shard_kernels.mix_apply = spy
+    try:
+        for agg, mix in payload["mixes"].items():
+            ra = RobustAggregator.from_spec(agg, mixing="bucketing", s=2,
+                                            **payload["rules"][agg])
+            got, _ = robust_gradient_sync(tree, ra, mix=torch.tensor(mix), mesh=group,
+                                          engine="per_leaf", use_kernels=True)
+            out[agg] = {k: v.float() for k, v in got.items()}
+    finally:
+        shard_kernels.mix_apply = real
+    return {"out": out, "seen": seen}
