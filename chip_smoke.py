@@ -85,7 +85,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    tokens equal a sequential greedy loop over ``decode_step`` run at the
    engine's batch width (the one-row loop's agreement is printed); decode
    ms per step and tokens/s are printed, and 20 steps with all 4 slots busy
-   are timed and profiled; (d) in fp32 at full width, the last
+   are timed (5 more under the profiler); (d) in fp32 at full width, the last
    prompt position's logits of the prefill and of token-by-token decode
    agree within the reference's bar (rtol and atol 2e-3). The serving
    path's own modules launch no kernel, as in the reference (counted).
@@ -119,7 +119,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    parameters from a seed) trained by W = 4 workers, one 1024-token
    sequence each from ``make_token_stream`` (one affine-bigram law a
    worker), sgdm lr 1e-2, worker momentum 0.9: RFA with bucketing s = 2
-   for 3 steps, 3 more under the profiler (device busy share), then CM for
+   for 3 steps, 1 more under the profiler (device busy share), then CM for
    1 step. Each step launches exactly ``TRAIN_ROUTE``'s kernels at
    X[4, n_pad], n_pad = 1,100,048,384 + padding; its loss is finite and the
    parameters move; its aggregate, recomputed on the same worker momenta,
@@ -144,7 +144,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    and profiled, its drop fraction printed; phase 8's 6-request
    ``ServeEngine`` run, request 0 equal to the greedy loop at the engine's
    width (C = 8 >= 4 decode tokens: none dropped); 20 decode steps with 4
-   slots busy timed and profiled beside their bound (every expert's
+   slots busy timed (5 more under the profiler) beside their bound (every expert's
    weights are read each step); no kernel of ours launches (counted). (b)
    phase 11(a)'s training at OLMoE's full width with the depth cut to 2
    layers (d = 1,045,178,368): the same steps, exact launches, checks and
@@ -160,7 +160,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    the prefill on B = 2 x 4096 (64 chunks) timed and profiled, phase 8's
    6-request ``ServeEngine`` run with request 0 and request 4 (served after
    another in its slot, whose SSM state the engine zeroed) equal to the
-   greedy loop, 20 decode steps with 4 slots busy timed and profiled beside
+   greedy loop, 20 decode steps with 4 slots busy timed (5 more under the profiler) beside
    their bound (the parameters, and the SSM state read and written); no
    kernel of ours launches (counted). (b) phase 11(a)'s training at
    Mamba2's full width and depth (d = 128,983,488): exact launches, the
@@ -189,8 +189,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    tied 256,000-row embedding, bf16, fsdp, server momentum) with the depth
    cut to 1 of 28 layers (1,063,265,280 parameters, the tree's count
    asserted) trained on the mesh (data=4, model=1), W = 4 workers of one
-   1024-token sequence each: RFA with bucketing s = 2 for 3 steps, then CM
-   for 1, each with the group's exact launches per rank, a finite loss and
+   1024-token sequence each: RFA with bucketing s = 2 for 2 steps (the
+   second carries the first's momenta), then CM for 1 (``FSDP_RUNS``),
+   each with the group's exact launches per rank, a finite loss and
    moving parameters, the first step of each rule held against the plain
    route of the same sharded sync on each rank's column slice
    (``TRAIN_AGG_RTOL`` of the largest row norm); each rank holds only its
@@ -243,18 +244,24 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    ``kernel(X16)`` equals ``kernel(X16.float())`` bit for bit, the same
    launches; held against the plain version, timed, bounded by
    ``kernels/cost.py`` at 2 bytes an element of X, the fp32 row's library
-   call timed on ``X16.float()`` with the cast. (b) The per-leaf engine on
-   TinyLlama-1.1B's full-width tree of bf16 leaves (W = 4, bucketing s = 2,
-   rfa and cm): each aggregate equals the packed engine's bit for bit,
-   with the launches stated from the leaf count (``x16.per_leaf.*``,
-   ``x16.packed.*``), host ms, device ms and peak memory of each engine.
+   call timed on ``X16.float()`` with the cast. The Gram must stage X16 as
+   ``pairwise_gram.variant`` says (TMA of the 16-bit type where d % 8 == 0,
+   predicated loads at d = 100,003); where it took TMA, the predicated
+   loads on a copy one element off 16-byte alignment (same bits) and the
+   fp32 TMA route on ``X16.float()`` are timed beside it. (b) The per-leaf
+   engine on TinyLlama-1.1B's full-width tree of bf16 leaves (W = 4,
+   bucketing s = 2, rfa and cm): each aggregate equals the packed engine's
+   bit for bit, with the launches stated from the leaf count
+   (``x16.per_leaf.*``, ``x16.packed.*``) and each Gram's route as the
+   variant rule gives it, host ms, device ms and peak memory of each engine.
    (c) ``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
    train_4k`` in a subprocess, started first and run beside (a) and (b):
    exit 0 and its four lines. (d) ``examples/quickstart_torch.py``,
    ``attack_defense_matrix_torch.py --steps 50`` and
    ``serve_decode_torch.py`` in subprocesses, each exiting 0.
 
-The last two lines are the ``kernels`` JSON and the result JSON. Exits
+Each log line starts with the seconds since the process imported this
+script. The last two lines are the ``kernels`` JSON and the result JSON. Exits
 non-zero, without a result line, when CUDA is unavailable or any check
 fails, in any rank.
 """
@@ -336,6 +343,10 @@ ATTN_S = 4096             # the attention and serving phases' sequence length
 #: TRAIN_S-token sequence each; (rule, steps) in order, the state carried on
 TRAIN_W, TRAIN_S, TRAIN_LR = 4, 1024, 1e-2
 TRAIN_RUNS = [("rfa", 3), ("cm", 1)]
+#: phase 15(a)'s steps: a gemma-7b fsdp step takes 15-21 s over gloo, and
+#: the plain-route checks read the first step of each rule; RFA's second
+#: step carries its first's worker and server momentum
+FSDP_RUNS = [("rfa", 2), ("cm", 1)]
 TRAIN_M = 2               # buckets of W = 4 at s = 2: CM's selection rows
 #: exact launches of one one-device train step (the Gram route folds the
 #: mixing into the combine weights; CM mixes, then selects)
@@ -368,6 +379,8 @@ HYBRID_PARAMS, HYBRID_FORMULA = 13_267_656_416, 13_267_597_952
 #: each, at their published width and depth; Qwen1.5-32B at smoke width
 VLM_ARCH, AUDIO_ARCH, DENSE_ARCH = "internvl2-2b", "musicgen-medium", "qwen1.5-32b"
 DECODE_STEPS = 20
+#: decode steps under the profiler: processing its trace costs ~1.5 s a step
+PROFILED_DECODE_STEPS = 5
 #: phase 15: gemma-7b trained over a (data=4, model=1) mesh of gloo ranks
 #: on the card at its published width, the depth cut to FSDP_LAYERS of 28
 #: (786,432,000 embed + 276,830,208 a layer + 3,072 final norm); the
@@ -435,8 +448,12 @@ X16_BUDGET_S = 90.0
 X16_TIMEOUT_S = 240.0     # the most a subprocess may take before the phase fails
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` behind the seconds since this process imported the script."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def time_ms(fn, reps: int, batch: int) -> float:
@@ -750,6 +767,15 @@ def same_bits(got, want) -> bool:
 
     return got.shape == want.shape and torch.equal(got.view(torch.int32),
                                                    want.view(torch.int32))
+
+
+def offset_copy(x, offset: int = 1):
+    """``x``'s values in a buffer ``offset`` elements past a 16-byte boundary:
+    rows a TMA map cannot take, so the Gram stages them by predicated loads."""
+    import torch
+
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    return buf[offset:].view(x.shape).copy_(x)
 
 
 def selection_rows(dev, record):
@@ -1554,7 +1580,7 @@ def serve_phase(dev, results):
     step_us = (time.perf_counter() - t0) / 20 * 1e6
     log(f"serve decode, 4 slots busy: {step_us / 1e3:.2f} ms per step, "
         f"{4e6 / step_us:.1f} tokens/s")
-    profile_steps(busy.step, "serve.decode 4 slots", step_us, 20)
+    profile_steps(busy.step, "serve.decode 4 slots", step_us, PROFILED_DECODE_STEPS)
     del busy
 
     # (d) prefill against decode in fp32 at full width
@@ -1982,7 +2008,7 @@ def train_full_width(dev, smi, cfg, note: str = "", n_expected=None):
             rfa_ms = statistics.median(steps_ms)
             profile_steps(lambda: one_step("rfa", step_fn, st["aggregator"]),
                           f"train rfa {cfg.name} W{TRAIN_W} S{TRAIN_S} ({smi})",
-                          rfa_ms * 1e3, n_steps)
+                          rfa_ms * 1e3, 1)
     log(f"train {cfg.name}{note}: host ms per step {', '.join(f'{t:.1f}' for t in steps_ms)} "
         f"(rfa median {rfa_ms:.1f}, {TRAIN_W * TRAIN_S / rfa_ms * 1e3:.0f} tokens/s); peak "
         f"device memory in a step {', '.join(f'{b / 1e9:.2f}' for b in peaks)} GB "
@@ -1994,7 +2020,8 @@ def train_full_width(dev, smi, cfg, note: str = "", n_expected=None):
 def train_kernel_rows(run, dev, label: str, timing=(2, 1)):
     """``pairwise_gram``, ``bucket_mix`` (mix [2, W] and combine [1, W]) and
     ``cwise_median`` (X[2, n_pad]) held and timed on the packed momenta of
-    ``train_full_width``'s ``run``, as in phase 2; the momenta are freed.
+    ``train_full_width``'s ``run``, as in phase 2 (the plain versions and
+    library calls once, ``time_once``); the momenta are freed.
     Returns the rows by kernel."""
     import torch
 
@@ -2012,7 +2039,10 @@ def train_kernel_rows(run, dev, label: str, timing=(2, 1)):
     torch.cuda.empty_cache()
     W_, d = x.shape
     kernel_rows = {"bucket_mix": [], "pairwise_gram": [], "cwise_median": []}
-    record = functools.partial(measure, kernel_rows)
+    # the plain Gram adds 537,133 tiles one launch each at TinyLlama's
+    # n_pad: its graph-timed run took ~50 s, so the plain versions and the
+    # library calls are timed once
+    record = functools.partial(measure, kernel_rows, once=True)
     mix = run["steppers"]["cm"][1]["aggregator"].mixing_matrix(TRAIN_W, run["gen"], device=dev)
     weights = torch.full((1, W_), 1.0 / W_, device=dev)
     for what, M in (("mix", mix), ("combine", weights)):
@@ -2265,7 +2295,7 @@ def serve_full(cfg, params, dev, smi, launches, label: str, reuse: bool = False)
     and profiled, a MoE model's drop fraction; phase 8's 6-request
     ``ServeEngine`` run, request 0 (and with ``reuse`` request 4, served
     after another in the same slot) equal to the greedy loop at the
-    engine's width; 20 decode steps with 4 slots busy timed and profiled
+    engine's width; 20 decode steps with 4 slots busy timed (5 more under the profiler)
     beside their bound; no kernel of ours launched (counted)."""
     import torch
 
@@ -2343,7 +2373,8 @@ def serve_full(cfg, params, dev, smi, launches, label: str, reuse: bool = False)
         + (f" and writes the SSM state ({state / 1e6:.1f} MB each way)" if state else "")
         + f": {n_bytes / 1e9:.3f} GB, bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes "
         f"at 3.35 TB/s) on {smi}")
-    profile_steps(busy.step, f"{label}.decode 4 slots ({smi})", step_us, DECODE_STEPS)
+    profile_steps(busy.step, f"{label}.decode 4 slots ({smi})", step_us,
+                  PROFILED_DECODE_STEPS)
     log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB since "
         f"the prefill")
     del busy, eng
@@ -2545,7 +2576,7 @@ def fsdp_rank(rank, group, device):
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     steppers = {agg: make_train_step(cfg, ByzConfig(aggregator=agg, mixing="bucketing", s=2),
                                      mesh=mesh, lr=TRAIN_LR, n_workers=TRAIN_W, device=device)
-                for agg, _ in TRAIN_RUNS}
+                for agg, _ in FSDP_RUNS}
     sh = steppers["rfa"][1]["shardings"]
     n_params = sum(math.prod(s.shape) for s in tree_flatten(sh["params_shape"])[0])
     if n_params != FSDP_PARAMS:
@@ -2581,7 +2612,7 @@ def fsdp_rank(rank, group, device):
     steps, checks = [], []
     dist.all_to_all_single = counted
     try:
-        for agg, n_steps in TRAIN_RUNS:
+        for agg, n_steps in FSDP_RUNS:
             step_fn, st = steppers[agg]
             for i in range(n_steps):
                 mix = st["aggregator"].mixing_matrix(TRAIN_W, gen, device=device)
@@ -2937,7 +2968,7 @@ def mesh_phase(dev, smi):
             f"blocks (bar {TRAIN_AGG_RTOL})")
         if not (c["slice"] <= TRAIN_AGG_RTOL and c["egress"] <= TRAIN_AGG_RTOL):
             raise AssertionError(f"fsdp {c['agg']}: the kernel route is off the plain route")
-    if [c["agg"] for c in ranks[0]["checks"]] != [agg for agg, _ in TRAIN_RUNS]:
+    if [c["agg"] for c in ranks[0]["checks"]] != [agg for agg, _ in FSDP_RUNS]:
         raise AssertionError(f"fsdp: checked {ranks[0]['checks']}, expected one step a rule")
     log(f"fsdp phase (a) ran in {time.perf_counter() - t0:.1f} s, spawn included")
 
@@ -3369,7 +3400,8 @@ def profile_steps(step, label, step_us: float, steps: int, unit: str = "step") -
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()  # one pass over the trace: it holds ~10^5 events a step
+    kernels = [e for e in events
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -3379,7 +3411,7 @@ def profile_steps(step, label, step_us: float, steps: int, unit: str = "step") -
         f"{sum(e.count for e in kernels) / steps:.0f} kernels/{unit}; largest: " + "; ".join(
             f"{e.key[:48]} x{e.count / steps:g} {e.self_device_time_total / steps:.1f} us"
             for e in top))
-    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:8]
     log(f"profile {label} host self time per {unit} (under the profiler): " + "; ".join(
         f"{e.key[:40]} x{e.count / steps:g} {e.self_cpu_time_total / steps:.0f} us"
@@ -3481,21 +3513,42 @@ def x16_calls(x16, W, d, dev, seed, big):
     ]
 
 
+def gram_routes(x16, timing):
+    """The Gram's other routes on the values of X16, which took TMA: the
+    predicated loads on an offset copy (``gram_ldg``, the bits held equal)
+    and the fp32 TMA route on ``X16.float()``; device ms of each."""
+    from repro_torch.kernels.pairwise_gram import pairwise_gram
+
+    moved = offset_copy(x16)
+    got, kind = gram_variant(lambda: pairwise_gram(moved))
+    if kind != "gram_ldg" or not same_bits(got, pairwise_gram(x16)):
+        raise AssertionError(f"pairwise_gram on an offset copy ran {kind}, or not the "
+                             "bits of the TMA call")
+    ms = {"gram_ldg_ms": time_ms(lambda: pairwise_gram(moved), *timing)}
+    del moved, got
+    x32 = x16.float()
+    ms["fp32_gram_tma_ms"] = time_ms(lambda: pairwise_gram(x32), *timing)
+    return ms
+
+
 def x16_rows(dev, results, dtype, W, d, timing, seed, big=False):
     """Phase 17(a) at one shape: rows X16 ``[W, d]`` of ``dtype``. Each call
     on X16 must equal the same call on ``X16.float()`` bit for bit with the
-    same launches (the Gram through ``gram_ldg`` on X16); then kernel, plain
-    version and library call are held and timed (``measure``; ``big``: the
-    plain version and the library call once, ``time_once``) and bounded at
-    X16's element size."""
+    same launches (the Gram through the route ``pairwise_gram.variant``
+    names, its other routes timed beside it: ``gram_routes``); then kernel,
+    plain version and library call are held and timed (``measure``;
+    ``big``: the plain version and the library call once, ``time_once``)
+    and bounded at X16's element size."""
     import torch
 
     from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    from repro_torch.kernels.pairwise_gram import variant
 
     x16 = torch.randn((W, d), device=dev, dtype=dtype,
                       generator=torch.Generator(dev).manual_seed(seed))
     calls = x16_calls(x16, W, d, dev, seed, big)
     name16 = str(dtype).replace("torch.", "")
+    kind = variant(d, x16.data_ptr(), dtype)  # the Gram's route on X16
     for name, label, call, plain, library, cost_of, check in calls:
         runs = []
         for fp32 in (False, True):
@@ -3511,17 +3564,22 @@ def x16_rows(dev, results, dtype, W, d, timing, seed, big=False):
         if n16 != n32 or not all(same_bits(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"{name} [{name16} {label}]: {n16} launches vs {n32}, or "
                                  "not the bits of the fp32 call")
-        if name == "pairwise_gram" and v16 != {"gram_ldg": n16[name]}:
-            raise AssertionError(f"pairwise_gram [{name16} {label}] ran {v16}, not gram_ldg")
+        if name == "pairwise_gram" and v16 != {kind: n16[name]}:
+            raise AssertionError(f"pairwise_gram [{name16} {label}] ran {v16}, not {kind}")
         del got, want, runs
         c = cost_of(x16.element_size())
         extra = dict(x_dtype=name16, same_bits_as_fp32=True, variants=v16)
+        if name == "pairwise_gram" and kind == "gram_tma":
+            extra.update(gram_routes(x16, timing))
+            log(f"time pairwise_gram [{name16} {label}]: the predicated loads on an offset "
+                f"copy {extra['gram_ldg_ms']:.4f} ms (same bits), fp32 TMA on X.float() "
+                f"{extra['fp32_gram_tma_ms']:.4f} ms")
         measure(results, name, f"{name16} {label}", lambda: call(x16), lambda: plain(x16),
                 None if library is None else (lambda: library(x16)), c.bytes, c.ops, timing,
                 check, c.peak, extra, once=big)
         torch.cuda.empty_cache()
     log(f"check 16-bit rows {name16} X[{W},{d}]: every kernel and form gave the bits of "
-        f"the fp32 call on X.float() with the same launches; the Gram ran gram_ldg")
+        f"the fp32 call on X.float() with the same launches; the Gram ran {kind}")
     del x16, calls
     torch.cuda.empty_cache()
 
@@ -3544,14 +3602,17 @@ def x16_per_leaf(dev, smi: str):
     bf16 leaves [TRAIN_W, ...] through the packed engine, then the per-leaf
     engine with its kernels: the aggregates must be equal bit for bit, and
     each engine's launches exact (per leaf: the Gram and the combine for
-    rfa, the mix and the median for cm; packed: one of each). Host ms,
-    device ms and peak memory above what was allocated."""
+    rfa, the mix and the median for cm; packed: one of each), each Gram on
+    the route ``pairwise_gram.variant`` gives its leaf (the packed fp32
+    buffer: TMA). Host ms, device ms and peak memory above what was
+    allocated."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.aragg import RobustAggregator
     from repro_torch.distributed.robust_sync import robust_gradient_sync
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, reset_launches
+    from repro_torch.kernels.pairwise_gram import variant
     from repro_torch.models import transformer as tfm
     from repro_torch.utils.tree import tree_flatten, tree_map
 
@@ -3563,6 +3624,11 @@ def x16_per_leaf(dev, smi: str):
     leaves = tree_flatten(tree)[0]
     n_leaves = sum(1 for t in leaves if t.numel())
     n_params = sum(t[0].numel() for t in leaves)
+    leaf_kinds = {}
+    for t in leaves:
+        if t.numel():
+            kind = variant(t[0].numel(), t.data_ptr(), t.dtype)
+            leaf_kinds[kind] = leaf_kinds.get(kind, 0) + 1
     routes = {"rfa": ("pairwise_gram", "bucket_mix"), "cm": ("bucket_mix", "cwise_median")}
     launches = {}
     for agg, route in routes.items():
@@ -3587,12 +3653,19 @@ def x16_per_leaf(dev, smi: str):
             want = {k: (per if k in route else 0) for k in counts}
             if counts != want:
                 raise AssertionError(f"x16.{engine}.{agg}: launches {counts}, expected {want}")
+            kinds = {k: VARIANT_LAUNCHES[k] for k in ("gram_tma", "gram_ldg")
+                     if VARIANT_LAUNCHES[k]}
+            want_kinds = {} if "pairwise_gram" not in route else (
+                {"gram_tma": 1} if engine == "packed" else leaf_kinds)
+            if kinds != want_kinds:
+                raise AssertionError(f"x16.{engine}.{agg}: Gram routes {kinds}, expected "
+                                     f"{want_kinds}")
             launches[f"x16.{engine}.{agg}"] = counts
             log(f"per-leaf bf16 [{agg}, {engine}]: TinyLlama-1.1B W={TRAIN_W} x "
                 f"{n_params:,} bf16 parameters ({n_leaves} leaves): host "
                 f"{host_ms:.1f} ms, device {start.elapsed_time(end):.3f} ms, "
                 f"{peak_above(live)}, launches {json.dumps({k: n for k, n in counts.items() if n})} "
-                f"({smi})")
+                f"{json.dumps(kinds)} ({smi})")
         got, want = (tree_flatten(outs[e])[0] for e in ("per_leaf", "packed"))
         if not all(g.dtype == w.dtype == torch.bfloat16 and torch.equal(
                 g.view(torch.int16), w.view(torch.int16)) for g, w in zip(got, want)):

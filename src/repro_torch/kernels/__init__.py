@@ -12,7 +12,8 @@ that it went through the kernels. ``VARIANT_LAUNCHES`` splits the
 ``flash_attention`` count by the CUDA kernel that ran: ``wgmma`` (the
 tensor-core kernel for bf16) or ``simt`` (the CUDA-core kernel); and the
 ``pairwise_gram`` count by how the kernel staged its input: ``gram_tma``
-(a TMA tensor map) or ``gram_ldg`` (predicated loads).
+(a TMA tensor map of X's type, fp32 or 16-bit) or ``gram_ldg``
+(predicated loads).
 
 ``CALLS`` counts, per kernel, the calls of its wrapper on any device, the
 plain version's included: on the CPU, where no kernel launches, it shows

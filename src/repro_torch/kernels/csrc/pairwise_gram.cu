@@ -5,10 +5,11 @@
 // (pallas_call at pairwise_gram.py:70): the stats phase of Krum, RFA, CCLIP,
 // ACClip and the mean on the Gram route of the packed engine.
 //
-// Bound on the H100: memory. The call reads X once (W d 4 bytes) for
-// W (W + 1) d flops of the upper triangle: 6.5 flops per byte at W = 25,
-// 16 at W = 64, under the ~20 at which fp32 CUDA-core arithmetic
-// (67 TFLOP/s) would take over. So the sums run on the CUDA cores, fed
+// Bound on the H100: memory. The call reads X once (W d 4 bytes, 2 for a
+// 16-bit X) for W (W + 1) d flops of the upper triangle: 6.5 flops per
+// byte at W = 25, 16 at W = 64 (twice that for 16-bit X), under the ~20
+// at which fp32 CUDA-core arithmetic (67 TFLOP/s) would take over, but
+// for 16-bit X above W = 39. So the sums run on the CUDA cores, fed
 // from shared memory, and not on the tensor cores: TF32 alone breaks the
 // reference's rtol 1e-5, and 3xTF32 wgmma would pad M to 64 rows and
 // triple the work for a product that is not the limit.
@@ -28,18 +29,24 @@
 //   per-unit cost of the lane reduction and the cluster barrier against the
 //   FMAs. Clusters are persistent: cluster c takes units c, c + n_clusters,
 //   ... (as many clusters as fit on the card at once).
-// - X streams through a ring of 4 stages of 128 columns x Wp rows
-//   (Wp = W rounded up to 8) in shared memory, on full and empty mbarriers.
-//   One producer warp fills it: by TMA with a 2-D tensor map over [W, d]
-//   (box Wp x 128; its out-of-bounds zero fill gives the padded rows and
-//   the columns past d) when the rows are 16-byte aligned (d % 4 == 0 and
-//   a 16-byte aligned base), else with predicated loads that write the same
-//   layout, zeros included. The wrapper picks the path before the launch
-//   (variant); everything after the staging is one code path, so a unit's
-//   partial is bit for bit the same whichever path loaded it. A 16-bit X
-//   always takes the predicated loads, which convert each element to fp32
-//   on its way into the fp32 ring (exact): so its Gram is the Gram of the
-//   same X cast to fp32, bit for bit, and the TMA path stays fp32 only.
+// - X streams through a ring of stages of 128 columns x Wp rows (Wp = W
+//   rounded up to 8) in shared memory, on full and empty mbarriers: 4
+//   stages of fp32, or 8 of a 16-bit X in the same bytes. One producer
+//   warp fills it: by TMA with a 2-D tensor map of X's own type over
+//   [W, d] (box Wp x 128; its out-of-bounds zero fill gives the padded rows
+//   and the columns past d) when the rows are 16-byte aligned (d * the
+//   element size % 16 == 0 and a 16-byte aligned base), else with predicated
+//   loads that write the same layout, zeros included. The wrapper picks the
+//   path before the launch (variant); everything after the staging is one
+//   code path, so a unit's partial is bit for bit the same whichever path
+//   loaded it. A 16-bit ring halves the bytes a stage, so twice the stages
+//   are in flight for the same shared memory; the consumers widen 4
+//   elements of one 8-byte shared load to fp32 in registers (exact) before
+//   the fp32 kernel's fmaf chain. So the Gram of a 16-bit X is the Gram of
+//   the same X cast to fp32, bit for bit, on either path. (Widening in the
+//   producer instead, from a 16-bit staging ring into the fp32 ring, was
+//   16-24 % slower on an H100 at W = 10 and 25: the staging ring takes
+//   shared memory from the fp32 ring, down to one stage at W = 25.)
 // - The rows form 8-row blocks; a consumer thread owns one upper-triangle
 //   block pair (I <= J) and one of L lanes (L = 32, 16, 8 or 4 with the
 //   number of block pairs). Per 128-column stage it takes 4 adjacent
@@ -73,18 +80,49 @@
 
 #include <cooperative_groups.h>
 
+#include <cstring>
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 #define GR_UNIT 2048                  // columns per unit: the packed layout's tile
 #define GR_C 128                      // columns per stage
-#define GR_STAGES 4                   // depth of the ring
+#define GR_STAGES 4                   // depth of the ring in fp32 stages (its bytes)
 #define GR_MAX_THREADS 256            // W <= 56: 28 block pairs x 8 lanes + the producer
 #define GR_FOLD_PAIRS 4               // pairs a folding CTA adds
 #define GR_FOLD_Q (GR_FOLD_PAIRS / 4)  // float4 a unit's row of them
 #define GR_FOLD_LD 8                  // float4 loads a thread keeps in flight in the fold
 #define GR_GROUP_MAX 8                // units a group: the tiles summed after one barrier
 #define GR_RED_BYTES 65536            // shared memory for two groups of tiles
-#define XT_IS_F32 (sizeof(xt) == 4)   // TMA stages fp32 X only
+constexpr int GR_RING = GR_STAGES * 4 / (int)sizeof(xt);  // stages of the ring (X's type)
+
+// four neighbouring elements of a shared row at index 4 i, as fp32 (exact)
+__device__ __forceinline__ float4 ring4(const float* p, int i) {
+    return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ float4 ring4(const __nv_bfloat16* p, int i) {
+    return xt_float4(reinterpret_cast<const uint2*>(p)[i], __nv_bfloat16());
+}
+__device__ __forceinline__ float4 ring4(const __half* p, int i) {
+    return xt_float4(reinterpret_cast<const uint2*>(p)[i], __half());
+}
+
+// X's element at p as it is, by the read-only path, or zero where !in (the
+// predicated loads)
+__device__ __forceinline__ xt ring_ld(const xt* p, bool in) {
+    typedef std::conditional<sizeof(xt) == 4, unsigned, unsigned short>::type bits;
+    const bits b = in ? __ldg(reinterpret_cast<const bits*>(p)) : bits(0);
+    xt v;
+    memcpy(&v, &b, sizeof(xt));
+    return v;
+}
+
+// X's element type as a tensor map names it
+static CUtensorMapDataType map_type(const float*) { return CU_TENSOR_MAP_DATA_TYPE_FLOAT32; }
+static CUtensorMapDataType map_type(const __nv_bfloat16*) {
+    return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+static CUtensorMapDataType map_type(const __half*) { return CU_TENSOR_MAP_DATA_TYPE_FLOAT16; }
 
 // What the lane count fixes: CTAs a cluster (CS), the columns of a CTA's
 // slice and its stages, the pairs a consumer thread sums over the cluster
@@ -209,18 +247,18 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const xt* __restrict__ xs,
     const int rank = (int)cluster.block_rank();
     const int cid = blockIdx.x / CS, n_clusters = gridDim.x / CS;
     const int n_my = (n_units - 1 - cid) / n_clusters + 1;  // the host keeps cid < n_units
-    const int stage_floats = Wp * GR_C;
+    const int stage_elems = Wp * GR_C;
 
-    __shared__ __align__(8) uint64_t bars[2 * GR_STAGES];  // full[], empty[]
+    __shared__ __align__(8) uint64_t bars[2 * GR_RING];  // full[], empty[]
     __shared__ int s_fold;
     extern __shared__ uint8_t smem_raw[];
-    float* ring = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) &
-                                           ~static_cast<uintptr_t>(127));
-    float* red = ring + GR_STAGES * stage_floats;  // [2 * group][NB * 64]
-    const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[GR_STAGES]);
+    xt* ring = reinterpret_cast<xt*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) &
+                                     ~static_cast<uintptr_t>(127));
+    float* red = reinterpret_cast<float*>(ring + GR_RING * stage_elems);  // [2 group][NB 64]
+    const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[GR_RING]);
 
     if (tid == 0) {
-        for (int s = 0; s < GR_STAGES; ++s) {
+        for (int s = 0; s < GR_RING; ++s) {
             mbar_init(full0 + 8 * s, 1);
             mbar_init(empty0 + 8 * s, NCW);
         }
@@ -234,22 +272,22 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const xt* __restrict__ xs,
             const long long col0 =
                 (long long)(cid + i * n_clusters) * GR_UNIT + (long long)rank * Sh::SLICE;
             for (int s = 0; s < Sh::NS; ++s) {
-                const int q = i * Sh::NS + s, slot = q % GR_STAGES;
-                if (q >= GR_STAGES) mbar_wait(empty0 + 8 * slot, ((q / GR_STAGES) - 1) & 1);
-                float* dst = ring + slot * stage_floats;
+                const int q = i * Sh::NS + s, slot = q % GR_RING;
+                if (q >= GR_RING) mbar_wait(empty0 + 8 * slot, ((q / GR_RING) - 1) & 1);
+                xt* dst = ring + slot * stage_elems;
                 const long long c0 = col0 + s * GR_C;
-                if (XT_IS_F32 && use_tma) {
+                if (use_tma) {
                     if (lane == 0) {
-                        mbar_expect_tx(full0 + 8 * slot, (uint32_t)stage_floats * 4);
+                        mbar_expect_tx(full0 + 8 * slot, (uint32_t)(stage_elems * sizeof(xt)));
                         tma_load_2d(smem_u32(dst), &map, full0 + 8 * slot, (int)c0, 0);
                     }
                 } else {
                     for (int r = 0; r < Wp; ++r) {
-                        float v[GR_C / 32];
+                        xt v[GR_C / 32];
 #pragma unroll
                         for (int k = 0; k < GR_C / 32; ++k) {
                             const long long c = c0 + lane + 32 * k;
-                            v[k] = (r < W && c < d) ? xt_ldg(xs + (long long)r * d + c) : 0.0f;
+                            v[k] = ring_ld(xs + (long long)r * d + c, r < W && c < d);
                         }
 #pragma unroll
                         for (int k = 0; k < GR_C / 32; ++k) dst[r * GR_C + lane + 32 * k] = v[k];
@@ -294,22 +332,20 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const xt* __restrict__ xs,
 #pragma unroll
             for (int e = 0; e < 64; ++e) v[e] = 0.0f;
             for (int s = 0; s < Sh::NS; ++s) {
-                const int q = i * Sh::NS + s, slot = q % GR_STAGES;
-                mbar_wait(full0 + 8 * slot, (q / GR_STAGES) & 1);
+                const int q = i * Sh::NS + s, slot = q % GR_RING;
+                mbar_wait(full0 + 8 * slot, (q / GR_RING) & 1);
                 if (active) {
-                    const float4* ra =
-                        reinterpret_cast<const float4*>(ring + slot * stage_floats + 8 * I * GR_C);
-                    const float4* rb =
-                        reinterpret_cast<const float4*>(ring + slot * stage_floats + 8 * J * GR_C);
+                    const xt* ra = ring + slot * stage_elems + 8 * I * GR_C;
+                    const xt* rb = ring + slot * stage_elems + 8 * J * GR_C;
 #pragma unroll 1
                     for (int gi = 0; gi < 32 / L; ++gi) {
                         const int g = l + L * gi;
                         float4 a[8];
 #pragma unroll
-                        for (int u = 0; u < 8; ++u) a[u] = ra[u * (GR_C / 4) + g];
+                        for (int u = 0; u < 8; ++u) a[u] = ring4(ra, u * (GR_C / 4) + g);
 #pragma unroll
                         for (int w = 0; w < 8; ++w) {
-                            const float4 b = rb[w * (GR_C / 4) + g];
+                            const float4 b = ring4(rb, w * (GR_C / 4) + g);
 #pragma unroll
                             for (int u = 0; u < 8; ++u) {
                                 float t = v[u * 8 + w];
@@ -370,7 +406,7 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const xt* __restrict__ xs,
     if (s_fold < 0) return;
     __threadfence();
 
-    float* fbuf = ring;  // [2][fold_units][GR_FOLD_PAIRS], over the drained ring
+    float* fbuf = reinterpret_cast<float*>(ring);  // [2][fold_units][GR_FOLD_PAIRS], the ring
     const int n_chunks = (n_units + fold_units - 1) / fold_units;
     const int nthreads = (int)blockDim.x;
     for (int grp = s_fold; grp < F; grp += Fe) {
@@ -439,7 +475,7 @@ static int gram_launch(const CUtensorMap& map, const xt* xs, const float* acc, f
     const int P = W * (W + 1) / 2;
     if (threads > Sh::THREADS || P > Sh::CS * (threads - 32) * Sh::MAXE)
         return (int)cudaErrorInvalidConfiguration;
-    const int ring_bytes = GR_STAGES * Wp * GR_C * 4;
+    const int ring_bytes = GR_RING * Wp * GR_C * (int)sizeof(xt);  // an fp32 ring's bytes
     int group = GR_RED_BYTES / (2 * NB * 64 * 4);
     group = group < 1 ? 1 : group > GR_GROUP_MAX ? GR_GROUP_MAX : group;
     const int smem = 128 + ring_bytes + 2 * group * NB * 64 * 4;
@@ -489,9 +525,11 @@ static int gram_launch(const CUtensorMap& map, const xt* xs, const float* acc, f
 // xs [W, d] of X_T, contiguous, 1 <= W <= 64, d >= 1; acc [W, W] or null;
 // out [W, W]; partial [ceil(d / 2048), P rounded up to 32] scratch (rows
 // of P rounded up to GR_FOLD_PAIRS are used); counter
-// one zeroed unsigned. use_tma only for fp32 X where d % 4 == 0 and xs
-// is 16-byte aligned (the wrapper's variant rule). Returns
-// cudaGetLastError() after the launch, or the error of a step before it.
+// one zeroed unsigned. use_tma only where X's rows are 16-byte aligned (d *
+// sizeof(X_T) % 16 == 0, xs 16-byte aligned; the wrapper's variant rule);
+// a tensor map that does not encode returns an error, never another path.
+// Returns cudaGetLastError() after the launch, or the error of a step
+// before it.
 extern "C" int pairwise_gram_launch(const xt* xs, const float* acc, float* out,
                                     float* partial, unsigned* counter, int W, long long d,
                                     int use_tma, cudaStream_t stream) {
@@ -499,17 +537,17 @@ extern "C" int pairwise_gram_launch(const xt* xs, const float* acc, float* out,
     const int Wp = (W + 7) & ~7, nb = Wp / 8, NB = nb * (nb + 1) / 2;
     CUtensorMap map = {};
     if (use_tma) {
-        if (!XT_IS_F32 || d % 4 != 0 || reinterpret_cast<uintptr_t>(xs) % 16 != 0 ||
-            d + GR_UNIT >= (1ll << 31))
+        if ((d * (long long)sizeof(xt)) % 16 != 0 ||
+            reinterpret_cast<uintptr_t>(xs) % 16 != 0 || d + GR_UNIT >= (1ll << 31))
             return (int)cudaErrorInvalidValue;
         const TmaEncodeTiled encode = tma_encoder();
         if (encode == nullptr) return (int)cudaErrorNotSupported;
-        // [W, d] fp32, boxes of Wp rows x GR_C columns, zeros out of bounds
+        // [W, d] of X's type, boxes of Wp rows x GR_C columns, zeros out of bounds
         const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)W};
-        const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+        const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(xt)};
         const cuuint32_t box[2] = {GR_C, (cuuint32_t)Wp};
         const cuuint32_t elem[2] = {1, 1};
-        const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+        const CUresult r = encode(&map, map_type(xs), 2,
                                   const_cast<xt*>(xs), dims, strides, box, elem,
                                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -6,9 +6,11 @@
 //
 // X is converted to fp32 where it is loaded (__bfloat162float and
 // __half2float are exact) and every instruction after the load is the fp32
-// kernel's, so kernel(X16) equals kernel(X16.float()) bit for bit. Every
-// other input (mixing matrix, coefficients, centre, lam, acc) and every
-// output stays fp32.
+// kernel's, so kernel(X16) equals kernel(X16.float()) bit for bit. The Gram
+// (pairwise_gram.cu) loads X by TMA into shared memory as it is, and
+// converts where it reads a shared stage (xt_float4). Every other input
+// (mixing matrix, coefficients, centre, lam, acc) and every output stays
+// fp32.
 //
 // Four neighbouring elements are one vector load: 16 bytes for fp32, 8 for
 // a 16-bit type (XT_VEC_BYTES). A kernel takes its vector path where a
@@ -42,21 +44,28 @@ __device__ __forceinline__ float xt_ldg(const __half* p) {
     return __half2float(__ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
 
+// four neighbouring 16-bit elements held in 8 bytes, as fp32 (the second
+// argument names their type)
+__device__ __forceinline__ float4 xt_float4(uint2 u, __nv_bfloat16) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 xt_float4(uint2 u, __half) {
+    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+}
+
 // four neighbouring elements of X at an XT_VEC_BYTES-aligned address, as fp32
 __device__ __forceinline__ float4 xt_ldg4(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
 }
 __device__ __forceinline__ float4 xt_ldg4(const __nv_bfloat16* p) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
+    return xt_float4(__ldg(reinterpret_cast<const uint2*>(p)), __nv_bfloat16());
 }
 __device__ __forceinline__ float4 xt_ldg4(const __half* p) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
+    return xt_float4(__ldg(reinterpret_cast<const uint2*>(p)), __half());
 }
 
 // X's four elements at c0 .. c0 + 3 of a row, the vector load where ALIGNED,

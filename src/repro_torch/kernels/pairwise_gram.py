@@ -10,11 +10,13 @@ every leaf to a ``TILE_D`` multiple). ``variant`` picks how the kernel
 stages X, by TMA or by predicated loads, before the launch;
 ``VARIANT_LAUNCHES`` counts each. Both give the same bits.
 
-X may be fp32, bf16 or fp16 (one library each, ``_build.x_source``); a
-16-bit X always takes the predicated loads (``gram_ldg``), which convert
-each element to fp32 on its way into the kernel's fp32 stages: the Gram of
-``X16`` is the Gram of ``X16.float()`` bit for bit, and TMA stays fp32 only.
-``acc`` is taken in fp32 (a 16-bit one is cast) and the result is fp32.
+X may be fp32, bf16 or fp16 (one library each, ``_build.x_source``). Either
+way X is staged in its own type: by a TMA tensor map of that type
+(``gram_tma``, whatever the dtype) where its rows are 16-byte aligned, else
+by predicated loads (``gram_ldg``); the kernel widens a 16-bit element to
+fp32 where it reads it from shared memory (exact), so the Gram of ``X16``
+is the Gram of ``X16.float()`` bit for bit on either route. ``acc`` is
+taken in fp32 (a 16-bit one is cast) and the result is fp32.
 
 The kernel takes at most 64 rows (``MAX_ROWS``). More rows go through
 ``grouped_gram``: groups of at most 32 rows, one kernel call for each pair
@@ -56,12 +58,12 @@ def _lib(dtype: torch.dtype = torch.float32):
 
 
 def variant(d: int, data_ptr: int, dtype: torch.dtype = torch.float32) -> str:
-    """How the kernel stages ``X [W, d]``: ``"gram_tma"`` (a TMA tensor map of
-    fp32 X, which needs 16-byte aligned rows: ``d % 4 == 0`` and a 16-byte
-    aligned base) or ``"gram_ldg"`` (predicated loads into the same layout;
-    every 16-bit X)."""
-    aligned = (dtype == torch.float32 and d % 4 == 0 and data_ptr % 16 == 0
-               and d <= _TMA_MAX_D)
+    """How the kernel stages ``X [W, d]`` of ``dtype``: ``"gram_tma"`` (a TMA
+    tensor map of X's type, which needs 16-byte aligned rows: ``d`` a
+    multiple of 4 fp32 or 8 16-bit elements and a 16-byte aligned base) or
+    ``"gram_ldg"`` (predicated loads into the same layout)."""
+    row_bytes = d * torch.finfo(dtype).bits // 8
+    aligned = row_bytes % 16 == 0 and data_ptr % 16 == 0 and d <= _TMA_MAX_D
     return "gram_tma" if aligned else "gram_ldg"
 
 

@@ -72,6 +72,24 @@ def test_mix_and_gram_on_16bit_rows(dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gram_leaf_chain_through_acc_on_16bit_rows(dtype):
+    """The per-leaf engine's Gram on 16-bit leaves: a chain through ``acc``
+    over leaves of unaligned widths equals one call on the leaves padded to
+    2048 columns and packed, bit for bit, and the reference's chain
+    (``full_blocks``: 2048-column blocks whatever d) within the Gram's
+    tolerance."""
+    leaves = [_rows((10, d), dtype, seed=d) for d in (10, 3000, 4100, 2048)]
+    acc, racc = None, None
+    for x, xj in leaves:
+        acc = pairwise_gram(x, acc)
+        racc = rk.pairwise_gram(xj, racc, full_blocks=True)
+    pack = torch.cat([torch.nn.functional.pad(x, (0, -x.shape[1] % 2048)) for x, _ in leaves],
+                     dim=1)
+    assert torch.equal(acc, pairwise_gram(pack))
+    _close(acc, racc, 1e-5, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES)
 def test_cm_tm_on_16bit_rows_bitwise(dtype, shape):
     W, d = shape

@@ -93,6 +93,29 @@ def test_gram_unaligned_leaf_chain_equals_packed_on_card(cuda, W):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("W", [1, 10, 25, 64])
+def test_gram_unaligned_16bit_leaf_chain_equals_packed_on_card(cuda, dtype, W):
+    """The per-leaf chain over 16-bit leaves, unaligned ones (d % 8 != 0:
+    predicated loads) and aligned ones (TMA of the 16-bit type) in turn,
+    equals one call over the leaves cast to fp32, padded to TILE_D and
+    packed (the packed engine's buffer), and one call over the 16-bit pack,
+    bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(W)
+    leaves = [(torch.randn((W, d), device=cuda, generator=gen) * 3).to(dtype)
+              for d in (10, 100_003, 4100, 6144, 4096)]
+    reset_launches()
+    acc = None
+    for leaf in leaves:
+        acc = pairwise_gram.pairwise_gram(leaf, acc)
+    assert VARIANT_LAUNCHES["gram_ldg"] == 3 and VARIANT_LAUNCHES["gram_tma"] == 2
+    packed = pairwise_gram.pairwise_gram(torch.cat([_padded(x.float()) for x in leaves], dim=1))
+    packed16 = pairwise_gram.pairwise_gram(torch.cat([_padded(x) for x in leaves], dim=1))
+    assert torch.equal(acc, packed) and torch.equal(acc, packed16)
+    assert VARIANT_LAUNCHES["gram_ldg"] == 3 and VARIANT_LAUNCHES["gram_tma"] == 4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("W", [1, 10, 25, 64])
 def test_gram_chain_repeat_symmetry_on_card(cuda, W):
     gen = torch.Generator(cuda).manual_seed(100 + W)
@@ -748,8 +771,11 @@ def test_16bit_rows_give_the_fp32_bits_on_card(cuda, dtype, W, d, offset):
     returns the bits of the same call on ``X16.float()``: the element is
     converted to fp32 at the load, and every instruction after it is the
     fp32 kernel's. Rows on the vector path (d % 4 == 0, 8-byte base),
-    2 bytes off it (``offset``), and d % 4 != 0; the fp32 copy is aligned,
-    so the Gram compares the predicated loads (16-bit) with TMA."""
+    2 bytes off it (``offset``), and d % 4 != 0. The Gram stages 16-bit rows
+    by a TMA map of their type where d % 8 == 0 on a 16-byte base (above 64
+    rows the groups' rows are stacked into a fresh buffer first), else by
+    the predicated loads; the fp32 copy is aligned, so it takes TMA where
+    d % 4 == 0: the routes are held against each other bit for bit."""
     gen = torch.Generator(cuda).manual_seed(W)
     x = (torch.randn((W, d), device=cuda, generator=gen) * 3).to(dtype)
     if offset:
@@ -765,9 +791,12 @@ def test_16bit_rows_give_the_fp32_bits_on_card(cuda, dtype, W, d, offset):
         want = f(x32)
         assert _same(got, want), name
         assert n16[0] == dict(LAUNCHES), name
-        if name.startswith("gram") and W <= pairwise_gram.MAX_ROWS:
-            assert n16[1]["gram_ldg"] == 1 and n16[1]["gram_tma"] == 0, name
-            assert VARIANT_LAUNCHES["gram_tma"] == (1 if d % 4 == 0 else 0), name
+        if name.startswith("gram"):
+            n = n16[0]["pairwise_gram"]
+            tma16 = d % 8 == 0 and (offset == 0 or W > pairwise_gram.MAX_ROWS)
+            assert n16[1]["gram_tma"] == (n if tma16 else 0), name
+            assert n16[1]["gram_ldg"] == (0 if tma16 else n), name
+            assert VARIANT_LAUNCHES["gram_tma"] == (n if d % 4 == 0 else 0), name
 
 
 @pytest.mark.cuda

@@ -195,14 +195,25 @@ def test_cluster_sum_and_fold_cover_every_pair_once(W):
         assert groups == list(range(F))
 
 
-@pytest.mark.parametrize("d,ptr,want", [(4096, 256, "gram_tma"), (106_496, 0, "gram_tma"),
-                                        (4097, 256, "gram_ldg"), (10, 256, "gram_ldg"),
-                                        (4096, 260, "gram_ldg"), (4096, 264, "gram_ldg"),
-                                        (2 ** 31, 0, "gram_ldg")])
-def test_variant_rule(d, ptr, want):
-    """TMA needs 16-byte aligned rows (base and row stride) and a 32-bit
-    column coordinate; anything else takes the predicated loads."""
-    assert variant(d, ptr) == want
+_FP32_RULE = [(4096, 256, "gram_tma"), (106_496, 0, "gram_tma"), (4097, 256, "gram_ldg"),
+              (10, 256, "gram_ldg"), (4096, 260, "gram_ldg"), (4096, 264, "gram_ldg"),
+              (2 ** 31, 0, "gram_ldg")]
+# 16-bit rows: 16-byte rows need d % 8 == 0, so d = 4100 (fp32's TMA) and a
+# base 8 bytes off take the predicated loads
+_X16_RULE = [(4096, 256, "gram_tma"), (106_496, 0, "gram_tma"), (4100, 256, "gram_ldg"),
+             (4096, 264, "gram_ldg"), (4097, 256, "gram_ldg"), (2 ** 31, 0, "gram_ldg")]
+
+
+@pytest.mark.parametrize("dtype,d,ptr,want", [
+    pytest.param(torch.float32, d, ptr, want, id=f"{d}-{ptr}-{want}")
+    for d, ptr, want in _FP32_RULE + [(4100, 256, "gram_tma")]] + [
+    pytest.param(dt, d, ptr, want, id=f"{str(dt)[6:]}-{d}-{ptr}-{want}")
+    for dt in (torch.bfloat16, torch.float16) for d, ptr, want in _X16_RULE])
+def test_variant_rule(dtype, d, ptr, want):
+    """TMA needs 16-byte aligned rows (base and row stride: d a multiple of
+    4 fp32 or 8 16-bit elements) and a 32-bit column coordinate; anything
+    else takes the predicated loads."""
+    assert variant(d, ptr, dtype) == want
 
 
 # ------------------------------------- more than 64 rows: the grouped route
