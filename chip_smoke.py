@@ -136,7 +136,20 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    worker-sharded step (one worker a rank; the rows go to column slices
    through one ``all_to_all``) for 3 steps of RFA and of CM: launches per
    rank as phase 6's, every rank's parameters equal rank 0's bit for bit
-   and the one-device step's within rtol 1e-4 / atol 1e-6.
+   and the one-device step's within rtol 1e-4 / atol 1e-6. (d) gemma-7b
+   at its published width (d_model 3072, 16 heads of 256, GeGLU d_ff
+   24,576, tied 256,000-row embedding, bf16, server momentum) with the
+   depth cut to 2 of 28 layers (1,340,095,488 parameters, the tree's count
+   asserted), W = 4 workers of one 4096-token sequence (train_4k's
+   length), RFA with bucketing s = 2: one step with the config's
+   ``remat="full"`` (each period recomputed in the backward) and one with
+   ``remat="none"`` from the same state, batch and mix. Parameters and
+   optimizer state bit for bit between them, exact launches, a finite
+   loss, host ms, forward + backward device ms, and the peak memory above
+   the state through the forward and backward (lower with recompute) and
+   in the step; the step's aggregate of its rows (each worker's gradient
+   at the start, recomputed) equals the plain route's and the kernel's
+   Gram the fp64 Gram, with (a)'s bars.
 12. The MoE family (``models/moe.py``): (a) OLMoE-1B-7B served at its
    published width and depth (16 layers, 64 experts top-8, d_ff_expert
    1024, bf16; 6,919,096,320 random parameters from a seed, the count
@@ -358,6 +371,12 @@ TRAIN_ROUTE = {"rfa": {"pairwise_gram": 1, "bucket_mix": 1},
 #: ~537,000 unit partials in column order (the reference's order) is off by
 #: 2.4e-4, torch.matmul by 2.3e-3 (NVIDIA H100 80GB HBM3, 700 W)
 TRAIN_AGG_RTOL, TRAIN_GRAM_RTOL = 1e-4, 1e-3
+#: phase 11(d): gemma-7b at its published width with the depth cut to
+#: REMAT_LAYERS of 28 (786,432,000 embed + 276,830,208 a layer + 3,072 final
+#: norm), TRAIN_W workers of one REMAT_S-token sequence each (train_4k's
+#: length): one RFA step with its config's remat="full", one with "none"
+REMAT_ARCH, REMAT_LAYERS, REMAT_PARAMS, REMAT_S = "gemma-7b", 2, 1_340_095_488, 4096
+REMAT_TURNS = ("none", "full", "full", "none")
 #: phase 11(b)/(c): tests/test_system.py's run at smoke width (30 steps, lr
 #: 0.3, global batch 8 x 64 tokens), and the group's steps
 SMOKE_STEPS, SMOKE_LR, GROUP_STEPS = 30, 0.3, 3
@@ -1884,6 +1903,47 @@ def model_width(cfg) -> str:
     return ", ".join(parts + [cfg.dtype])
 
 
+def agreement(label: str, rows, aggregator, mix):
+    """The sync's aggregate of ``rows`` (leaves ``[W, ...]``: a step's
+    worker momenta or raw gradients), kernel route against plain route,
+    within ``TRAIN_AGG_RTOL`` of the largest row norm; the Gram of the
+    packed rows, kernel and ``torch.matmul``, against an fp64 Gram summed
+    in chunks, the kernel's within ``TRAIN_GRAM_RTOL`` of
+    sqrt(G_ii G_jj)."""
+    import torch
+
+    from repro_torch.distributed.packing import packer_for
+    from repro_torch.distributed.robust_sync import robust_gradient_sync
+    from repro_torch.kernels.pairwise_gram import pairwise_gram
+    from repro_torch.utils.tree import tree_flatten
+
+    buf = packer_for(rows).pack(rows)
+    exact = sum(c.double() @ c.double().T for c in buf.split(1 << 26, dim=1))
+    diag = torch.diagonal(exact)
+    scale = torch.sqrt(torch.outer(diag, diag))
+    gram_err = {name: float(((g.double() - exact).abs() / scale).max())
+                for name, g in (("kernel", pairwise_gram(buf)), ("matmul", buf @ buf.T))}
+    row_norm = float(torch.sqrt(diag.max()))
+    del buf, exact
+    got = robust_gradient_sync(rows, aggregator, mix=mix)[0]
+    k_row = torch.cat([t.reshape(-1) for t in tree_flatten(got)[0]])
+    del got
+    want = robust_gradient_sync(rows, aggregator, mix=mix, use_kernels=False)[0]
+    p_row = torch.cat([t.reshape(-1) for t in tree_flatten(want)[0]])
+    del want
+    comb_err = float(torch.linalg.vector_norm(k_row - p_row)) / row_norm
+    del k_row, p_row
+    torch.cuda.empty_cache()
+    log(f"check {label} aggregate, kernel route vs plain route on the same rows: "
+        f"|agg_kernel - agg_plain|_2 / max_i |x_i|_2 = {comb_err:.3g} (bar {TRAIN_AGG_RTOL}); "
+        f"Gram of the packed rows against fp64, max |G - G64|_ij / sqrt(G64_ii G64_jj): "
+        f"kernel {gram_err['kernel']:.3g} (bar {TRAIN_GRAM_RTOL}), torch.matmul "
+        f"{gram_err['matmul']:.3g}")
+    if not comb_err <= TRAIN_AGG_RTOL or not gram_err["kernel"] <= TRAIN_GRAM_RTOL:
+        raise AssertionError(f"{label}: kernel aggregate off the plain route's, or its Gram "
+                             "off the fp64 Gram")
+
+
 def train_full_width(dev, smi, cfg, note: str = "", n_expected=None):
     """Phase 11(a) / 12(b): ``make_train_step`` on ``cfg`` at its full width,
     W = TRAIN_W heterogeneous workers with one TRAIN_S-token sequence each,
@@ -1900,11 +1960,8 @@ def train_full_width(dev, smi, cfg, note: str = "", n_expected=None):
 
     from repro_torch.configs.base import ByzConfig
     from repro_torch.data.synthetic import make_token_stream
-    from repro_torch.distributed.packing import packer_for
-    from repro_torch.distributed.robust_sync import robust_gradient_sync
     from repro_torch.distributed.steps import make_train_step
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels.pairwise_gram import pairwise_gram
     from repro_torch.telemetry import phase_times
     from repro_torch.utils.tree import tree_flatten
 
@@ -1932,36 +1989,6 @@ def train_full_width(dev, smi, cfg, note: str = "", n_expected=None):
     total = {k: 0 for k in LAUNCHES}
     steps_ms, peaks = [], []
     probe = tree_flatten(params)[0][0].flatten()[:4096].clone()
-
-    def agreement(agg, aggregator, mix):
-        """The step's aggregate (kernel route) against the plain route on
-        the same worker momenta; the Gram of the packed momenta, kernel
-        and ``torch.matmul``, against an fp64 Gram summed in chunks."""
-        buf = packer_for(worker_m).pack(worker_m)
-        exact = sum(c.double() @ c.double().T for c in buf.split(1 << 26, dim=1))
-        diag = torch.diagonal(exact)
-        scale = torch.sqrt(torch.outer(diag, diag))
-        gram_err = {name: float(((g.double() - exact).abs() / scale).max())
-                    for name, g in (("kernel", pairwise_gram(buf)), ("matmul", buf @ buf.T))}
-        row_norm = float(torch.sqrt(diag.max()))
-        del buf, exact
-        got = robust_gradient_sync(worker_m, aggregator, mix=mix)[0]
-        k_row = torch.cat([t.reshape(-1) for t in tree_flatten(got)[0]])
-        del got
-        want = robust_gradient_sync(worker_m, aggregator, mix=mix, use_kernels=False)[0]
-        p_row = torch.cat([t.reshape(-1) for t in tree_flatten(want)[0]])
-        del want
-        comb_err = float(torch.linalg.vector_norm(k_row - p_row)) / row_norm
-        del k_row, p_row
-        torch.cuda.empty_cache()
-        log(f"check train {agg} aggregate, kernel route vs plain route on the same worker "
-            f"momenta: |agg_kernel - agg_plain|_2 / max_i |x_i|_2 = {comb_err:.3g} "
-            f"(bar {TRAIN_AGG_RTOL}); Gram of the packed momenta against fp64, max "
-            f"|G - G64|_ij / sqrt(G64_ii G64_jj): kernel {gram_err['kernel']:.3g} (bar "
-            f"{TRAIN_GRAM_RTOL}), torch.matmul {gram_err['matmul']:.3g}")
-        if not comb_err <= TRAIN_AGG_RTOL or not gram_err["kernel"] <= TRAIN_GRAM_RTOL:
-            raise AssertionError(f"train {agg}: kernel aggregate off the plain route's, or "
-                                 "its Gram off the fp64 Gram")
 
     def one_step(agg, step_fn, aggregator):
         nonlocal params, opt_state, worker_m
@@ -2003,7 +2030,7 @@ def train_full_width(dev, smi, cfg, note: str = "", n_expected=None):
                                - probe.float()).abs().max())
                 if not moved > 0:
                     raise AssertionError(f"train {agg}: the parameters did not move")
-                agreement(agg, st["aggregator"], mix)
+                agreement(f"train {agg}", worker_m, st["aggregator"], mix)
         if agg == "rfa":
             rfa_ms = statistics.median(steps_ms)
             profile_steps(lambda: one_step("rfa", step_fn, st["aggregator"]),
@@ -2067,10 +2094,137 @@ def train_kernel_rows(run, dev, label: str, timing=(2, 1)):
     return kernel_rows
 
 
+def remat_phase(dev, smi):
+    """Phase 11(d): ``make_train_step`` on gemma-7b at its published width,
+    REMAT_LAYERS deep, W = TRAIN_W workers of one REMAT_S-token sequence,
+    RFA with bucketing s = 2 and the config's server momentum: steps with
+    ``remat="full"`` (each period recomputed in the backward) and with
+    ``remat="none"`` in the turns of ``REMAT_TURNS``, each from the same
+    parameters, optimizer state, batch and mixing matrix. All give the same
+    parameters and optimizer state bit for bit, and each launches exactly
+    ``TRAIN_ROUTE["rfa"]`` and has a finite loss. Each step's peak memory
+    above what was allocated before it is read twice: at the end of its
+    last forward and backward (``phase_times``' peaks: what recompute cuts,
+    the remat steps' must be the lower) and at the end of the step (which
+    the sync's packed rows set in both). Then the rows the steps synced
+    (each worker's gradient at the start, recomputed with remat) go
+    through ``agreement``. Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.telemetry import phase_times
+    from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(REMAT_ARCH), n_layers=REMAT_LAYERS)
+    if cfg.remat != "full" or cfg.momentum_mode != "server":
+        raise AssertionError(f"remat: {cfg.name} has remat {cfg.remat!r}, momentum "
+                             f"{cfg.momentum_mode!r}")
+    toks = make_token_stream(torch.Generator().manual_seed(11), TRAIN_W, REMAT_S, 1,
+                             cfg.vocab_size, device=dev)[:, 0]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    byz = ByzConfig(aggregator="rfa", mixing="bucketing", s=2)
+    steppers = {remat: make_train_step(dataclasses.replace(cfg, remat=remat), byz,
+                                       lr=TRAIN_LR, n_workers=TRAIN_W, device=dev)
+                for remat in ("full", "none")}
+    state = steppers["full"][1]
+    params = state["init_params"](torch.Generator(dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    if n_params != REMAT_PARAMS:
+        raise AssertionError(f"remat: {n_params:,} parameters, expected {REMAT_PARAMS:,}")
+    # each step starts from its own copy (the optimizer writes its moments in place)
+    start = (params, state["init_opt_state"](params))
+    del params
+    mix = state["aggregator"].mixing_matrix(TRAIN_W, torch.Generator().manual_seed(12),
+                                            device=dev)
+    total = {k: 0 for k in LAUNCHES}
+    log(f"remat: {cfg.name} ({REMAT_LAYERS} of 28 layers, {model_width(cfg)}): "
+        f"{n_params:,} parameters; W {TRAIN_W} workers x 1 sequence of {REMAT_S} tokens, "
+        f"rfa + bucketing s = 2, server momentum, sgdm lr {TRAIN_LR} ({smi})")
+
+    first, peaks = None, {"full": [], "none": []}
+    for remat in REMAT_TURNS:
+        p, o = tree_map(torch.clone, start)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with phase_times() as ms:
+            p, o, _, metrics = steppers[remat][0](p, o, {}, mix, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        fb_peak = ms.peaks["forward_backward"] - live
+        peak = torch.cuda.max_memory_allocated() - live
+        counts = dict(LAUNCHES)
+        for k, v in counts.items():
+            total[k] += v
+        want = {k: TRAIN_ROUTE["rfa"].get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"remat {remat}: launches {counts}, expected {want}")
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"remat {remat}: loss {loss}")
+        log(f"train {cfg.name} ({REMAT_LAYERS} of 28 layers) rfa, remat {remat!r}: loss "
+            f"{loss:.5f}; host ms {wall:.1f}; forward + backward device ms "
+            f"{ms.get('forward_backward', 0.0):.1f} (4 workers); device ms by phase "
+            f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}; peak above the "
+            f"{live / 1e9:.2f} GB held before the step: {fb_peak / 1e9:.2f} GB through the "
+            f"forward and backward, {peak / 1e9:.2f} GB in the step; launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        out = tree_flatten((p, o))[0]
+        del p, o
+        if first is None:
+            first = out
+        elif not all(torch.equal(a, b) for a, b in zip(out, first)):
+            raise AssertionError(f"remat: the parameters or optimizer state of the "
+                                 f"{remat!r} step differ from the first step's "
+                                 f"({REMAT_TURNS[0]!r})")
+        del out
+        peaks[remat].append((fb_peak, peak))
+    del first
+    fb = {remat: max(p[0] for p in v) for remat, v in peaks.items()}
+    step = {remat: max(p[1] for p in v) for remat, v in peaks.items()}
+    if not fb["full"] < fb["none"]:
+        raise AssertionError(f"remat: peak through the forward and backward {fb['full']} B "
+                             f"with recompute, {fb['none']} B without")
+    log(f"check remat: parameters and optimizer state bit for bit over {len(REMAT_TURNS)} "
+        f"steps {REMAT_TURNS}; peak above the state through the forward and backward "
+        f"{fb['full'] / 1e9:.2f} GB with recompute against {fb['none'] / 1e9:.2f} GB without "
+        f"({(fb['none'] - fb['full']) / 1e9:.2f} GB lower); in the whole step "
+        f"{step['full'] / 1e9:.2f} against {step['none'] / 1e9:.2f} GB on {smi}")
+
+    # the rows the steps synced: each worker's gradient at the start
+    leaves, treedef = tree_flatten(start[0])
+    live = [t.detach().requires_grad_() for t in leaves]
+    rows = [torch.empty((TRAIN_W,) + tuple(t.shape), dtype=t.dtype, device=dev)
+            for t in leaves]
+    for w in range(TRAIN_W):
+        loss, _ = tfm.loss_fn(tree_unflatten(treedef, live), cfg,
+                              {k: v[w:w + 1] for k, v in batch.items()})
+        for row, g in zip(rows, torch.autograd.grad(loss, live, materialize_grads=True)):
+            row[w].copy_(g)
+    del start, leaves, live
+    agreement(f"remat {cfg.name} rfa", tree_unflatten(treedef, rows), state["aggregator"], mix)
+    del rows
+    torch.cuda.empty_cache()
+    return total
+
+
 def train_phase(dev, smi):
     """Phase 11: LLM training. (a) TinyLlama-1.1B at full width on the
     card; (b) the reference test's run at smoke width; (c) the
-    worker-sharded step over 4 ranks. Returns the launch counts by path and
+    worker-sharded step over 4 ranks; (d) gemma-7b's step with and without
+    recompute (``remat_phase``). Returns the launch counts by path and
     the kernels' rows at the training shape."""
     import numpy as np
 
@@ -2116,6 +2270,9 @@ def train_phase(dev, smi):
             f"device| of the parameters {err:.3g} (bar rtol 1e-4, atol 1e-6); losses "
             f"{[round(x, 5) for x in ranks[0][agg]['losses']]} vs one device "
             f"{[round(x, 5) for x in one_losses]}")
+
+    # (d) gemma-7b at full width, 2 layers: remat "full" against "none"
+    launches["train_remat"] = remat_phase(dev, smi)
     return launches, kernel_rows
 
 
@@ -2953,8 +3110,9 @@ def mesh_phase(dev, smi):
         if len({round(r["steps"][i]["loss"], 12) for r in ranks}) != 1:
             raise AssertionError(f"fsdp step {i}: the ranks' losses differ")
         wall = max(r["steps"][i]["ms"] for r in ranks)
-        log(f"fsdp {FSDP_ARCH} ({FSDP_LAYERS} of 28 layers, {FSDP_PARAMS:,} parameters) "
-            f"{st['agg']} step {i + 1} on (data=4, model=1), 4 gloo ranks on one card: loss "
+        log(f"fsdp {FSDP_ARCH} ({FSDP_LAYERS} of 28 layers, {FSDP_PARAMS:,} parameters, remat "
+            f"{get_config(FSDP_ARCH).remat!r}) {st['agg']} step {i + 1} on (data=4, model=1), "
+            f"4 gloo ranks on one card: loss "
             f"{st['loss']:.5f}; host ms {wall:.1f} (slowest rank), "
             f"{TRAIN_W * TRAIN_S / wall * 1e3:.0f} tokens/s; launches per rank "
             f"{json.dumps({k: v for k, v in st['counts'].items() if v})} ({smi})")

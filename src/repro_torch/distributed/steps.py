@@ -5,7 +5,10 @@ Workers are data-parallel groups: the global batch's leading axis splits
 into W worker shards; each worker's gradient comes from one forward and
 backward of ``loss_fn`` on its rows (a Python loop over the workers: the
 reference's ``vmap`` would hold every worker's activations at once), with
-no cross-worker reduction. The paper's mixing + robust aggregation then
+no cross-worker reduction. For the backward, autograd keeps every layer's
+activations, or for a ``remat="full"`` config only each period's input,
+the period recomputed when the backward reaches it
+(``transformer.forward_hidden``). The paper's mixing + robust aggregation then
 REPLACES the gradient all-reduce (``robust_gradient_sync`` with the packed
 engine and its kernels), and the optimizer update runs.
 

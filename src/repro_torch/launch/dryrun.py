@@ -47,6 +47,11 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--json out.json]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k \
+        --remat none [--layers 2]
+
+``--layers N`` cuts the depth, ``--remat none|full`` replaces the config's
+``remat`` field (``dryrun_one``'s ``overrides``).
 
 The fake group exists only inside ``main()`` or an explicit ``activate()``:
 importing this module creates no group and sets no variable.
@@ -260,7 +265,8 @@ def dryrun_one(
         "kernels": {k: dict(v) for k, v in kernel_cost.COSTS.items()},
     }
     if verbose:
-        print(f"== {arch} x {shape_name} x {result['mesh']} ({shape.kind}) ==")
+        cut = "".join(f", {k}={v}" for k, v in (overrides or {}).items())
+        print(f"== {arch} x {shape_name} x {result['mesh']} ({shape.kind}{cut}) ==")
         print("memory_analysis:", result["bytes_per_device"])
         print(f"cost_analysis: flops={total_flops:.3e} bytes={bytes_hbm:.3e} "
               f"collective_bytes={terms['collective_bytes']:.3e}")
@@ -281,6 +287,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--json", type=str, default=None)
     ap.add_argument("--agg", type=str, default="rfa")
     ap.add_argument("--mixing", type=str, default="bucketing")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers (for a hybrid, a multiple of its period)")
+    ap.add_argument("--remat", type=str, default=None, choices=("none", "full"),
+                    help="replace the config's remat field")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -292,11 +302,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     activate(512 if args.multi_pod else 256)
     byz = ByzConfig(aggregator=args.agg, mixing=args.mixing, s=2, worker_momentum=0.9,
                     delta=0.1)
+    overrides = {k: v for k, v in (("n_layers", args.layers), ("remat", args.remat)) if v}
     results = []
     try:
         for arch, shape in combos:
             try:
-                results.append(dryrun_one(arch, shape, args.multi_pod, byz))
+                results.append(dryrun_one(arch, shape, args.multi_pod, byz,
+                                          overrides=overrides))
             except Exception as e:  # noqa: BLE001 - report and continue the sweep
                 print(f"!! {arch} x {shape} FAILED: {type(e).__name__}: {e}", flush=True)
                 results.append({"arch": arch, "shape": shape, "error": str(e)[:500]})

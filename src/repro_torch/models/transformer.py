@@ -20,8 +20,10 @@ Parameters keep the reference's tree: ``params["blocks"][str(i)]`` holds
 layer ``i`` of the pattern with every leaf stacked on a leading period axis
 ``[n_periods, ...]``, so a parameter tree maps one to one onto the
 reference's. The reference's ``lax.scan`` over periods is a Python loop
-over that axis here; the decode cache keeps the same axis (a KV cache for
-an attention layer, an SSM state for an SSM layer).
+over that axis here (each period recomputed in the backward for
+``cfg.remat == "full"``, as the reference's ``jax.checkpoint``); the decode
+cache keeps the same axis (a KV cache for an attention layer, an SSM state
+for an SSM layer).
 
 Codebooks (``cfg.n_codebooks = K``): tokens are ``[B, K, S]`` (``[B, K]``
 in decode), the embeddings ``[K, V, D]`` are summed over the codebooks, the
@@ -43,6 +45,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -178,6 +181,23 @@ def _has_moe(cfg) -> bool:
     return any(ff == "moe" for _, ff in cfg.pattern_)
 
 
+def _run_period(period, h, aux, cfg, positions):
+    """One period, every layer of ``cfg.pattern_``: ``(h, aux)`` after it,
+    ``aux`` the MoE layers' losses summed so far (the reference's
+    ``period_body`` carry)."""
+    for i, (mixer, ff) in enumerate(cfg.pattern_):
+        lp = period[str(i)]
+        x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+        if mixer == "attn":
+            h = h + attn_mod.attention(lp["mixer"], x, cfg, positions)
+        else:
+            h = h + ssm_mod.ssm_layer(lp["mixer"], x, cfg)
+        h, layer_aux = _feed_forward(lp, h, ff, cfg)
+        if layer_aux is not None:
+            aux = {k: aux[k] + v for k, v in layer_aux.items()}
+    return h, aux
+
+
 def forward_hidden(
     params,
     cfg,
@@ -187,7 +207,18 @@ def forward_hidden(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Backbone only: final-norm hidden states [B, S, D] of the token
     positions + aux (the MoE layers' losses summed over layers; empty for a
-    model without MoE). Callers choose which positions to unembed."""
+    model without MoE). Callers choose which positions to unembed.
+
+    ``cfg.remat == "full"`` runs each period through a non-reentrant
+    ``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint(period_body)``: the backward keeps each period's input
+    and recomputes the period (all its layers, MoE routing and aux
+    included) when it reaches it. The recompute runs the forward's ops, so
+    the loss and gradients are those of ``remat="none"`` bit for bit. The
+    training forward checkpoints because its embedded input requires grad;
+    a forward whose input does not (grad disabled, or parameters without
+    grad, as in the serving prefill) enters no checkpoint and runs the ops
+    of ``remat="none"``."""
     h = embed_tokens(params, cfg, tokens)
     n_prefix = 0
     if prefix_embeds is not None:
@@ -200,17 +231,12 @@ def forward_hidden(
     if _has_moe(cfg):
         aux = {k: torch.zeros((), dtype=torch.float32, device=h.device)
                for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
+    remat = cfg.remat == "full" and h.requires_grad
     for period in _periods(params["blocks"], cfg.n_periods):
-        for i, (mixer, ff) in enumerate(cfg.pattern_):
-            lp = period[str(i)]
-            x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
-            if mixer == "attn":
-                h = h + attn_mod.attention(lp["mixer"], x, cfg, positions)
-            else:
-                h = h + ssm_mod.ssm_layer(lp["mixer"], x, cfg)
-            h, layer_aux = _feed_forward(lp, h, ff, cfg)
-            if layer_aux is not None:
-                aux = {k: aux[k] + v for k, v in layer_aux.items()}
+        if remat:
+            h, aux = checkpoint(_run_period, period, h, aux, cfg, positions, use_reentrant=False)
+        else:
+            h, aux = _run_period(period, h, aux, cfg, positions)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if n_prefix:
         h = h[:, n_prefix:]

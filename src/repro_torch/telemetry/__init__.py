@@ -13,7 +13,8 @@ Krum selection scores, trim masks (TM), and per-bucket dispersion.
                 on their device until a run stacks them (``stack_series``).
   probes.py     the probe math shared by the stacked and packed engines.
   profiling.py  ``phase()`` markers (``torch.profiler.record_function``),
-                ``phase_times()`` (their device ms by CUDA events) and the
+                ``phase_times()`` (their device ms by CUDA events and the
+                allocator's peak at each phase's end) and the
                 one-call ``trace_capture``.
   events.py     host-side JSONL event log + ring-buffered step timing.
 

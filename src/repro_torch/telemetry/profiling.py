@@ -8,10 +8,12 @@ no computation, which is why the markers are always on, even with
 ``telemetry=False``.
 
 ``phase_times()`` times the phases on the card: inside its block every
-phase also records a pair of CUDA events on the current stream, and when
-the block ends (after a synchronise) the dict it yielded maps each phase
-name to its summed milliseconds. Outside such a block ``phase`` records no
-event.
+phase also records a pair of CUDA events on the current stream and, at its
+end, the allocator's peak so far (``torch.cuda.max_memory_allocated``, a
+host-side counter: no synchronise). When the block ends (after a
+synchronise) the dict it yielded maps each phase name to its summed
+milliseconds, and its ``peaks`` map each phase name to the peak read at
+the end of its last run. Outside such a block ``phase`` records no event.
 
 ``trace_capture`` is the one-call helper: run any callable under
 ``torch.profiler.profile`` with the device synchronised before the
@@ -30,8 +32,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 _PREFIX = "telemetry"
-#: (name, start, end) CUDA events while a ``phase_times`` block is open
-_EVENTS: Optional[List[Tuple[str, Any, Any]]] = None
+#: (name, start, end, peak bytes) while a ``phase_times`` block is open
+_EVENTS: Optional[List[Tuple[str, Any, Any, int]]] = None
 
 
 @contextlib.contextmanager
@@ -46,23 +48,34 @@ def phase(name: str):
         yield
         end = torch.cuda.Event(enable_timing=True)
         end.record()
-        _EVENTS.append((name, start, end))
+        _EVENTS.append((name, start, end, torch.cuda.max_memory_allocated()))
+
+
+class PhaseTimes(Dict[str, float]):
+    """Phase name -> summed device ms; ``peaks``: phase name -> the
+    allocator's peak bytes read at the end of the phase's last run."""
+
+    def __init__(self):
+        super().__init__()
+        self.peaks: Dict[str, int] = {}
 
 
 @contextlib.contextmanager
 def phase_times():
-    """Yields a dict that, once the block ends, maps each phase run inside
-    it to its summed device milliseconds (CUDA events; module docstring)."""
+    """Yields a ``PhaseTimes`` that, once the block ends, maps each phase
+    run inside it to its summed device milliseconds (CUDA events) and its
+    peak bytes (module docstring)."""
     global _EVENTS
     if _EVENTS is not None:
         raise RuntimeError("phase_times blocks do not nest")
-    times: Dict[str, float] = {}
+    times = PhaseTimes()
     _EVENTS = events = []
     try:
         yield times
         torch.cuda.synchronize()
-        for name, start, end in events:
+        for name, start, end, peak in events:
             times[name] = times.get(name, 0.0) + start.elapsed_time(end)
+            times.peaks[name] = peak
     finally:
         _EVENTS = None
 

@@ -184,6 +184,23 @@ def test_combinations_trace_at_full_width(fake_group, arch, shape, multi_pod):
         assert result["kernels"] == {}
 
 
+def test_remat_lowers_the_train_peak(fake_group):
+    """gemma-7b x train_4k at full width, 2 of 28 layers, on (16, 16): with
+    ``remat="full"`` (its config's) the backward keeps each period's input
+    and recomputes the period, so a rank's peak is lower and its FLOPs and
+    HBM bytes higher than with ``remat="none"``; the argument is the same."""
+    fake_group(256)
+    runs = {remat: dryrun.dryrun_one("gemma-7b", "train_4k", verbose=False,
+                                     overrides={"n_layers": 2, "remat": remat})
+            for remat in ("none", "full")}
+    none, full = runs["none"], runs["full"]
+    assert get_config("gemma-7b").remat == "full"
+    assert full["bytes_per_device"]["peak"] < none["bytes_per_device"]["peak"]
+    assert full["bytes_per_device"]["argument"] == none["bytes_per_device"]["argument"]
+    assert full["flops"] > none["flops"] and full["bytes_hbm"] > none["bytes_hbm"]
+    assert full["kernels"] == none["kernels"]
+
+
 def test_long_500k_gate_skips_full_attention():
     """The reference's applicability gate: an arch whose long-context variant
     is a window of no length skips long_500k, before any group is needed;

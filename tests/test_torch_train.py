@@ -435,10 +435,11 @@ def _step_start(arch=TINY):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_worker_grads(arch=TINY):
+def _reference_worker_grads(arch=TINY, remat="none"):
     """``jax.vmap(jax.value_and_grad(loss_fn))`` over the workers, and the
-    plain-mean baseline's gradient of the mean loss."""
-    rcfg = rconfigs.smoke_config(arch)
+    plain-mean baseline's gradient of the mean loss (``remat="full"``: each
+    period under the reference's ``jax.checkpoint``)."""
+    rcfg = dataclasses.replace(rconfigs.smoke_config(arch), remat=remat)
     params, batch, *_ = _step_start(arch)
     wbatch = {k: jnp.asarray(v).reshape((W, -1) + v.shape[1:]) for k, v in batch.items()}
 
@@ -461,11 +462,11 @@ def _opt_start(optimizer, m, v):
     return (step, m, v if optimizer == "adamw" else None)
 
 
-def _reference_step(agg, mixing, mode, optimizer, beta, key, arch=TINY):
+def _reference_step(agg, mixing, mode, optimizer, beta, key, arch=TINY, remat="none"):
     """The reference's train step, assembled in the order of
     ``repro/distributed/steps.py`` (module docstring). On one device the
     reference's fsdp egress places every leaf whole: the same step."""
-    rcfg = dataclasses.replace(rconfigs.smoke_config(arch), momentum_mode=mode)
+    rcfg = dataclasses.replace(rconfigs.smoke_config(arch), momentum_mode=mode, remat=remat)
     rbyz = RByzConfig(aggregator=agg, mixing=mixing, s=2, worker_momentum=beta)
     aggregator = rbyz.make_aggregator(W)
     params, _, worker_m, m, v = _step_start(arch)
@@ -475,7 +476,7 @@ def _reference_step(agg, mixing, mode, optimizer, beta, key, arch=TINY):
     step, m0, v0 = _opt_start(optimizer, m, v)
     opt_state = ROptState(jnp.asarray(step), m0, v0)
     use_worker_momentum = mode == "worker" and beta > 0
-    (grads_w, losses), (mgrads, mloss) = _reference_worker_grads(arch)
+    (grads_w, losses), (mgrads, mloss) = _reference_worker_grads(arch, remat)
     if agg == "mean" and mixing == "none" and not use_worker_momentum:
         loss, agg_grads = mloss, mgrads
     else:

@@ -6,7 +6,8 @@ the port only, so the rank processes never import jax; the test modules
 compute the JAX side and hand the ranks the same numpy inputs and the
 reference's mixing matrices. ``run_telemetry`` serves
 tests/test_torch_telemetry.py; ``run_train`` the worker-sharded train step;
-``train_step_refusals`` tests/test_torch_train.py.
+``train_step_refusals`` tests/test_torch_train.py; ``fsdp_remat_step``
+tests/test_torch_remat.py.
 """
 
 import contextlib
@@ -171,6 +172,43 @@ def train_step_refusals(rank, group, device):
         except (NotImplementedError, ValueError) as e:
             out[label] = f"{type(e).__name__}: {e}"
     return out
+
+
+def fsdp_remat_step(rank, group, device, payload):
+    """One RFA step of ``payload["arch"]`` at smoke width, fsdp on the
+    (data=R, model=1) mesh, with ``remat`` "none" and then "full" from the
+    same state: for each, the gathered parameters and optimizer momentum,
+    the step counter and the loss (tests/test_torch_remat.py)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.tree import tree_map
+
+    mesh = make_host_mesh(group, data=torch.distributed.get_world_size(group), model=1)
+    base = dataclasses.replace(smoke_config(payload["arch"]), fsdp=True, momentum_mode="server")
+    W = payload["W"]
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, base.vocab_size, (W, 17), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    remats, runs = ("none", "full"), []
+    for remat in remats:
+        cfg = dataclasses.replace(base, remat=remat)
+        step_fn, state = make_train_step(cfg, ByzConfig(aggregator="rfa", mixing="bucketing",
+                                                        s=2), mesh=mesh, lr=0.05, n_workers=W,
+                                         device=device)
+        sh = state["shardings"]
+        params = state["init_params"](torch.Generator().manual_seed(0))
+        opt_state = state["init_opt_state"](params)
+        mix = state["aggregator"].mixing_matrix(W, torch.Generator().manual_seed(2),
+                                                device=device)
+        params, opt_state, _, metrics = step_fn(params, opt_state, {}, mix, batch)
+        gather = lambda t: tree_map(lambda b, pl: pl.gather(b), t, sh["params"])  # noqa: E731
+        runs.append(tree_flatten((gather(params), gather(opt_state.m), opt_state.step,
+                                  metrics["loss"]))[0])
+    return {"fsdp": base.fsdp, "remat": remats, "runs": runs}
 
 
 def fail_on_rank_one(rank, group, device):
