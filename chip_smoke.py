@@ -230,7 +230,20 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    share that agrees is printed: bf16 products over a rank's positions
    round otherwise than over all of them and can move a near tie); no
    kernel of ours launches (counted). (d) (b)'s fsdp state on (4, 1) saved from the mesh, restored on one device
-   and onto the mesh, bit for bit. (b) to (d) run in one group.
+   and onto the mesh, bit for bit. (b) to (d) run in one group; (b)'s
+   (2, 2) steps compute along its model axis. (e) In (a)'s group, (a)'s
+   gemma-7b on (data=1, model=4), every part of the compute plan split
+   (16 / 4 heads, 16 / 4 kv heads, d_ff 24,576 / 4, vocab 256,000 / 4;
+   ``models/parallel.py``): one RFA and one CM step (``TP_RUNS``) on (a)'s
+   batch from the seeded init, each rank checking its compute blocks'
+   shapes, the exact ``SYNC_ROUTE`` launches, the loss equal bit for bit on
+   every rank and (a)'s plain-route check; then rank 0 runs the same step
+   with ``mesh=None`` on the gathered parameters, batch and mix (exact
+   ``TRAIN_ROUTE`` launches): the mesh step's loss within ``TP_LOSS_TOL``
+   of it and its aggregate, gathered whole, within ``TP_AGG_RTOL`` of the
+   largest worker row norm. Host ms a step, and each rank's peak at the
+   end of the forward and backward (``phase_times``' peaks) beside (a)'s,
+   which it must stay below.
 16. The CNN of App. Table 5 (``models/mlp.py::init_cnn``, HWIO convolutions
    run by cuDNN under ``ieee_fp32()``) and the static-analysis gate. (a)
    ``ByzantineSim`` with the CNN at phase 9's scale (n = 25, 300 steps) for
@@ -360,6 +373,12 @@ TRAIN_RUNS = [("rfa", 3), ("cm", 1)]
 #: the plain-route checks read the first step of each rule; RFA's second
 #: step carries its first's worker and server momentum
 FSDP_RUNS = [("rfa", 2), ("cm", 1)]
+#: phase 15(e): one step of each rule of (a)'s gemma-7b on (data=1,
+#: model=4), computing along the model axis; its loss against the same
+#: step on one device (absolute), its aggregate against the one device's
+#: relative to the largest worker row norm (the port's bf16 gradient bar)
+TP_RUNS = ("rfa", "cm")
+TP_LOSS_TOL, TP_AGG_RTOL = 1e-2, 2e-2
 TRAIN_M = 2               # buckets of W = 4 at s = 2: CM's selection rows
 #: exact launches of one one-device train step (the Gram route folds the
 #: mixing into the combine weights; CM mixes, then selects)
@@ -2724,6 +2743,7 @@ def fsdp_rank(rank, group, device):
     from repro_torch.distributed.steps import make_train_step
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.telemetry import phase_times
     from repro_torch.utils.tree import tree_flatten
 
     cfg = dataclasses.replace(get_config(FSDP_ARCH), n_layers=FSDP_LAYERS)
@@ -2782,8 +2802,9 @@ def fsdp_rank(rank, group, device):
                 reset_launches()
                 t0 = time.perf_counter()
                 try:
-                    params, opt_state, worker_m, metrics = step_fn(params, opt_state, worker_m,
-                                                                  mix, batch)
+                    with phase_times() as pt:
+                        params, opt_state, worker_m, metrics = step_fn(params, opt_state,
+                                                                      worker_m, mix, batch)
                     torch.cuda.synchronize()
                 finally:
                     packing.reshard_in, packing.unpack_to_shardings = reshard_in, unpack
@@ -2801,6 +2822,7 @@ def fsdp_rank(rank, group, device):
                                          f"its blocks hold {block_elems} elements")
                 steps.append(dict(agg=agg, loss=loss, ms=wall, counts=counts,
                                   peak=torch.cuda.max_memory_allocated(),
+                                  fb_peak=pt.peaks["forward_backward"],
                                   ingress=received[0], egress=received[1]))
                 if cap:
                     checks.append(dict(agg=agg, **plain_sync_check(st["aggregator"], mix, cap,
@@ -2812,8 +2834,165 @@ def fsdp_rank(rank, group, device):
     moved = float((params["embed"][:64].float() - probe.float()).abs().max())
     if not moved > 0:
         raise AssertionError(f"fsdp rank {rank}: the parameters did not move")
+    del params, opt_state, worker_m, steppers
+    torch.cuda.empty_cache()
     return dict(held=held, block_elems=block_elems, steps=steps, moved=moved,
-                n_pad=_n_pad(sh["params_shape"]), checks=checks)
+                n_pad=_n_pad(sh["params_shape"]), checks=checks,
+                tp=tp_rank(rank, group, device, cfg, batch))
+
+
+def tp_rank(rank, group, device, cfg, batch):
+    """Phase 15(e), in each rank of (a)'s group: (a)'s gemma-7b on the
+    (data=1, model=4) mesh, where the training forward and backward run on
+    this rank's compute blocks (4 of 16 heads, 4 of 16 kv heads, d_ff
+    24,576 / 4, vocab 256,000 / 4; ``models/parallel.py``) and the rows go
+    into the sync in those blocks. One step of each rule of ``TP_RUNS``
+    from the seeded init on (a)'s batch: the blocks' shapes, the exact
+    launches, the loss, host ms and the peak at the end of the forward and
+    backward; (a)'s ``plain_sync_check``; the aggregate gathered whole.
+    Then rank 0 alone (the others have returned) runs the same step with
+    ``mesh=None`` on the gathered parameters, batch and mix: its loss, its
+    aggregate and the largest norm of the rows it synced."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed import packing, steps
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.telemetry import phase_times
+    from repro_torch.utils.tree import (tree_flatten, tree_flatten_with_path, tree_map,
+                                        tree_unflatten)
+
+    mesh = make_host_mesh(group, data=1, model=SYNC_RANKS)
+    T = SYNC_RANKS
+    runs, kept = [], []
+    sync, pack, unpack = (steps.robust_gradient_sync, packing.pack_from_shardings,
+                          packing.unpack_to_shardings)
+    for i, agg in enumerate(TP_RUNS):
+        byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2)
+        step_fn, st = steps.make_train_step(cfg, byz, mesh=mesh, lr=TRAIN_LR,
+                                            n_workers=TRAIN_W, device=device)
+        sh = st["shardings"]
+        # the compute blocks: each leaf's split dim cut by T, the rest whole
+        want = {"embed": 0, "mixer/wq": 2, "mixer/wk": 2, "mixer/wv": 2, "mixer/wo": 1,
+                "ff/w_gate": 2, "ff/w_up": 2, "ff/w_down": 1}
+        blocks = {}
+        for (path, cpl), (_, spec) in zip(tree_flatten_with_path(sh["compute"])[0],
+                                          tree_flatten_with_path(sh["params_shape"])[0]):
+            d = next((v for k, v in want.items() if path.endswith(k)), None)
+            shape = tuple(n // T if j == d else n for j, n in enumerate(spec.shape))
+            if cpl.local_shape(spec.shape) != shape:
+                raise AssertionError(f"tp rank {rank}: {path}'s compute block "
+                                     f"{cpl.local_shape(spec.shape)}, expected {shape}")
+            blocks[path] = shape
+        params = st["init_params"](torch.Generator(device).manual_seed(0))
+        opt_state = st["init_opt_state"](params)
+        treedef = tree_flatten(params)[1]
+        whole = host_leaves(params, sh["params"], rank == 0)
+        mix = st["aggregator"].mixing_matrix(TRAIN_W, torch.Generator().manual_seed(40 + i),
+                                             device=device)
+        cap = {}
+
+        def keep_cols(*a, **kw):
+            cap["buf"] = pack(*a, **kw)
+            return cap["buf"]
+
+        def keep_out(packer, local, out_shardings):
+            cap.update(packer=packer, out=local, shardings=out_shardings,
+                       blocks=unpack(packer, local, out_shardings))
+            return cap["blocks"]
+
+        def keep_agg(*a, **kw):
+            out = sync(*a, **kw)
+            cap["agg"] = out[0]
+            return out
+
+        packing.pack_from_shardings, packing.unpack_to_shardings = keep_cols, keep_out
+        steps.robust_gradient_sync = keep_agg
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier(group)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with phase_times() as pt:
+                params, opt_state, _, metrics = step_fn(params, opt_state, {}, mix, batch)
+            torch.cuda.synchronize()
+        finally:
+            packing.pack_from_shardings, packing.unpack_to_shardings = pack, unpack
+            steps.robust_gradient_sync = sync
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(LAUNCHES)
+        want_counts = {k: SYNC_ROUTE[agg].get(k, 0) for k in counts}
+        if counts != want_counts:
+            raise AssertionError(f"tp rank {rank} {agg}: launches {counts}, expected "
+                                 f"{want_counts}")
+        loss = metrics["loss"].float().cpu().numpy()
+        if not np.isfinite(loss):
+            raise AssertionError(f"tp rank {rank} {agg}: loss {loss}")
+        peak, fb_peak = torch.cuda.max_memory_allocated(), pt.peaks["forward_backward"]
+        agg_whole = host_leaves(cap.pop("agg"), sh["params"], rank == 0)
+        check = plain_sync_check(st["aggregator"], mix, cap, group)
+        cap.clear()
+        runs.append(dict(agg=agg, loss=loss, ms=wall, counts=counts, peak=peak,
+                         fb_peak=fb_peak, check=check, blocks=blocks if i == 0 else None,
+                         phase_ms=dict(pt)))
+        kept.append((agg, whole, mix.cpu(), agg_whole))
+        del params, opt_state, metrics, whole, agg_whole
+        torch.cuda.empty_cache()
+    dist.barrier(group)
+    if rank:
+        return dict(runs=runs)
+    # rank 0: the same steps on one device
+    for run, (agg, whole, mix, agg_mesh) in zip(runs, kept):
+        byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2)
+        step_fn, st = steps.make_train_step(cfg, byz, lr=TRAIN_LR, n_workers=TRAIN_W,
+                                            device=device)
+        params = tree_unflatten(treedef, [t.to(device) for t in whole])
+        opt_state = st["init_opt_state"](params)
+        seen = {}
+
+        def keep(messages, *a, **kw):
+            leaves = tree_flatten(messages)[0]
+            sq = [sum(float(torch.linalg.vector_norm(x[w], dtype=torch.float32)) ** 2
+                      for x in leaves) for w in range(TRAIN_W)]
+            seen["row_norm"] = max(sq) ** 0.5
+            out = sync(messages, *a, **kw)
+            seen["agg"] = tree_map(lambda t: t.cpu(), out[0])
+            return out
+
+        steps.robust_gradient_sync = keep
+        reset_launches()
+        try:
+            params, opt_state, _, metrics = step_fn(params, opt_state, {}, mix.to(device),
+                                                    batch)
+            torch.cuda.synchronize()
+        finally:
+            steps.robust_gradient_sync = sync
+        d2 = sum(torch.sum(torch.square(a.float() - b.float()))
+                 for a, b in zip(agg_mesh, tree_flatten(seen["agg"])[0]))
+        run.update(one_loss=float(metrics["loss"]), one_counts=dict(LAUNCHES),
+                   agg_err=float(torch.sqrt(d2)) / seen["row_norm"],
+                   row_norm=seen["row_norm"])
+        del params, opt_state, metrics, seen
+        torch.cuda.empty_cache()
+    return dict(runs=runs)
+
+
+def host_leaves(tree, placements, keep: bool):
+    """Each leaf of ``tree`` (this rank's blocks) gathered whole, leaf by
+    leaf, in host memory where ``keep`` (else ``None``): the gathers run
+    on every rank."""
+    from repro_torch.utils.tree import tree_flatten
+
+    out = []
+    for block, pl in zip(tree_flatten(tree)[0], tree_flatten(placements)[0]):
+        whole = pl.gather(block)
+        out.append(whole.cpu() if keep else None)
+        del whole
+    return out
 
 
 def plain_sync_check(aggregator, mix, cap, group):
@@ -3063,10 +3242,11 @@ def seeded_cache(cfg, filled: int, dev):
 
 
 def mesh_phase(dev, smi):
-    """Phase 15: (a) gemma-7b's fsdp training at full width, (b) the smoke
-    step on the (4, 1) and (2, 2) meshes against the replicated and the
-    one-device steps, (c) TinyLlama served on (4, 1), (d) checkpoints.
-    Returns the launch counts by path."""
+    """Phase 15: (a) gemma-7b's fsdp training at full width, then in the
+    same group (e) its steps computing along a (1, 4) mesh's model axis,
+    (b) the smoke step on the (4, 1) and (2, 2) meshes against the
+    replicated and the one-device steps, (c) TinyLlama served on (4, 1),
+    (d) checkpoints. Returns the launch counts by path."""
     import dataclasses
 
     import numpy as np
@@ -3128,7 +3308,67 @@ def mesh_phase(dev, smi):
             raise AssertionError(f"fsdp {c['agg']}: the kernel route is off the plain route")
     if [c["agg"] for c in ranks[0]["checks"]] != [agg for agg, _ in FSDP_RUNS]:
         raise AssertionError(f"fsdp: checked {ranks[0]['checks']}, expected one step a rule")
-    log(f"fsdp phase (a) ran in {time.perf_counter() - t0:.1f} s, spawn included")
+    log(f"fsdp phase (a) and (e) ran in {time.perf_counter() - t0:.1f} s, spawn included")
+
+    # (e) the same group on (data=1, model=4): compute along the model axis
+    launches["tp_train"] = {k: 0 for k in LAUNCHES}
+    launches["tp_one_device"] = {k: 0 for k in LAUNCHES}
+    a_fb = [min(st["fb_peak"] for st in r["steps"]) for r in ranks]
+    tp = [r["tp"]["runs"] for r in ranks]
+    log(f"tp {FSDP_ARCH} on (data=1, model=4): rank 0's compute blocks "
+        f"{json.dumps(tp[0][0]['blocks'])}")
+    for i, agg in enumerate(TP_RUNS):
+        runs = [t[i] for t in tp]
+        for run in runs:
+            for k, v in run["counts"].items():
+                launches["tp_train"][k] += v
+        if not all(np_same_bits(run["loss"], runs[0]["loss"]) for run in runs):
+            raise AssertionError(f"tp {agg}: the ranks' losses differ "
+                                 f"{[float(run['loss']) for run in runs]}")
+        if any(run["check"] != runs[0]["check"] for run in runs):
+            raise AssertionError(f"tp {agg}: the ranks' plain-route checks differ")
+        c, one = runs[0]["check"], runs[0]
+        if not (c["slice"] <= TRAIN_AGG_RTOL and c["egress"] <= TRAIN_AGG_RTOL):
+            raise AssertionError(f"tp {agg}: the kernel route is off the plain route {c}")
+        want = {k: TRAIN_ROUTE[agg].get(k, 0) for k in one["one_counts"]}
+        if one["one_counts"] != want:
+            raise AssertionError(f"tp {agg} one device: launches {one['one_counts']}, "
+                                 f"expected {want}")
+        for k, v in one["one_counts"].items():
+            launches["tp_one_device"][k] += v
+        loss_gap = abs(float(one["loss"]) - one["one_loss"])
+        for rank, run in enumerate(runs):
+            if not run["fb_peak"] < a_fb[rank]:
+                raise AssertionError(f"tp {agg} rank {rank}: peak at the end of the forward "
+                                     f"and backward {run['fb_peak']} not below (a)'s "
+                                     f"{a_fb[rank]}")
+        wall = max(run["ms"] for run in runs)
+        log(f"tp {FSDP_ARCH} ({FSDP_LAYERS} of 28 layers, {FSDP_PARAMS:,} parameters) {agg} "
+            f"step on (data=1, model=4), 4 gloo ranks on one card, W = {TRAIN_W} x {TRAIN_S} "
+            f"tokens on every rank: loss {float(one['loss']):.5f}, the same bits on every "
+            f"rank, one device {one['one_loss']:.5f} (|gap| {loss_gap:.3g}, bar "
+            f"{TP_LOSS_TOL}); host ms {wall:.1f} (slowest rank), "
+            f"{TRAIN_W * TRAIN_S / wall * 1e3:.0f} tokens/s; launches per rank "
+            f"{json.dumps({k: v for k, v in one['counts'].items() if v})}, one device "
+            f"{json.dumps({k: v for k, v in one['one_counts'].items() if v})}; peak at the "
+            f"end of the forward and backward per rank "
+            f"{', '.join(f'{run['fb_peak'] / 1e9:.2f}' for run in runs)} GB against (a)'s "
+            f"(4, 1) {', '.join(f'{p / 1e9:.2f}' for p in a_fb)}; step peak "
+            f"{', '.join(f'{run['peak'] / 1e9:.2f}' for run in runs)} GB; device ms by phase "
+            f"(rank 0) {json.dumps({k: round(v, 1) for k, v in one['phase_ms'].items()})} "
+            f"({smi})")
+        log(f"check tp {agg}: kernel route vs plain route of the sharded sync on each rank's "
+            f"column slice X[{c['rows']}, {c['cols']:,}]: {c['slice']:.3g} on the combined "
+            f"slice, {c['egress']:.3g} on the egress blocks (bar {TRAIN_AGG_RTOL}); the "
+            f"aggregate gathered whole against the one-device step's: |mesh - one device|_2 / "
+            f"max_i |x_i|_2 = {one['agg_err']:.3g} (bar {TP_AGG_RTOL}; max_i |x_i|_2 "
+            f"{one['row_norm']:.4g})")
+        if not loss_gap <= TP_LOSS_TOL:
+            raise AssertionError(f"tp {agg}: loss {float(one['loss'])} vs one device "
+                                 f"{one['one_loss']}")
+        if not one["agg_err"] <= TP_AGG_RTOL:
+            raise AssertionError(f"tp {agg}: aggregate off the one-device step's by "
+                                 f"{one['agg_err']}")
 
     # (b) + (d) the smoke-width step on both meshes
     launches["fsdp_smoke"] = {k: 0 for k in LAUNCHES}

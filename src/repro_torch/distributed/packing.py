@@ -36,6 +36,12 @@ With ``worker_sharded=True`` each rank holds only its own workers' rows
 1``), and ``reshard_in`` turns them into the column slice with one
 ``all_to_all`` (``shard_kernels.rows_to_cols``; on a mesh with a
 ``model`` axis the rows come from the ranks at model coordinate 0). With
+``in_shardings`` too (the train step computing along a model axis) each
+rank holds its blocks of its workers' rows, and the ingress is
+``pack_from_shardings``, the mirror of the param-sharded egress: one
+``all_to_all`` in which each rank sends each column owner exactly the
+elements of its blocks, the layout the whole leaves'; the column slice
+is ``rows_to_cols``'s bit for bit, so the kernels see what they saw. With
 ``out_shardings`` (a ``sharding.Placement`` tree) the egress is the
 param-sharded one, ``unpack_to_shardings``: one more ``all_to_all`` in
 which each rank receives, from the column slices, exactly the elements of
@@ -59,7 +65,7 @@ from repro_torch.core.aragg import RobustAggregator
 from repro_torch.distributed import shard_kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels.pairwise_gram import TILE_D
-from repro_torch.launch.mesh import as_mesh, n_devices
+from repro_torch.launch.mesh import as_mesh, n_devices, n_workers, worker_axes
 from repro_torch.telemetry import InflightMetrics, phase
 from repro_torch.telemetry import probes as _probes
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
@@ -111,15 +117,17 @@ class GradPacker:
 _PACKER_CACHE: Dict[tuple, GradPacker] = {}
 
 
-def packer_for(grads_w: Any) -> GradPacker:
+def packer_for(grads_w: Any, in_shardings: Any = None) -> GradPacker:
     """Layout-cached ``GradPacker`` for this tree structure (leaves carry a
-    leading worker axis that is NOT part of the layout)."""
+    leading worker axis that is NOT part of the layout). With
+    ``in_shardings`` (a ``sharding.Placement`` tree) the leaves are this
+    rank's blocks and the layout is that of the whole leaves."""
     leaves, treedef = tree_flatten(grads_w)
-    key = (
-        treedef,
-        tuple(tuple(l.shape[1:]) for l in leaves),
-        tuple(l.dtype for l in leaves),
-    )
+    shapes = tuple(tuple(l.shape[1:]) for l in leaves)
+    if in_shardings is not None:
+        shapes = tuple(tuple(n * pl.parts(d) for d, n in enumerate(shape))
+                       for shape, pl in zip(shapes, tree_flatten(in_shardings)[0]))
+    key = (treedef, shapes, tuple(l.dtype for l in leaves))
     packer = _PACKER_CACHE.get(key)
     if packer is None:
         packer = GradPacker(treedef, key[1], key[2])
@@ -184,6 +192,19 @@ def _flat_boxes(a: int, b: int, shape: Tuple[int, ...]):
     return out
 
 
+def _box(packer: GradPacker, i: int, start, stop, col0: int):
+    """``(first, shape)``: where the box ``[start, stop)`` of leaf ``i``
+    begins in a column slice that starts at packed column ``col0``, and
+    its shape (a box is contiguous in the packed row)."""
+    shape = tuple(e - s for s, e in zip(start, stop))
+    return packer.offsets[i] + _ravel(start, packer.leaf_shapes[i]) - col0, shape
+
+
+def _within(lo, hi, origin) -> tuple:
+    """The index of the part ``[lo, hi)`` in a block that starts at ``origin``."""
+    return tuple(slice(x - o, y - o) for x, y, o in zip(lo, hi, origin))
+
+
 def _egress_pieces(packer: GradPacker, placements, n_local: int, src: int, dst: int):
     """What rank ``src``'s column slice sends rank ``dst``: for each leaf and
     each box of the slice within it, the part inside ``dst``'s block, as
@@ -200,6 +221,73 @@ def _egress_pieces(packer: GradPacker, placements, n_local: int, src: int, dst: 
             hi = tuple(min(e, r[1]) for e, r in zip(stop, block))
             if all(x < y for x, y in zip(lo, hi)):
                 yield i, start, stop, lo, hi
+
+
+def _sends(mesh, rank: int, pl) -> bool:
+    """Whether ``rank``'s block of a leaf placed by ``pl`` goes into the
+    ingress: a block that ranks differing only off the worker axes and
+    off ``pl``'s own axes all hold (a leaf whole on every model rank) is
+    sent by the one at coordinate 0 there."""
+    coords = mesh.coords_of(rank)
+    own = set(worker_axes(mesh)).union(*(pl.axes(d) for d in range(len(pl.spec))))
+    return all(coords[a] == 0 for a in mesh.axis_names if a not in own)
+
+
+def pack_from_shardings(packer: GradPacker, grads_w: Any, in_shardings: Any, mesh
+                        ) -> torch.Tensor:
+    """The block ingress, the mirror of ``unpack_to_shardings``: from this
+    rank's workers' blocks of every leaf (``grads_w``, leaves ``[w, ...]``
+    placed sans worker axis by ``in_shardings``, the train step's compute
+    blocks) to its column slice ``[W, n_up/R]`` of the packed stack of all
+    W workers, through one ``all_to_all`` (``shard_kernels.exchange``) in
+    which each rank sends each column owner exactly the fp32 elements of
+    its blocks that fall in the owner's columns. A block held alike by
+    several model ranks is sent once (``_sends``). Pure data movement: the
+    slice is ``shard_kernels.rows_to_cols``'s of the same global stack,
+    bit for bit, padding zeros included."""
+    placements, _ = tree_flatten(in_shardings)
+    leaves, _ = tree_flatten(grads_w)
+    R, me, w = mesh.size, mesh.rank, leaves[0].shape[0]
+    n_local = -(-packer.n_pad // R)
+    sends = [[_sends(mesh, r, pl) for pl in placements] for r in range(R)]
+
+    def elems(plan):
+        return w * sum(math.prod(y - x for x, y in zip(lo, hi)) for *_, lo, hi in plan)
+
+    send_plan = [[piece for piece in _egress_pieces(packer, placements, n_local, q, me)
+                  if sends[me][piece[0]]] for q in range(R)]
+    recv_plan = [[piece for piece in _egress_pieces(packer, placements, n_local, me, r)
+                  if sends[r][piece[0]]] for r in range(R)]
+    device = leaves[0].device
+    # each part converted to fp32 as it is copied in: one fp32 copy of the blocks
+    send = torch.empty(sum(elems(plan) for plan in send_plan), dtype=torch.float32,
+                       device=device)
+    pos = 0
+    for plan in send_plan:
+        for i, _, _, lo, hi in plan:
+            base = [r[0] for r in placements[i].ranges(packer.leaf_shapes[i])]
+            part = leaves[i][(slice(None),) + _within(lo, hi, base)]
+            send[pos:pos + part.numel()].view(part.shape).copy_(part)
+            pos += part.numel()
+    recv = shard_kernels.exchange(send, [elems(plan) for plan in send_plan],
+                                  [elems(plan) for plan in recv_plan], mesh.group)
+    del send
+    buf = torch.zeros((w * n_workers(mesh), n_local), dtype=torch.float32, device=device)
+    pos = 0
+    for r, plan in enumerate(recv_plan):
+        g = 0  # rank r's worker group: its worker-axis coordinates, row-major
+        for a in worker_axes(mesh):
+            g = g * mesh.shape[a] + mesh.coords_of(r)[a]
+        for i, start, stop, lo, hi in plan:
+            first, box_shape = _box(packer, i, start, stop, me * n_local)
+            part_shape = tuple(y - x for x, y in zip(lo, hi))
+            n = w * math.prod(part_shape)
+            box = buf[g * w:(g + 1) * w, first:first + math.prod(box_shape)].view(
+                (w,) + box_shape)
+            box[(slice(None),) + _within(lo, hi, start)] = recv[pos:pos + n].view(
+                (w,) + part_shape)
+            pos += n
+    return buf
 
 
 def unpack_to_shardings(packer: GradPacker, local: torch.Tensor, out_shardings: Any) -> Any:
@@ -220,10 +308,9 @@ def unpack_to_shardings(packer: GradPacker, local: torch.Tensor, out_shardings: 
     for q in range(R):
         n = 0
         for i, start, stop, lo, hi in _egress_pieces(packer, placements, n_local, me, q):
-            first = packer.offsets[i] + _ravel(start, packer.leaf_shapes[i]) - me * n_local
-            box_shape = tuple(e - s for s, e in zip(start, stop))
+            first, box_shape = _box(packer, i, start, stop, me * n_local)
             box = local[first:first + math.prod(box_shape)].view(box_shape)
-            part = box[tuple(slice(x - s, y - s) for x, y, s in zip(lo, hi, start))]
+            part = box[_within(lo, hi, start)]
             chunks.append(part.reshape(-1))
             n += part.numel()
         send_sizes.append(n)
@@ -241,8 +328,7 @@ def unpack_to_shardings(packer: GradPacker, local: torch.Tensor, out_shardings: 
             base = [r[0] for r in placements[i].ranges(packer.leaf_shapes[i])]
             part_shape = tuple(y - x for x, y in zip(lo, hi))
             n = math.prod(part_shape)
-            blocks[i][tuple(slice(x - b, y - b) for x, y, b in zip(lo, hi, base))] = \
-                recv[pos:pos + n].view(part_shape)
+            blocks[i][_within(lo, hi, base)] = recv[pos:pos + n].view(part_shape)
             pos += n
     del recv
     leaves = [blk.to(dtype) for blk, dtype in zip(blocks, packer.leaf_dtypes)]
@@ -263,6 +349,7 @@ def packed_robust_sync(
     out_shardings: Any = None,
     telemetry: bool = False,
     worker_sharded: bool = False,
+    in_shardings: Any = None,
 ) -> Tuple[Any, dict]:
     """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
     gradient tree on a single packed buffer. Returns ``(grads, info)``.
@@ -283,7 +370,10 @@ def packed_robust_sync(
     ``worker_sharded=True`` (over a group, kernel route only) means each
     rank passes only its own workers' rows, ``[W/G, ...]`` leaves for G
     worker groups (``mesh.n_workers``), the ranks of worker group g holding
-    workers ``g W/G .. (g+1) W/G - 1``; ``mix`` stays ``[m, W]``.
+    workers ``g W/G .. (g+1) W/G - 1``; ``mix`` stays ``[m, W]``. With
+    ``in_shardings`` too (a ``sharding.Placement`` tree, the train step's
+    compute plan over a model axis) each leaf is this rank's block of its
+    workers' rows, and the ingress is ``pack_from_shardings``.
     On the Gram route ``info`` holds ``agg_weights`` and
     ``gram_diag_mean``; with ``telemetry=True`` ``info["telemetry"]``
     holds the metrics (module docstring), the same on every rank of a
@@ -294,7 +384,8 @@ def packed_robust_sync(
     worker_sharded = worker_sharded and not _mesh_is_trivial(m)
     if worker_sharded and not use_kernels:
         raise NotImplementedError("worker-sharded rows go through the kernel route only")
-    packer = packer_for(grads_w)
+    blocks = worker_sharded and in_shardings is not None
+    packer = packer_for(grads_w, in_shardings if blocks else None)
     leaves, _ = tree_flatten(grads_w)
     W, device = leaves[0].shape[0], leaves[0].device
     senders = None
@@ -320,8 +411,9 @@ def packed_robust_sync(
         """A probe's sum over this rank's columns -> over all columns."""
         return t if group is None else shard_kernels.all_reduced(t, group)
 
-    with phase("pack"):
-        buf = reshard_in(packer.pack(grads_w), group, worker_sharded, senders)  # [W, n_pad/R]
+    with phase("pack"):  # [W, n_pad/R]
+        buf = (pack_from_shardings(packer, grads_w, in_shardings, m) if blocks
+               else reshard_in(packer.pack(grads_w), group, worker_sharded, senders))
 
     def finish(out):
         if tm:

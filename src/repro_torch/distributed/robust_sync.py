@@ -191,6 +191,7 @@ def robust_gradient_sync(
     out_shardings: Any = None,
     telemetry: bool = False,
     worker_sharded: bool = False,
+    in_shardings: Any = None,
 ) -> Tuple[Any, dict]:
     """Aggregate per-worker gradient trees (leaves ``[W, ...]``) into one
     gradient tree, using mixing + the robust rule. Returns ``(grads, info)``.
@@ -204,13 +205,14 @@ def robust_gradient_sync(
     the param-sharded egress. ``telemetry=True``
     adds the metrics as ``info["telemetry"]`` (``packing.py``).
     ``worker_sharded=True``: over a group each rank passes only its own
-    workers' rows (``packing.packed_robust_sync``)."""
+    workers' rows, with ``in_shardings`` its blocks of them
+    (``packing.packed_robust_sync``)."""
     if engine == "packed":
         return packing.packed_robust_sync(
             grads_w, aggregator, mix=mix, mesh=mesh,
             use_kernels=True if use_kernels is None else use_kernels,
             out_shardings=out_shardings, telemetry=telemetry,
-            worker_sharded=worker_sharded)
+            worker_sharded=worker_sharded, in_shardings=in_shardings)
     if engine != "per_leaf":
         raise ValueError(f"unknown sync engine {engine!r}")
     if worker_sharded:

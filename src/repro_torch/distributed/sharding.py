@@ -13,6 +13,16 @@ The rules are the reference's, entry for entry:
   cache length shards over the data axis (sequence parallelism for the KV
   cache) and the heads over the model axis where they divide.
 
+These rules place storage: parameters, optimizer moments and the sync's
+egress. Compute has a plan of its own, ``compute_shardings``: the block
+of each parameter a rank runs the training forward and backward on,
+Megatron's column / row split of attention and the MLP and the vocab
+split where the model axis's size divides them, the leaf whole elsewhere
+(``models/parallel.py``). The storage rule picks the largest dim, the
+first on a tie, so it often splits a weight on its input dim where the
+column split needs the output dim; the train step gathers each leaf from
+its storage blocks and keeps its compute block.
+
 Per-arch overrides replace the inferred spec: ``overrides={path_regex:
 spec}``, matched with ``re.search`` against the leaf's path string
 (``utils.tree.tree_flatten_with_path``).
@@ -205,6 +215,57 @@ def param_shardings(params, mesh, fsdp: bool = False,
         return Placement(mesh, infer_param_spec(path, tuple(leaf.shape), mesh, fsdp))
 
     return tree_map_with_path(one, params)
+
+
+def compute_shardings(cfg, params_shape, mesh):
+    """The compute plan: a ``Placement`` tree over ``params_shape`` whose
+    entries are only ``"model"`` or ``None``, each leaf's block the one a
+    rank computes on in the training forward and backward
+    (``models/parallel.py``): Megatron's layout wherever the model axis's
+    size T divides the part (``parallel.model_split``), the leaf whole on
+    every model rank elsewhere (attention T does not split, MoE, SSM, the
+    norms). Decided from the config and the mesh alone; with T = 1 every
+    leaf is whole. It is its own plan beside the storage rules
+    (``param_shardings``), which often put the model axis on a weight's
+    input dim (the largest dim, the first on a tie) where the column
+    split needs the output dim."""
+    from repro_torch.models.parallel import model_split
+
+    T = dict(mesh.shape).get("model", 1)
+    split = model_split(cfg, T)
+    kinds = dict(enumerate(cfg.pattern_))
+
+    def dim(path: str, ndim: int) -> Optional[int]:
+        parts = path.split("/")
+        if parts[0] == "embed":
+            return ndim - 2 if split["vocab"] else None  # [V, D] / [K, V, D]
+        if parts[0] == "lm_head":
+            return ndim - 1 if split["vocab"] else None
+        if parts[0] != "blocks" or len(parts) != 4:
+            return None
+        mixer, ff = kinds[int(parts[1])]
+        name = parts[3]
+        if parts[2] == "mixer" and mixer == "attn" and split["attn"]:
+            if name in ("wq", "bq") or (name in ("wk", "wv", "bk", "bv") and split["kv"]):
+                return ndim - 1
+            if name == "wo":
+                return 1
+        if parts[2] == "ff" and ff == "mlp" and split["mlp"]:
+            if name in ("w_gate", "w_up"):
+                return ndim - 1
+            if name == "w_down":
+                return 1
+        return None
+
+    def one(path, leaf):
+        n = len(leaf.shape)
+        spec = [None] * n
+        d = dim(path, n)
+        if d is not None:
+            spec[d] = "model"
+        return Placement(mesh, spec)
+
+    return tree_map_with_path(one, params_shape)
 
 
 def batch_spec(mesh) -> Spec:

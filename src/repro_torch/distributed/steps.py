@@ -17,22 +17,30 @@ engine and its kernels), and the optimizer update runs.
 the mesh ``("data",)``) the workers split over the worker axes (``pod``,
 ``data``): the G = ``n_workers(mesh)`` worker groups run workers
 ``g W/G .. (g+1) W/G - 1`` each, every rank of a group (its ``model``
-ranks) the same ones, and keep only their momenta. The packed sync takes
-the rows worker-sharded (one ``all_to_all`` in, from the ranks at model
-coordinate 0: CUDA's embedding backward adds atomically, so the ranks of
-one group may differ in the last bit) and runs the sharded kernels on
-column slices over all R ranks (``shard_kernels.py``).
+ranks) the same ones.
 
 Parameters live as the placements of ``sharding.param_shardings(...,
 fsdp=cfg.fsdp, overrides=overrides_from_config(cfg))`` say
-(``state["shardings"]``): each rank holds only its blocks of the
+(``state["shardings"]["params"]``): each rank holds only its blocks of the
 parameters and of the optimizer moments (the step counter replicated).
-A step gathers the leaves for the workers' forward and backward and frees
-them after; the sync's egress is the param-sharded ``unpack_to_shardings``
-for an fsdp config, the replicated row (then cut) for any other, as in
-the reference; and the optimizer, elementwise, updates the blocks, so the
-bits are the replicated step's. The model axis shards storage (parameters,
-the sync's columns, cache heads); compute along it stays gathered.
+The forward and backward run on compute blocks, placed by the compute
+plan ``sharding.compute_shardings`` (``state["shardings"]["compute"]``): a
+step gathers each leaf, keeps its compute block and frees the whole leaf
+before the next. Where the ``model`` axis has T > 1 ranks the ranks of a
+worker group compute along it (``models/parallel.py``: heads, d_ff and
+vocab split where T divides them, all-reduces over the model group), so
+each holds its blocks' activations, gradients and worker momenta only;
+with T = 1 the compute blocks are the whole leaves. The packed sync takes
+the rows worker-sharded and runs the sharded kernels on column slices
+over all R ranks (``shard_kernels.py``): with T = 1 one ``all_to_all`` of
+whole rows from the ranks at model coordinate 0
+(``shard_kernels.rows_to_cols``), over a model axis one ``all_to_all`` in
+which each rank sends each column owner the elements of its compute
+blocks (``packing.pack_from_shardings``; a leaf held whole by a model
+group is sent by coordinate 0). The egress is the param-sharded
+``unpack_to_shardings`` for an fsdp config, the replicated row (then cut)
+for any other, as in the reference; and the optimizer, elementwise,
+updates the blocks.
 
 Serving: ``make_prefill_step`` splits the batch rows over the worker axes
 (``batch_shardings``), and each rank prefills its own. ``make_serve_step``
@@ -43,8 +51,8 @@ where each rank attends over its own positions and the partial softmax
 statistics are combined across ranks (``_softmax_across``).
 
 Momentum modes (the reference's DESIGN.md §5):
-  worker : Algorithm 2, per-worker momentum leaves [W, ...] (fp32), held
-           whole by the ranks of the worker's group
+  worker : Algorithm 2, per-worker momentum leaves [W, ...] (fp32), each
+           rank of the worker's group holding its compute blocks
   server : Remark 7, raw per-worker grads robust-aggregated, momentum in
            the optimizer state.
 """
@@ -59,11 +67,13 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.distributed.robust_sync import robust_gradient_sync
 from repro_torch.distributed.sharding import (Placement, batch_spec, cache_shardings,
-                                              overrides_from_config, param_shardings)
+                                              compute_shardings, overrides_from_config,
+                                              param_shardings)
 from repro_torch.launch.mesh import as_mesh, worker_axes
 from repro_torch.launch.mesh import n_workers as mesh_n_workers
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models.parallel import ModelAxis
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import OptState
 from repro_torch.telemetry import phase
@@ -140,8 +150,8 @@ def make_train_step(
     holds the global ``[B_global, ...]`` "tokens" and "labels" on every
     rank. ``params`` and ``opt_state`` are this rank's blocks
     (``state["shardings"]``; whole tensors without a mesh). ``worker_m``
-    (this rank's workers, leaves ``[W/G, ...]`` fp32; ``{}`` when worker
-    momentum is off) is updated in place, as the optimizer's moments are
+    (this rank's workers' compute blocks, leaves ``[W/G, ...]`` fp32; ``{}``
+    when worker momentum is off) is updated in place, as the optimizer's moments are
     (``optim/optimizers.py``), and returned. ``metrics`` holds the mean
     loss over all W workers and, with ``telemetry=True``, the sync's
     metrics under ``"telemetry"``.
@@ -152,8 +162,9 @@ def make_train_step(
     and ``state["init_worker_m"](params)`` build the arguments on
     ``device``, this rank's blocks of them on a mesh;
     ``state["shardings"]`` (``None`` without a mesh) holds the
-    ``Placement`` trees of ``params``, ``opt_state`` and ``worker_m`` and
-    ``params_shape``, the ``TensorSpec`` tree."""
+    ``Placement`` trees of ``params``, ``opt_state`` and ``worker_m``, the
+    compute plan ``compute`` and ``params_shape``, the ``TensorSpec``
+    tree."""
     dev = resolve_device(device)
     m = None if mesh is None else as_mesh(mesh)
     G = 1 if m is None else mesh_n_workers(m)
@@ -173,6 +184,12 @@ def make_train_step(
     params_shape = None if m is None else tfm.params_shape(cfg)
     placements = None if m is None else param_shardings(
         params_shape, m, fsdp=cfg.fsdp, overrides=overrides_from_config(cfg))
+    # the compute plan: each leaf's block this rank's forward and backward
+    # run on (whole leaves where the model axis has one rank)
+    compute = None if m is None else compute_shardings(cfg, params_shape, m)
+    ax = None if m is None else ModelAxis.of(cfg, m)
+    # over a model axis the rows and worker momenta are compute blocks
+    in_blocks = compute if ax is not None else None
     # the param-sharded egress for fsdp configs; the replicated row, then
     # cut, for the rest (the reference's egress_sh)
     egress = placements if (cfg.fsdp and m is not None and m.size > 1) else None
@@ -194,7 +211,7 @@ def make_train_step(
         """``(loss, grads)`` of one worker: a forward and backward of
         ``loss_fn``, whose activations are freed when it returns."""
         with phase("forward_backward"):
-            loss, _ = tfm.loss_fn(p_live, cfg, b)
+            loss, _ = tfm.loss_fn(p_live, cfg, b, ax=ax)
             grads = torch.autograd.grad(loss, live, materialize_grads=True)
         return loss.detach(), grads
 
@@ -208,10 +225,12 @@ def make_train_step(
 
     def step_fn(params, opt_state, worker_m, mix, batch):
         with phase("gather"):
-            whole = params if placements is None else tree_map(lambda b, pl: pl.gather(b),
-                                                               params, placements)
-        leaves, treedef = tree_flatten(whole)
-        del whole
+            # each leaf gathered, its compute block kept, the whole leaf
+            # freed before the next
+            own = params if placements is None else tree_map(
+                lambda b, pl, cpl: cpl.local(pl.gather(b)), params, placements, compute)
+        leaves, treedef = tree_flatten(own)
+        del own
         live = [p.detach().requires_grad_() for p in leaves]
         p_live = tree_unflatten(treedef, live)
         losses = []
@@ -226,6 +245,8 @@ def make_train_step(
                     a.add_(g.float())
                 del grads
             del live, p_live
+            if ax is not None:  # the compute blocks' sums, whole
+                acc = [cpl.gather(a) for a, cpl in zip(acc, tree_flatten(compute)[0])]
             agg_grads = blocks(tree_unflatten(treedef, [
                 (group_sum(a) / W).to(p.dtype) for a, p in zip(acc, leaves)]))
             del acc, leaves
@@ -253,7 +274,7 @@ def make_train_step(
                 agg_grads, info = robust_gradient_sync(
                     messages, aggregator, mix=mix, mesh=m, engine="packed",
                     out_shardings=egress, telemetry=telemetry,
-                    worker_sharded=m is not None and m.size > 1)
+                    worker_sharded=m is not None and m.size > 1, in_shardings=in_blocks)
             del messages
             if egress is None:
                 agg_grads = blocks(agg_grads)
@@ -267,11 +288,14 @@ def make_train_step(
     def init_worker_m(params):
         if not use_worker_momentum:
             return {}
-        # whole leaves: the parameters' shapes (on a mesh their specs, as
-        # ``params`` holds blocks)
-        return tree_map(lambda s: torch.zeros((w_local,) + tuple(s.shape), dtype=torch.float32,
-                                              device=dev),
-                        params if params_shape is None else params_shape)
+        # the compute blocks' shapes (on a mesh from the specs, as
+        # ``params`` holds storage blocks); whole leaves without one
+        if params_shape is None:
+            return tree_map(lambda p: torch.zeros((w_local,) + tuple(p.shape),
+                                                  dtype=torch.float32, device=dev), params)
+        return tree_map(lambda s, cpl: torch.zeros((w_local,) + cpl.local_shape(s.shape),
+                                                   dtype=torch.float32, device=dev),
+                        params_shape, compute)
 
     shardings = None
     if m is not None:
@@ -282,9 +306,10 @@ def make_train_step(
             # moments mirror the parameters; the step counter is replicated
             "opt_state": OptState(step=rep, m=placements,
                                   v=placements if optimizer == "adamw" else None),
-            # each worker group's momentum rows, whole on its model ranks
-            "worker_m": tree_map(lambda s: Placement(m, (w_entry,) + (None,) * len(s.shape)),
-                                 params_shape) if use_worker_momentum else {},
+            # each worker group's momentum rows, its compute blocks
+            "worker_m": tree_map(lambda cpl: Placement(m, (w_entry,) + cpl.spec),
+                                 compute) if use_worker_momentum else {},
+            "compute": compute,
             "params_shape": params_shape,
             "replicated": rep,
         }

@@ -46,17 +46,28 @@ def init_attention(generator, cfg, device) -> dict:
     return p
 
 
-def _project_qkv(p, x, cfg, positions):
+def _project_qkv(p, x, cfg, positions, ax=None):
+    """q, k, v ``[B, S, heads, dh]`` of ``x``; on a model axis ``ax`` (the
+    attention split: ``models/parallel.py``) this rank's q heads and the kv
+    heads they read, the head counts read from the blocks' widths."""
     B, S, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    dh = cfg.head_dim_
+    xq = x if ax is None else ax.copy_in(x)
+    xkv = x if ax is not None and not ax.kv else xq
+    q = xq @ p["wq"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, h, dh)
-    k = k.reshape(B, S, kv, dh)
-    v = v.reshape(B, S, kv, dh)
+    if ax is not None and not ax.kv:
+        # whole k / v (T a multiple of KV): this rank's q heads share kv
+        # head m KV / T; the gradient of the whole k / v is all-reduced,
+        # once, on its way to wk / wv
+        k0 = ax.index * cfg.n_kv_heads // ax.size
+        k, v = (ax.copy_in(t)[..., k0 * dh:(k0 + 1) * dh] for t in (k, v))
+    q = q.reshape(B, S, -1, dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -140,9 +151,10 @@ def _attn_blockwise(q, k, v, scale, causal: bool, window: int, bq: int, bkv: int
 
 
 # ---------------------------------------------------------------- forward
-def attention(p, x, cfg, positions, impl: Optional[str] = None) -> torch.Tensor:
-    """Self-attention over the full sequence (train / prefill)."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
+def attention(p, x, cfg, positions, impl: Optional[str] = None, ax=None) -> torch.Tensor:
+    """Self-attention over the full sequence (train / prefill); on a model
+    axis ``ax`` over this rank's heads, the output all-reduced."""
+    q, k, v = _project_qkv(p, x, cfg, positions, ax)
     scale = cfg.head_dim_ ** -0.5
     impl = impl or cfg.attention_impl
     if impl == "auto":
@@ -156,7 +168,8 @@ def attention(p, x, cfg, positions, impl: Optional[str] = None) -> torch.Tensor:
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.n_heads * cfg.head_dim_) @ p["wo"]
+    out = out.reshape(B, S, q.shape[2] * cfg.head_dim_) @ p["wo"]
+    return out if ax is None else ax.reduce_out(out)
 
 
 # ----------------------------------------------------------------- decode

@@ -84,7 +84,11 @@ def init_mlp_block(generator, d: int, f: int, kind: str, dtype, device):
     raise ValueError(f"unknown mlp kind {kind!r}")
 
 
-def mlp_block(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_block(p, x: torch.Tensor, kind: str, ax=None) -> torch.Tensor:
+    """The MLP; on a model axis ``ax`` (``models/parallel.py``) over this
+    rank's d_ff columns, the output all-reduced."""
+    if ax is not None:
+        x = ax.copy_in(x)
     if kind == "swiglu":
         act = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     elif kind == "geglu":
@@ -93,4 +97,5 @@ def mlp_block(p, x: torch.Tensor, kind: str) -> torch.Tensor:
         act = F.gelu(x @ p["w_up"], approximate="tanh")
     else:
         raise ValueError(kind)
-    return act @ p["w_down"]
+    out = act @ p["w_down"]
+    return out if ax is None else ax.reduce_out(out)

@@ -1,0 +1,208 @@
+"""Compute along the model axis: Megatron's tensor-parallel layout for the
+training forward and backward.
+
+On a mesh whose ``model`` axis has T > 1 ranks the train step runs each
+rank of a model group on its compute blocks of the parameters
+(``distributed/sharding.py::compute_shardings``), where T divides the
+part (``model_split``):
+
+  attention  rank m holds q heads ``[m H/T, (m+1) H/T)``: the columns of wq
+             (bq), the rows of wo. Its kv heads are ``[m KV/T, ...)``,
+             aligned with its q groups, where T divides KV; else (GQA with
+             KV < T, T a multiple of KV) wk / wv are whole and rank m
+             takes the one kv head its q heads share.
+  MLP        the columns of w_gate / w_up, the rows of w_down.
+  vocab      embed rows ``[m V/T, ...)`` and lm_head columns (each
+             codebook's the same).
+
+Attention whose head counts T does not split, MoE and SSM layers and the
+norms run whole on every rank of the group, as without a model axis.
+
+Two operators over the model group carry the residual stream across a
+split part (Megatron's f and g): ``copy_in``, the identity whose backward
+all-reduces the gradient, before the column-split products, and
+``reduce_out``, an all-reduce whose backward is the identity, after the
+row-split product. The residual stream, and every gradient of a part held
+whole, is so the same on every rank of the group. Whole k / v are
+computed from the stream before ``copy_in`` and pass through a
+``copy_in`` of their own, so wk / wv get whole, equal gradients and the
+stream's gradient counts them once.
+
+The embedding lookup gives a zero row for a token outside the rank's
+rows; the rows' all-reduce adds exact zeros, so the embedded stream
+equals the one-device one bit for bit. ``vocab_parallel_nll`` is the
+logits and the cross-entropy in one ``autograd.Function``: the row max
+(an all-reduce of the max, exact), then the fp32 sum of exponentials and
+the target logit (one all-reduce of both); it saves the rank's fp32
+logits ``[N, V/T]`` and recomputes the softmax from them in the backward,
+as Megatron's ``_VocabParallelCrossEntropy`` does.
+
+Every collective is an ``all_reduce`` over the model group, entered by
+every rank of the group in the same order, so a period recomputed in the
+backward (``remat="full"``) replays them alike on every rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+
+def model_split(cfg, T: int) -> Dict[str, bool]:
+    """Which parts of ``cfg`` run split over T model ranks (module
+    docstring): ``attn`` (q heads, and kv heads or whole k / v), ``kv``
+    (the kv heads split too), ``mlp`` (d_ff), ``vocab``. Decided from the
+    config and T alone."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    attn = T > 1 and H > 0 and KV > 0 and H % T == 0 and (KV % T == 0 or T % KV == 0)
+    return {"attn": attn, "kv": attn and KV % T == 0,
+            "mlp": T > 1 and cfg.d_ff % T == 0, "vocab": T > 1 and cfg.vocab_size % T == 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The model axis a training forward computes along: the model group,
+    this rank's coordinate ``index`` on it, its size T and ``model_split``'s
+    flags."""
+
+    group: Any
+    index: int
+    size: int
+    attn: bool
+    kv: bool
+    mlp: bool
+    vocab: bool
+
+    @classmethod
+    def of(cls, cfg, mesh) -> Optional["ModelAxis"]:
+        """The axis of ``mesh`` (a ``launch.mesh.Mesh``) for ``cfg``;
+        ``None`` where the model axis has one rank or there is none."""
+        T = mesh.shape.get("model", 1)
+        if T == 1:
+            return None
+        return cls(mesh.axis_group("model"), mesh.coords["model"], T, **model_split(cfg, T))
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f: ``x`` as it is; its gradient all-reduced."""
+        return _CopyIn.apply(x, self.group)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's g: ``x`` summed over the group; its gradient as it is."""
+        return _ReduceOut.apply(x, self.group)
+
+
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over ``group`` in place (every rank gets the result)."""
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+# ------------------------------------------------------------ vocab parallel
+def _vocab_range(ax: ModelAxis, n_local: int):
+    return ax.index * n_local, (ax.index + 1) * n_local
+
+
+def embed_rows(ax: ModelAxis, tables: torch.Tensor, tokens: torch.Tensor,
+               codebooks: int) -> torch.Tensor:
+    """The embedded stream from this rank's rows of the table(s): a token
+    outside them gives a zero row, and the rows are all-reduced (exact).
+    ``tables`` is ``[V/T, D]``, or ``[K, V/T, D]`` with ``tokens`` ``[B, K,
+    ...]``, whose K rows are all-reduced before they are summed, as one
+    device sums the whole tables' rows."""
+    v0, v1 = _vocab_range(ax, tables.shape[-2])
+
+    def rows(table, tok):
+        hit = (tok >= v0) & (tok < v1)
+        r = table[torch.where(hit, tok - v0, 0)]
+        return torch.where(hit[..., None], r, 0.0)
+
+    if codebooks:
+        return ax.reduce_out(torch.stack([rows(tables[k], tokens[:, k])
+                                          for k in range(codebooks)])).sum(0)
+    return ax.reduce_out(rows(tables, tokens))
+
+
+def _local_logits(form: str, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if form == "books":  # h [B, S, D], w [K, D, V/T] -> [B, S, K, V/T]
+        return torch.einsum("bsd,kdv->bskv", h, w)
+    return h @ (w.T if form == "tied" else w)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """``-log softmax(logits)[label]`` of every position, the logits split
+    over the vocab (``vocab_parallel_nll``)."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, ax, form, softcap):
+        z = _local_logits(form, h, w).float()
+        if softcap > 0:
+            z = softcap * torch.tanh(z / softcap)
+        v0, v1 = _vocab_range(ax, z.shape[-1])
+        m = _all_reduce(torch.amax(z, dim=-1), ax.group, dist.ReduceOp.MAX)
+        hit = (labels >= v0) & (labels < v1)
+        local = torch.where(hit, labels - v0, 0).long()
+        zt = torch.where(hit, torch.gather(z, -1, local[..., None])[..., 0], 0.0)
+        sums = _all_reduce(torch.stack([torch.sum((z - m[..., None]).exp_(), dim=-1), zt]),
+                           ax.group)
+        s, zt = sums[0], sums[1]
+        ctx.save_for_backward(h, w, z, m, s, local, hit)
+        ctx.ax, ctx.form, ctx.softcap = ax, form, softcap
+        return -((zt - m) - torch.log(s))
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, w, z, m, s, local, hit = ctx.saved_tensors
+        ax, form, c = ctx.ax, ctx.form, ctx.softcap
+        # d nll / d z = softmax(z) - onehot(label), times the position's grad
+        dz = (z - m[..., None]).exp_().div_(s[..., None]).mul_(grad[..., None])
+        dz.scatter_add_(-1, local[..., None], -(grad * hit)[..., None].to(dz.dtype))
+        if c > 0:  # through c tanh(u / c): 1 - tanh^2, with tanh = z / c
+            dz.mul_(z.div_(c).square_().neg_().add_(1.0))
+        del z
+        du = dz.to(h.dtype)
+        del dz
+        if form == "books":
+            dh = torch.einsum("bskv,kdv->bsd", du, w)
+            dw = torch.einsum("bsd,bskv->kdv", h, du)
+        elif form == "tied":
+            dh = du @ w
+            dw = du.reshape(-1, du.shape[-1]).T @ h.reshape(-1, h.shape[-1])
+        else:
+            dh = du @ w.T
+            dw = h.reshape(-1, h.shape[-1]).T @ du.reshape(-1, du.shape[-1])
+        return _all_reduce(dh, ax.group), dw, None, None, None, None
+
+
+def vocab_parallel_nll(ax: ModelAxis, h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                       form: str, softcap: float = 0.0) -> torch.Tensor:
+    """Each position's cross-entropy from the stream ``h`` ``[B, S, D]`` and
+    this rank's vocab block ``w`` of the head: ``form`` ``"head"`` (lm_head
+    ``[D, V/T]``, labels ``[B, S]``), ``"tied"`` (embed ``[V/T, D]``) or
+    ``"books"`` (lm_head ``[K, D, V/T]``, labels ``[B, S, K]``); labels
+    in ``[0, V)``. The same on every rank of the group; the stream's
+    gradient is all-reduced in the backward."""
+    return _VocabParallelNLL.apply(h, w, labels, ax, form, softcap)

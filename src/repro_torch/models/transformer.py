@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_init, init_mlp_block,
                                        init_rmsnorm, mlp_block, rmsnorm)
@@ -128,9 +129,12 @@ def params_shape(cfg) -> Dict[str, Any]:
 
 
 # ================================================================== embed
-def embed_tokens(params, cfg, tokens) -> torch.Tensor:
+def embed_tokens(params, cfg, tokens, ax=None) -> torch.Tensor:
     """tokens: [B, S] -> [B, S, D]; codebook tokens [B, K, S] (or [B, K] in
-    decode) sum the K tables' rows."""
+    decode) sum the K tables' rows. On a model axis ``ax`` that splits the
+    vocab, from this rank's rows (``parallel.embed_rows``)."""
+    if ax is not None and ax.vocab:
+        return parallel.embed_rows(ax, params["embed"], tokens, cfg.n_codebooks)
     if cfg.n_codebooks:
         embed = params["embed"]
         return torch.stack([embed[k][tokens[:, k]] for k in range(cfg.n_codebooks)]).sum(0)
@@ -165,34 +169,36 @@ def _periods(tree, n_periods: int):
     return [tree_unflatten(treedef, [s[p] for s in split]) for p in range(n_periods)]
 
 
-def _feed_forward(lp, h, ff: str, cfg):
+def _feed_forward(lp, h, ff: str, cfg, ax=None):
     """``h`` plus layer ``lp``'s feed-forward ``ff``, and the MoE layer's aux
-    (or ``None``)."""
+    (or ``None``); an MLP over ``ax`` where it splits d_ff."""
     if ff == "none":
         return h, None
     x = rmsnorm(lp["norm2"], h, cfg.norm_eps)
     if ff == "moe":
         out, aux = moe_mod.moe_layer(lp["ff"], x, cfg)
         return h + out, aux
-    return h + mlp_block(lp["ff"], x, cfg.mlp_kind), None
+    return h + mlp_block(lp["ff"], x, cfg.mlp_kind, ax if ax is not None and ax.mlp else None), None
 
 
 def _has_moe(cfg) -> bool:
     return any(ff == "moe" for _, ff in cfg.pattern_)
 
 
-def _run_period(period, h, aux, cfg, positions):
+def _run_period(period, h, aux, cfg, positions, ax=None):
     """One period, every layer of ``cfg.pattern_``: ``(h, aux)`` after it,
     ``aux`` the MoE layers' losses summed so far (the reference's
-    ``period_body`` carry)."""
+    ``period_body`` carry). On a model axis ``ax`` the attention and MLP
+    layers it splits run on this rank's compute blocks."""
     for i, (mixer, ff) in enumerate(cfg.pattern_):
         lp = period[str(i)]
         x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
         if mixer == "attn":
-            h = h + attn_mod.attention(lp["mixer"], x, cfg, positions)
+            h = h + attn_mod.attention(lp["mixer"], x, cfg, positions,
+                                       ax=ax if ax is not None and ax.attn else None)
         else:
             h = h + ssm_mod.ssm_layer(lp["mixer"], x, cfg)
-        h, layer_aux = _feed_forward(lp, h, ff, cfg)
+        h, layer_aux = _feed_forward(lp, h, ff, cfg, ax)
         if layer_aux is not None:
             aux = {k: aux[k] + v for k, v in layer_aux.items()}
     return h, aux
@@ -204,6 +210,7 @@ def forward_hidden(
     tokens,
     prefix_embeds: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
+    ax=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Backbone only: final-norm hidden states [B, S, D] of the token
     positions + aux (the MoE layers' losses summed over layers; empty for a
@@ -218,8 +225,14 @@ def forward_hidden(
     training forward checkpoints because its embedded input requires grad;
     a forward whose input does not (grad disabled, or parameters without
     grad, as in the serving prefill) enters no checkpoint and runs the ops
-    of ``remat="none"``."""
-    h = embed_tokens(params, cfg, tokens)
+    of ``remat="none"``.
+
+    ``ax`` (a ``parallel.ModelAxis``, training over a mesh whose model axis
+    has more than one rank) runs the forward on this rank's compute blocks
+    of ``params`` (``models/parallel.py``); the returned stream is the
+    same on every rank of the model group. A recomputed period replays its
+    all-reduces in the backward, alike on every rank."""
+    h = embed_tokens(params, cfg, tokens, ax)
     n_prefix = 0
     if prefix_embeds is not None:
         n_prefix = prefix_embeds.shape[1]
@@ -234,9 +247,10 @@ def forward_hidden(
     remat = cfg.remat == "full" and h.requires_grad
     for period in _periods(params["blocks"], cfg.n_periods):
         if remat:
-            h, aux = checkpoint(_run_period, period, h, aux, cfg, positions, use_reentrant=False)
+            h, aux = checkpoint(_run_period, period, h, aux, cfg, positions, ax,
+                                use_reentrant=False)
         else:
-            h, aux = _run_period(period, h, aux, cfg, positions)
+            h, aux = _run_period(period, h, aux, cfg, positions, ax)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if n_prefix:
         h = h[:, n_prefix:]
@@ -249,28 +263,43 @@ def forward(
     tokens,
     prefix_embeds: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
+    ax=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Train forward: full-sequence fp32 logits [B, S, V] ([B, S, K, V] for
     codebooks). tokens: [B, S] ([B, K, S]); prefix_embeds: [B, n_prefix, D]
-    stub modality embeddings."""
-    h, aux = forward_hidden(params, cfg, tokens, prefix_embeds, positions)
+    stub modality embeddings. ``ax``: ``forward_hidden``'s, on a model axis
+    that leaves the vocab whole."""
+    h, aux = forward_hidden(params, cfg, tokens, prefix_embeds, positions, ax)
     return unembed(params, cfg, h), aux
 
 
-def loss_fn(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def loss_fn(params, cfg, batch, ax=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy, plus the router losses of a MoE model.
     batch: dict with "tokens", "labels" (``[B, K, S]`` for codebooks),
     optional "prefix_embeds"; labels use -100 as the ignore index. Every op
     is out of place, so autograd gives the reference's ``jax.grad``
-    (``tests/test_torch_train.py``)."""
-    logits, aux = forward(params, cfg, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"))
+    (``tests/test_torch_train.py``). On a model axis ``ax`` ``params`` are
+    this rank's compute blocks (``forward_hidden``), and where ``ax`` splits
+    the vocab the logits and cross-entropy are ``parallel.vocab_parallel_nll``:
+    no rank holds the whole ``[B, S, V]`` logits."""
+    tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
+    vocab_split = ax is not None and ax.vocab
+    if vocab_split:
+        h, aux = forward_hidden(params, cfg, tokens, prefix_embeds=prefix, ax=ax)
+    else:
+        logits, aux = forward(params, cfg, tokens, prefix_embeds=prefix, ax=ax)
     labels = batch["labels"]
     if cfg.n_codebooks:
         labels = labels.movedim(1, 2)  # [B, K, S] -> [B, S, K], as the logits
     valid = labels != -100
     labels_c = torch.clamp(labels, min=0)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels_c[..., None].long())[..., 0]
+    if vocab_split:
+        form = "books" if cfg.n_codebooks else ("tied" if cfg.tie_embeddings else "head")
+        w = params["embed"] if form == "tied" else params["lm_head"]
+        nll = parallel.vocab_parallel_nll(ax, h, w, labels_c, form, cfg.logit_softcap)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels_c[..., None].long())[..., 0]
     loss = torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
     if aux:
         loss = (loss + cfg.router_aux_coef * aux["moe_lb_loss"]

@@ -25,7 +25,8 @@ from repro_torch.analysis.collective_lint import BUDGET_DIR, profile
 from repro_torch.configs import INPUT_SHAPES, ByzConfig, get_config, smoke_config
 from repro_torch.configs.base import InputShape
 from repro_torch.distributed import steps
-from repro_torch.distributed.sharding import overrides_from_config, param_shardings
+from repro_torch.distributed.sharding import (compute_shardings, overrides_from_config,
+                                              param_shardings)
 from repro_torch.kernels import cost
 from repro_torch.launch import dryrun
 from repro_torch.launch.collectives import record_collectives
@@ -119,7 +120,8 @@ def test_train_collectives_equal_the_committed_budget(fake_group):
 
 def _expected_argument(cfg, mesh, shape) -> int:
     """A rank's blocks of the parameters, the optimizer state and the worker
-    momenta ``make_train_step`` holds, and the batch every rank is handed."""
+    momenta (its compute blocks) ``make_train_step`` holds, and the batch
+    every rank is handed."""
     specs = tfm.params_shape(cfg)
     placed = param_shardings(specs, mesh, fsdp=cfg.fsdp, overrides=overrides_from_config(cfg))
     size = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
@@ -129,8 +131,9 @@ def _expected_argument(cfg, mesh, shape) -> int:
                       for s, pl in zip(tree_flatten(specs)[0], tree_flatten(placed)[0]))
     opt = block_numel * size[getattr(torch, cfg.opt_m_dtype)] + 4  # sgdm m, int32 step
     momenta = 0
-    if cfg.momentum_mode == "worker":
-        momenta = sum(math.prod(s.shape) for s in tree_flatten(specs)[0]) * 4  # one worker
+    if cfg.momentum_mode == "worker":  # one worker's compute blocks, fp32
+        momenta = sum(math.prod(pl.local_shape(s.shape)) for s, pl in zip(
+            tree_flatten(specs)[0], tree_flatten(compute_shardings(cfg, specs, mesh))[0])) * 4
     batch = sum(math.prod(v.shape) * 4 for v in steps.input_specs(cfg, shape).values())
     return block + opt + momenta + batch
 
@@ -199,6 +202,25 @@ def test_remat_lowers_the_train_peak(fake_group):
     assert full["bytes_per_device"]["argument"] == none["bytes_per_device"]["argument"]
     assert full["flops"] > none["flops"] and full["bytes_hbm"] > none["bytes_hbm"]
     assert full["kernels"] == none["kernels"]
+
+
+def test_model_axis_cuts_the_train_peak(fake_group):
+    """gemma-7b x train_4k at full width, 2 of 28 layers, on (16, 16): the
+    step computes along the model axis (16 heads, 16 kv heads, d_ff 24,576
+    and the 256,000-row vocab over 16 ranks), so a rank's peak is at or
+    below 3.5e10 B (2.095e11 while compute stayed gathered); the peak holds
+    the vocab-parallel cross-entropy's saved fp32 logits [16 x 4096,
+    256,000 / 16]; the all-reduces of the stream [16, 4096, 3072] bf16
+    (the embedding, each layer's two outputs and two input gradients, the
+    head's gradient) show in the collective bytes."""
+    fake_group(256)
+    run = dryrun.dryrun_one("gemma-7b", "train_4k", verbose=False, overrides={"n_layers": 2})
+    cfg = get_config("gemma-7b")
+    tokens = INPUT_SHAPES["train_4k"].global_batch // 16 * INPUT_SHAPES["train_4k"].seq_len
+    peak = run["bytes_per_device"]["peak"]
+    assert tokens * (cfg.vocab_size // 16) * 4 < peak <= 3.5e10
+    stream = tokens * cfg.d_model * 2
+    assert run["collectives"]["all-reduce"] >= (1 + 4 * 2 + 1) * stream
 
 
 def test_long_500k_gate_skips_full_attention():

@@ -1,0 +1,303 @@
+"""Compute along the model axis (``models/parallel.py``,
+``distributed/sharding.py::compute_shardings``, the train step and the
+block ingress ``packing.pack_from_shardings``) held against the reference.
+
+4 gloo ranks on the CPU, laid out as the meshes (1, 4) and (2, 2), are
+started once per mesh for the module (``torch_shard_ranks.tensor_parallel``,
+which imports no jax). Each rank runs ``loss_fn`` on its compute blocks of
+the same parameters (numpy, carried by ``convert.params_from_jax``), and the
+gradients, gathered whole, are held against the reference's
+``jax.value_and_grad(loss_fn)`` on the same parameters and batch, and
+against the port's one-device ``loss_fn``, at
+``tests/test_torch_train.py``'s bars (rtol 1e-4, atol 1e-5).
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_shard_ranks
+from repro import configs as rconfigs
+from repro.core.aragg import RobustAggregator as RRobustAggregator
+from repro.models import transformer as rtfm
+from repro_torch import configs
+from repro_torch.configs.base import ByzConfig
+from repro_torch.convert import params_from_jax
+from repro_torch.distributed.sharding import compute_shardings
+from repro_torch.distributed.steps import make_train_step
+from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.models import transformer as tfm
+from repro_torch.models.parallel import model_split
+from repro_torch.utils.tree import tree_flatten, tree_flatten_with_path, tree_map
+
+#: label -> (arch, config fields); every family and every branch of the plan
+CASES = {
+    "gemma": ("gemma-7b", {}),
+    "tinyllama_kv2": ("tinyllama-1.1b", {"n_kv_heads": 2, "logit_softcap": 30.0}),
+    "whole_attention": ("qwen2.5-14b", {"n_heads": 3, "n_kv_heads": 1, "head_dim": 64}),
+    "olmoe": ("olmoe-1b-7b", {}),
+    "mamba2": ("mamba2-130m", {}),
+    "musicgen": ("musicgen-medium", {}),
+    "gemma_remat": ("gemma-7b", {"remat": "full"}),
+}
+MESHES = [(1, 4), (2, 2)]
+B, S, W = 2, 16, 4
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def _batch(cfg, seed):
+    """Next-token tokens and labels ([B, K, S] for codebooks, -100 among
+    them) and, for a config with prefix tokens, ``prefix_embeds``."""
+    rng = np.random.default_rng(seed)
+    lead = (B, cfg.n_codebooks) if cfg.n_codebooks else (B,)
+    toks = rng.integers(0, cfg.vocab_size, lead + (S + 1,)).astype(np.int32)
+    labels = toks[..., 1:].copy()
+    labels[..., :3] = -100
+    batch = {"tokens": toks[..., :-1], "labels": labels}
+    if cfg.n_prefix_tokens:
+        batch["prefix_embeds"] = (rng.standard_normal((B, cfg.n_prefix_tokens, cfg.d_model))
+                                  * 0.5).astype(np.float32)
+    return batch
+
+
+@functools.lru_cache(maxsize=None)
+def _case(label):
+    """``(cfg, reference cfg, parameters as numpy, batch)``: the port's
+    init drawn from a seed, a tree of the reference's structure (the
+    packages' trees match: ``tests/test_torch_sharding.py``)."""
+    arch, fields = CASES[label]
+    cfg = dataclasses.replace(configs.smoke_config(arch), **fields)
+    rcfg = dataclasses.replace(rconfigs.smoke_config(arch), **fields)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    return cfg, rcfg, tree_map(lambda t: t.numpy(), params), _batch(cfg, seed=2)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(label):
+    """The reference's loss and gradient leaves, and the port's one-device
+    loss, gradients and embedded stream, on the case's parameters."""
+    cfg, rcfg, rp, batch = _case(label)
+    (rloss, _), rg = jax.jit(jax.value_and_grad(rtfm.loss_fn, has_aux=True),
+                             static_argnums=1)(rp, rcfg, {k: jnp.asarray(v)
+                                                          for k, v in batch.items()})
+    params = params_from_jax(rp, device="cpu")
+    leaves, _ = tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tb = {k: torch.tensor(v) for k, v in batch.items()}
+    loss, _ = tfm.loss_fn(params, cfg, tb)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        h = tfm.embed_tokens(params, cfg, tb["tokens"])
+    return (float(rloss), [np.asarray(g) for g in jax.tree_util.tree_leaves(rg)],
+            float(loss.detach()), [g.numpy() for g in grads], h.numpy())
+
+
+def _steps_payload():
+    cfg = configs.smoke_config("gemma-7b")
+    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (2 * W, 17))
+    ra = RRobustAggregator.from_spec("rfa", mixing="bucketing", s=2)
+    qtoks = np.random.default_rng(22).integers(0, 512, (2 * W, 17))
+    return {"W": W, "batch": {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+            "qwen_batch": {"tokens": qtoks[:, :-1], "labels": qtoks[:, 1:]},
+            "mix": np.asarray(ra.mixing_matrix(jax.random.PRNGKey(30), W))}
+
+
+@pytest.fixture(scope="module", params=MESHES, ids=["1x4", "2x2"])
+def tp_ranks(request):
+    """Every rank's results of ``tensor_parallel`` on one mesh."""
+    payload = {"mesh": request.param,
+               "cases": {label: {"arch": CASES[label][0], "cfg": CASES[label][1],
+                                 "params": _case(label)[2], "batch": _case(label)[3]}
+                         for label in CASES},
+               "steps": _steps_payload()}
+    ranks = spawn_ranks(torch_shard_ranks.tensor_parallel, 4, backend="gloo",
+                        devices=["cpu"] * 4, args=(payload,), timeout_s=600)
+    return request.param, payload, ranks
+
+
+def _same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+
+
+class _Mesh:
+    """What ``compute_shardings`` reads of a mesh: ``shape`` and
+    ``axis_names``."""
+
+    def __init__(self, **axes):
+        self.shape = dict(axes)
+        self.axis_names = tuple(axes)
+
+
+@pytest.mark.parametrize("label", list(CASES))
+def test_loss_and_gradients_on_compute_blocks(tp_ranks, label):
+    """The loss and every gradient, from each rank's compute blocks and
+    gathered whole, against the reference's ``jax.value_and_grad`` and the
+    port's one-device ``loss_fn`` (rtol 1e-4, atol 1e-5); the loss and the
+    gathered gradients are the same bits on every rank (a leaf held whole
+    gets the same gradient on every model rank)."""
+    _, _, ranks = tp_ranks
+    rloss, rgrads, loss1, grads1, _ = _reference(label)
+    out = ranks[0]["cases"][label]
+    np.testing.assert_allclose(float(out["loss"]), rloss, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(out["loss"]), loss1, rtol=RTOL, atol=ATOL)
+    assert len(out["grads"]) == len(rgrads) == len(grads1)
+    for g, rg, g1 in zip(out["grads"], rgrads, grads1):
+        assert g.shape == rg.shape == g1.shape
+        np.testing.assert_allclose(g, rg, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g, g1, rtol=RTOL, atol=ATOL)
+    for r in ranks[1:]:
+        assert _same_bits(r["cases"][label]["loss"], out["loss"])
+        assert all(_same_bits(a, b) for a, b in zip(r["cases"][label]["grads"], out["grads"]))
+
+
+def test_compute_blocks_follow_the_plan(tp_ranks):
+    """Each rank's gradients have its compute blocks' shapes: the split
+    dims cut by T, every other dim whole; the plan's flags are
+    ``model_split``'s (whole k / v for tinyllama's 2 kv heads at T = 4,
+    whole attention for 3 heads, everything split for gemma)."""
+    (_, T), _, ranks = tp_ranks
+    want_flags = {"gemma": (True, True, True, True),
+                  "tinyllama_kv2": (True, T == 2, True, True),
+                  "whole_attention": (False, False, True, True)}
+    for label in CASES:
+        cfg = _case(label)[0]
+        plan = compute_shardings(cfg, tfm.params_shape(cfg), _Mesh(data=4 // T, model=T))
+        flags = model_split(cfg, T)
+        if label in want_flags:
+            assert tuple(flags[k] for k in ("attn", "kv", "mlp", "vocab")) == want_flags[label]
+        for r, out in enumerate(ranks):
+            case = out["cases"][label]
+            assert case["split"] == flags
+            specs = [pl.spec for pl in tree_flatten(plan)[0]]
+            for spec, shape, whole in zip(specs, case["local"], case["grads"]):
+                assert shape == tuple(n // T if e == "model" else n
+                                      for n, e in zip(whole.shape, spec))
+
+
+def test_plan_on_the_production_mesh():
+    """The plan at full width on (16, 16), spec for spec, where the storage
+    rules put the model axis on input dims: gemma's heads, kv heads, d_ff
+    and vocab split (wq / wk / wv / w_gate / w_up on their output dim, wo /
+    w_down on their rows, the tied embed on its rows); qwen2.5-14b's 40
+    heads run whole, its MLP and vocab split; tinyllama's 4 kv heads
+    whole beside 32 split q heads; with T = 1 every leaf whole."""
+    mesh = _Mesh(data=16, model=16)
+    want = {
+        "gemma-7b": {"embed": ("model", None), "blocks/0/mixer/wq": (None, None, "model"),
+                     "blocks/0/mixer/wk": (None, None, "model"),
+                     "blocks/0/mixer/wo": (None, "model", None),
+                     "blocks/0/ff/w_gate": (None, None, "model"),
+                     "blocks/0/ff/w_down": (None, "model", None),
+                     "blocks/0/norm1/scale": (None, None)},
+        "qwen2.5-14b": {"blocks/0/mixer/wq": (None, None, None),
+                        "blocks/0/mixer/bk": (None, None),
+                        "blocks/0/ff/w_up": (None, None, "model"),
+                        "embed": ("model", None), "lm_head": (None, "model")},
+        "tinyllama-1.1b": {"blocks/0/mixer/wq": (None, None, "model"),
+                           "blocks/0/mixer/wk": (None, None, None),
+                           "blocks/0/mixer/wo": (None, "model", None)},
+    }
+    for arch, specs in want.items():
+        cfg = configs.get_config(arch)
+        shapes = tfm.params_shape(cfg)
+        got = {p: pl.spec for p, pl in tree_flatten_with_path(
+            compute_shardings(cfg, shapes, mesh))[0]}
+        for path, spec in specs.items():
+            assert got[path] == spec, (arch, path)
+        assert all(set(s) <= {None, "model"} for s in got.values())
+        one = compute_shardings(cfg, shapes, _Mesh(data=16, model=1))
+        assert all(not any(pl.spec) for pl in tree_flatten(one)[0])
+
+
+def test_embedded_stream_is_the_one_device_stream(tp_ranks):
+    """The vocab-parallel lookup (a zero row for a token outside the rank's
+    rows, the rows all-reduced) gives the one-device stream bit for bit,
+    codebooks included, on every rank."""
+    _, _, ranks = tp_ranks
+    for label in CASES:
+        want = _reference(label)[4]
+        for out in ranks:
+            assert _same_bits(out["cases"][label]["h"], want), label
+
+
+def test_block_ingress_equals_rows_to_cols(tp_ranks):
+    """Each rank's column slice from the block ingress (its workers' rows,
+    its compute blocks; whole leaves sent by model coordinate 0 alone)
+    equals ``shard_cols`` of the packed global stack, the slice
+    ``rows_to_cols`` gives, bit for bit, padding included."""
+    _, _, ranks = tp_ranks
+    for out in ranks:
+        assert _same_bits(out["ingress"]["blocks"], out["ingress"]["rows_to_cols"])
+
+
+@functools.lru_cache(maxsize=None)
+def _one_device_step(mode):
+    cfg = dataclasses.replace(configs.smoke_config("gemma-7b"), n_layers=1, momentum_mode=mode)
+    p = _steps_payload()
+    step_fn, state = make_train_step(
+        cfg, ByzConfig(aggregator="rfa", mixing="bucketing", s=2, worker_momentum=0.9),
+        lr=0.05, n_workers=W, device="cpu")
+    params = state["init_params"](torch.Generator().manual_seed(0))
+    opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
+    params, _, _, metrics = step_fn(params, opt_state, worker_m, torch.tensor(p["mix"]),
+                                    {k: torch.tensor(v) for k, v in p["batch"].items()})
+    return [x.numpy() for x in tree_flatten(params)[0]], float(metrics["loss"])
+
+
+@pytest.mark.parametrize("mode", ["worker", "server"])
+def test_rows_and_momenta_are_compute_blocks(tp_ranks, mode):
+    """The rows a rank hands the sync (server momentum: the raw gradients;
+    worker momentum: the momenta) hold exactly its workers' compute blocks,
+    the worker momenta are placed by the plan with the worker axes on dim
+    0, and the block ingress ran; the step's parameters and loss match the
+    one-device step (rtol 1e-4, atol 1e-6)."""
+    (data, _), _, ranks = tp_ranks
+    want_params, want_loss = _one_device_step(mode)
+    for out in ranks:
+        st = out["steps"][mode]
+        assert st["w_local"] == W // data and st["in_shardings"]
+        blocks = [(st["w_local"],) + tuple(s) for s in st["compute"]]
+        assert st["rows"] == blocks
+        if mode == "worker":
+            assert st["worker_m"] == blocks
+            assert all(spec == ("data",) + tuple(c)
+                       for spec, c in zip(st["worker_m_specs"], st["compute_specs"]))
+        assert sum(np.prod(b) for b in st["rows"]) < W * sum(x.size for x in want_params)
+        for a, b in zip(tree_flatten(st["params"])[0], want_params):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(float(st["loss"]), want_loss, rtol=1e-5, atol=1e-6)
+
+
+def test_one_model_rank_keeps_the_route(tp_ranks):
+    """On (4, 1) the model axis has one rank: the plan is whole, no
+    model-axis operator runs, the rows go in through ``rows_to_cols`` from
+    whole leaves, and the step's parameters, optimizer state, loss and
+    collectives (kind, function, bytes received, in order) equal those of
+    the same step on the bare group, bit for bit: the gathers, one
+    all-to-all in of W x n_pad/R fp32, RFA's 8 all-reduces of [W], one
+    all-to-all out, the loss's all-reduce."""
+    _, _, ranks = tp_ranks
+    cfg = configs.smoke_config("qwen2.5-14b")
+    n_pad = sum(-(-int(np.prod(s.shape)) // 2048) * 2048
+                for s in tree_flatten(tfm.params_shape(cfg))[0])
+    for out in ranks:
+        one, bare = out["one_model_rank"]["4x1"], out["one_model_rank"]["bare"]
+        assert all(not any(s) for s in one["compute_specs"])
+        assert one["hits"] == bare["hits"] == {"rows_to_cols": 1, "pack_from_shardings": 0}
+        for a, b in zip(tree_flatten((one["params"], one["m"], one["step"], one["loss"]))[0],
+                        tree_flatten((bare["params"], bare["m"], bare["step"], bare["loss"]))[0]):
+            assert _same_bits(a, b)
+        assert one["calls"] == bare["calls"]
+        n_gather = sum(1 for s in one["params_specs"] if any(s))
+        kinds = [c[0] for c in one["calls"]]
+        assert kinds == (["all-gather"] * n_gather + ["all-to-all"] + ["all-reduce"] * 8
+                         + ["all-to-all", "all-reduce"])
+        assert one["calls"][n_gather][2] == W * (n_pad // 4) * 4

@@ -7,7 +7,8 @@ compute the JAX side and hand the ranks the same numpy inputs and the
 reference's mixing matrices. ``run_telemetry`` serves
 tests/test_torch_telemetry.py; ``run_train`` the worker-sharded train step;
 ``train_step_refusals`` tests/test_torch_train.py; ``fsdp_remat_step``
-tests/test_torch_remat.py.
+tests/test_torch_remat.py; ``tensor_parallel``
+tests/test_torch_tensor_parallel.py.
 """
 
 import contextlib
@@ -520,3 +521,176 @@ def per_leaf_16bit(rank, group, device, payload):
     finally:
         shard_kernels.mix_apply = real
     return {"out": out, "seen": seen}
+
+
+# ------------------------------------------------- compute along the model axis
+def _tp_case(mesh, case):
+    """One case of ``tensor_parallel``: the loss and every gradient of
+    ``loss_fn`` on this rank's compute blocks, the gradients gathered
+    whole; the embedded stream; the blocks' shapes."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed.sharding import compute_shardings
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.parallel import ModelAxis
+    from repro_torch.utils.tree import tree_map, tree_unflatten
+
+    cfg = dataclasses.replace(smoke_config(case["arch"]), **case["cfg"])
+    compute = compute_shardings(cfg, tfm.params_shape(cfg), mesh)
+    ax = ModelAxis.of(cfg, mesh)
+    own = tree_map(lambda x, pl: pl.local(x), params_from_jax(case["params"], "cpu"), compute)
+    leaves, treedef = tree_flatten(own)
+    live = [p.detach().requires_grad_() for p in leaves]
+    p_live = tree_unflatten(treedef, live)
+    batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
+    loss, _ = tfm.loss_fn(p_live, cfg, batch, ax=ax)
+    grads = torch.autograd.grad(loss, live)
+    placements = tree_flatten(compute)[0]
+    with torch.no_grad():
+        h = tfm.embed_tokens(p_live, cfg, batch["tokens"], ax)
+    return {"loss": loss.detach(), "grads": [pl.gather(g) for g, pl in zip(grads, placements)],
+            "h": h, "local": [tuple(g.shape) for g in grads],
+            "split": None if ax is None else {k: getattr(ax, k)
+                                              for k in ("attn", "kv", "mlp", "vocab")}}
+
+
+def _tp_ingress(mesh):
+    """The block ingress of a random global stack over gemma's smoke
+    compute plan (each rank its workers' rows, its compute blocks) against
+    ``shard_cols`` of the packed global stack."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import Placement, compute_shardings
+    from repro_torch.launch.mesh import n_workers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config("gemma-7b"), n_layers=1)
+    specs = tfm.params_shape(cfg)
+    compute = compute_shardings(cfg, specs, mesh)
+    G = n_workers(mesh)
+    w = 2
+    g = torch.Generator().manual_seed(3)
+    stack = tree_map(lambda s: torch.randn((G * w,) + tuple(s.shape), generator=g), specs)
+    me = mesh.coords["data"]
+    mine = tree_map(lambda x, pl: Placement(mesh, (None,) + pl.spec).local(
+        x[me * w:(me + 1) * w]), stack, compute)
+    packer = packing.packer_for(mine, compute)
+    return {"blocks": packing.pack_from_shardings(packer, mine, compute, mesh),
+            "rows_to_cols": shard_kernels.shard_cols(packing.packer_for(stack).pack(stack),
+                                                      mesh.group)}
+
+
+def _tp_steps(mesh, p):
+    """One RFA step of each momentum mode (gemma at smoke width) on the
+    mesh: the gathered parameters and loss, and the rows the sync was
+    handed and the worker momenta, beside this rank's compute blocks."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed import steps
+    from repro_torch.utils.tree import tree_map
+
+    out = {}
+    sync = steps.robust_gradient_sync
+    for mode in ("worker", "server"):
+        cfg = dataclasses.replace(smoke_config("gemma-7b"), n_layers=1, momentum_mode=mode)
+        step_fn, state = steps.make_train_step(
+            cfg, ByzConfig(aggregator="rfa", mixing="bucketing", s=2, worker_momentum=0.9),
+            mesh=mesh, lr=0.05, n_workers=p["W"], device="cpu")
+        sh = state["shardings"]
+        params = state["init_params"](torch.Generator().manual_seed(0))
+        opt_state, worker_m = state["init_opt_state"](params), state["init_worker_m"](params)
+        seen = {}
+
+        def spy(messages, *a, **kw):
+            seen["rows"] = [tuple(x.shape) for x in tree_flatten(messages)[0]]
+            seen["in_shardings"] = kw.get("in_shardings") is not None
+            return sync(messages, *a, **kw)
+
+        steps.robust_gradient_sync = spy
+        try:
+            params, opt_state, worker_m, metrics = step_fn(
+                params, opt_state, worker_m, torch.tensor(p["mix"]),
+                {k: torch.tensor(v) for k, v in p["batch"].items()})
+        finally:
+            steps.robust_gradient_sync = sync
+        out[mode] = dict(
+            params=tree_map(lambda b, pl: pl.gather(b), params, sh["params"]),
+            loss=metrics["loss"], rows=seen["rows"], in_shardings=seen["in_shardings"],
+            worker_m=[tuple(x.shape) for x in tree_flatten(worker_m)[0]],
+            worker_m_specs=[pl.spec for pl in tree_flatten(sh["worker_m"])[0]],
+            compute=[pl.local_shape(s.shape) for pl, s in zip(
+                tree_flatten(sh["compute"])[0], tree_flatten(sh["params_shape"])[0])],
+            compute_specs=[pl.spec for pl in tree_flatten(sh["compute"])[0]],
+            w_local=state["workers"][1] - state["workers"][0])
+    return out
+
+
+def _tp_one_model_rank(group, p):
+    """qwen2.5-14b's smoke fsdp step (server momentum, RFA) on the (4, 1)
+    mesh and on the bare group (the mesh ("data",)): parameters, optimizer
+    state, the collectives each made (kind, function, bytes received) and
+    which ingress ran."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.launch.collectives import record_collectives
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.tree import tree_map
+
+    cfg = smoke_config("qwen2.5-14b")
+    out = {}
+    for label, mesh in (("4x1", make_host_mesh(group, data=4, model=1)), ("bare", group)):
+        step_fn, state = make_train_step(cfg, ByzConfig(aggregator="rfa", mixing="bucketing",
+                                                        s=2), mesh=mesh, lr=0.05,
+                                         n_workers=p["W"], device="cpu")
+        sh = state["shardings"]
+        params = state["init_params"](torch.Generator().manual_seed(0))
+        opt_state = state["init_opt_state"](params)
+        hits = {"rows_to_cols": 0, "pack_from_shardings": 0}
+        originals = {"rows_to_cols": shard_kernels.rows_to_cols,
+                     "pack_from_shardings": packing.pack_from_shardings}
+
+        def counting(name):
+            def call(*a, **kw):
+                hits[name] += 1
+                return originals[name](*a, **kw)
+            return call
+
+        shard_kernels.rows_to_cols = counting("rows_to_cols")
+        packing.pack_from_shardings = counting("pack_from_shardings")
+        try:
+            with record_collectives() as calls:
+                params, opt_state, _, metrics = step_fn(
+                    params, opt_state, {}, torch.tensor(p["mix"]),
+                    {k: torch.tensor(v) for k, v in p["qwen_batch"].items()})
+        finally:
+            shard_kernels.rows_to_cols = originals["rows_to_cols"]
+            packing.pack_from_shardings = originals["pack_from_shardings"]
+        gather = lambda t: tree_map(lambda b, pl: pl.gather(b), t, sh["params"])  # noqa: E731
+        out[label] = dict(params=gather(params), m=gather(opt_state.m), step=opt_state.step,
+                          loss=metrics["loss"], hits=hits,
+                          calls=[(c.kind, c.fn, c.received) for c in calls],
+                          compute_specs=[pl.spec for pl in tree_flatten(sh["compute"])[0]],
+                          params_specs=[pl.spec for pl in tree_flatten(sh["params"])[0]])
+    return out
+
+
+def tensor_parallel(rank, group, device, p):
+    """Everything tests/test_torch_tensor_parallel.py holds on the
+    ``p["mesh"]`` (data, model) mesh of the group: each case's loss and
+    gradients on compute blocks, the block ingress, the train steps; and
+    the (4, 1) mesh of the same group against the bare group."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(group, *p["mesh"])
+    out = {"coords": mesh.coords,
+           "cases": {label: _tp_case(mesh, case) for label, case in p["cases"].items()},
+           "ingress": _tp_ingress(mesh), "steps": _tp_steps(mesh, p["steps"]),
+           "one_model_rank": _tp_one_model_rank(group, p["steps"])}
+    return out
