@@ -243,7 +243,25 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    of it and its aggregate, gathered whole, within ``TP_AGG_RTOL`` of the
    largest worker row norm. Host ms a step, and each rank's peak at the
    end of the forward and backward (``phase_times``' peaks) beside (a)'s,
-   which it must stay below.
+   which it must stay below. (f) In (a)'s group, gemma-7b served at its
+   published width on each rank's compute blocks (``tps_rank``; weights
+   drawn leaf by leaf from seeded generators, ``seeded_params``, each leaf
+   cut to its block as ``sharding.compute_blocks`` cuts and freed), each
+   rank asserting that it holds exactly the plan's blocks. At REMAT_LAYERS
+   of 28 layers in fp32 and bf16: on (data=1, model=4) the prefill of
+   ``TPS_PREFILL`` (2 x 1024 tokens), a greedy decode of 4 slots
+   (``DECODE_STEPS`` tokens after a ``MESH_DECODE_PROMPT``-token prompt,
+   ``MESH_DECODE_CACHE`` positions) and one step on a seeded one-row
+   ATTN_S cache (positions over model); on (2, 2) one batch-sharded step
+   on a seeded 4-row cache and the one-row step (positions over data, kv
+   heads over model). ``tps_check`` runs the same on one device: every
+   rank the same bits, in fp32 the greedy tokens equal and every logit
+   within ``TP_LOSS_TOL``, in bf16 each output no further from the fp32
+   one-device logits than ``SEQ_BF16_RATIO`` x the one-device bf16 run's.
+   Then one bf16 run at full depth (``TPS_FULL_LAYERS``) on (1, 4): each
+   rank's bytes and peak against one device's, prefill ms and decode ms a
+   token (``TPS_FULL_NEW`` tokens), with the card's name and power limit;
+   no kernel of ours launches (counted).
 16. The CNN of App. Table 5 (``models/mlp.py::init_cnn``, HWIO convolutions
    run by cuDNN under ``ieee_fp32()``) and the static-analysis gate. (a)
    ``ByzantineSim`` with the CNN at phase 9's scale (n = 25, 300 steps) for
@@ -434,6 +452,14 @@ SEQ_PROMPT, SEQ_CACHE, SEQ_NEW = 48, 64, 16
 #: relative to the largest |logit|; and for the sequence-sharded bf16 step,
 #: its max |logit - fp32 one device| against the one-device bf16 step's
 PREFILL_MESH_TOL, SEQ_BF16_RATIO = 2e-2, 1.5
+#: phase 15(f): gemma-7b served at its published width on (data=1, model=4)
+#: and (2, 2), each rank on its compute blocks; the holds at REMAT_LAYERS of
+#: 28 layers: a prefill of TPS_PREFILL (rows, tokens), a greedy decode of 4
+#: slots (MESH_DECODE_PROMPT + DECODE_STEPS tokens, MESH_DECODE_CACHE
+#: positions) and one step on a seeded cache (4 rows of MESH_DECODE_CACHE
+#: positions, and 1 row of ATTN_S); one bf16 run at TPS_FULL_LAYERS, the
+#: full depth, with TPS_FULL_NEW greedy tokens after the prompt
+TPS_PREFILL, TPS_FULL_LAYERS, TPS_FULL_NEW = (2, 1024), 28, 8
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
 SYNC_ROUTE = {
@@ -2838,7 +2864,7 @@ def fsdp_rank(rank, group, device):
     torch.cuda.empty_cache()
     return dict(held=held, block_elems=block_elems, steps=steps, moved=moved,
                 n_pad=_n_pad(sh["params_shape"]), checks=checks,
-                tp=tp_rank(rank, group, device, cfg, batch))
+                tp=tp_rank(rank, group, device, cfg, batch), tps=tps_rank(rank, group, device))
 
 
 def tp_rank(rank, group, device, cfg, batch):
@@ -2979,6 +3005,311 @@ def tp_rank(rank, group, device, cfg, batch):
         del params, opt_state, metrics, seen
         torch.cuda.empty_cache()
     return dict(runs=runs)
+
+
+def seeded_params(cfg, device, mesh=None, seed: int = 0):
+    """``cfg``'s parameters drawn leaf by leaf on the card, each leaf from a
+    generator seeded by its index (the init's scales: embeddings 0.02, a
+    weight ``[..., d_in, d_out]`` (1 / d_in)^0.5, norms ones), so every
+    process draws the same numbers. With ``mesh``, this rank's compute
+    blocks: each whole leaf cut by the compute plan, as
+    ``sharding.compute_blocks`` cuts a whole tree, and freed before the
+    next is drawn; else the whole leaves."""
+    import torch
+
+    from repro_torch.distributed.sharding import compute_shardings
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_flatten, tree_flatten_with_path, tree_unflatten
+
+    specs = tfm.params_shape(cfg)
+    flat, treedef = tree_flatten_with_path(specs)
+    plan = None if mesh is None else tree_flatten(compute_shardings(cfg, specs, mesh))[0]
+    leaves = []
+    for i, (path, s) in enumerate(flat):
+        if path.endswith("scale"):
+            whole = torch.ones(s.shape, dtype=s.dtype, device=device)
+        else:
+            gen = torch.Generator(device).manual_seed(seed * 10_000 + i)
+            std = 0.02 if path.split("/")[0] == "embed" else s.shape[-2] ** -0.5
+            whole = torch.empty(s.shape, dtype=s.dtype, device=device)
+            for part in whole.view(-1, s.shape[-1]).split(4096):
+                part.copy_(torch.randn(part.shape, generator=gen, device=device) * std)
+        leaves.append(whole if plan is None else plan[i].local(whole))
+        del whole
+    return tree_unflatten(treedef, leaves)
+
+
+def tps_config(dtype: str, n_layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(FSDP_ARCH), n_layers=n_layers, dtype=dtype)
+
+
+def tps_inputs(vocab: int):
+    """Phase 15(f)'s tokens from a seed: the prefill's, the greedy decode's
+    prompt, the seeded 4-row step's and the one-row step's."""
+    import torch
+
+    gen = torch.Generator().manual_seed(41)
+    return {"prefill": torch.randint(0, vocab, TPS_PREFILL, generator=gen),
+            "prompt": torch.randint(0, vocab, (4, MESH_DECODE_PROMPT), generator=gen),
+            "rows": torch.randint(0, vocab, (4,), generator=gen),
+            "row": torch.randint(0, vocab, (1,), generator=gen)}
+
+
+def one_device_decode(cfg):
+    """``decode_step`` of ``cfg`` in the form of a serving step: ``(params,
+    cache, token, position) -> (logits, cache)``."""
+    from repro_torch.models import transformer as tfm
+
+    return lambda params, cache, token, pos: tfm.decode_step(params, cfg, cache, token, pos)
+
+
+def greedy_logits(serve, params, cache, prompt, n_new, gather=None):
+    """Greedy decode of the global ``prompt`` rows through ``serve(params,
+    cache, token, position)`` (``gather`` puts a batch-sharded step's
+    logits together): the chosen tokens ``[B, n_new]``, the logits at the
+    prompt's last position and at the last step (host), and the host ms of
+    the steps after the prompt's last."""
+    import torch
+
+    toks, kept = [], []
+    S = prompt.shape[1]
+    t0 = time.perf_counter()
+    for pos in range(S + n_new - 1):
+        if pos == S:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        tok = prompt[:, pos] if pos < S else toks[-1]
+        logits, cache = serve(params, cache, tok, pos)
+        logits = logits if gather is None else gather(logits)
+        if pos >= S - 1:
+            toks.append(torch.argmax(logits, dim=-1))
+        if pos in (S - 1, S + n_new - 2):
+            kept.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    return (torch.stack(toks, dim=1).cpu(), kept,
+            (time.perf_counter() - t0) * 1e3 / max(n_new - 1, 1))
+
+
+def tps_rank(rank, group, device):
+    """Phase 15(f), in each rank of (a)'s group: gemma-7b served at its
+    published width on each rank's compute blocks (4 / T of 16 heads and kv
+    heads, d_ff and vocab over T; ``models/parallel.py``). At REMAT_LAYERS
+    deep, in fp32 and in bf16: on (data=1, model=4) the prefill's
+    last-position logits and a greedy decode of 4 slots, and one step on a
+    one-row ATTN_S cache (positions over model); on (2, 2) one
+    batch-sharded step on a seeded 4-row cache and one step on the one-row
+    cache (positions over data, kv heads over model). Then one bf16 run at
+    full depth on (1, 4): prefill ms, decode ms a token, the peak. Each
+    rank checks that it holds exactly the plan's blocks."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.sharding import compute_shardings, local_zeros
+    from repro_torch.distributed.steps import gather_batch, make_prefill_step, make_serve_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_flatten, tree_map
+
+    meshes = {(1, SYNC_RANKS): make_host_mesh(group, data=1, model=SYNC_RANKS),
+              (2, 2): make_host_mesh(group, data=2, model=2)}
+    T = {shape: shape[1] for shape in meshes}
+    inputs = {k: v.to(device) for k, v in tps_inputs(tps_config("float32", 1).vocab_size).items()}
+
+    def blocks(cfg, mesh):
+        """This rank's blocks, asserted to be the plan's and nothing more."""
+        params = seeded_params(cfg, device, mesh)
+        specs = tfm.params_shape(cfg)
+        want = [pl.local_shape(s.shape) for s, pl in zip(
+            tree_flatten(specs)[0], tree_flatten(compute_shardings(cfg, specs, mesh))[0])]
+        got = [tuple(x.shape) for x in tree_flatten(params)[0]]
+        size = torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size()
+        held = sum(x.untyped_storage().nbytes() for x in tree_flatten(params)[0])
+        if got != want or held != sum(math.prod(w) for w in want) * size:
+            raise AssertionError(f"tps rank {rank}: holds {held} B in {got}, the plan's "
+                                 f"blocks are {want}")
+        return params, held
+
+    def seeded_step(cfg, mesh, params, rows, length, token):
+        serve, _, pls = make_serve_step(cfg, mesh, InputShape("seeded", length, rows, "decode"),
+                                        device=device)
+        cache = tree_map(lambda x, pl: pl.local(x),
+                         seeded_cache(cfg, length - 1, device, batch=rows, length=length), pls)
+        logits, _ = serve(params, cache, token, length - 1)
+        return gather_batch(logits, mesh, rows).float().cpu(), pls["0"]["k"].spec
+
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = tps_config(dtype, REMAT_LAYERS)
+        res = out[dtype] = {"held": {}}
+        for shape, mesh in meshes.items():
+            params, res["held"][shape] = blocks(cfg, mesh)
+            if shape[0] == 1:
+                res["prefill"] = make_prefill_step(cfg, mesh, device=device)(
+                    params, {"tokens": inputs["prefill"]}).float().cpu()
+                serve, spec, pls = make_serve_step(
+                    cfg, mesh, InputShape("serve", MESH_DECODE_CACHE, 4, "decode"), device=device)
+                res["tokens"], res["greedy"], _ = greedy_logits(
+                    serve, params, local_zeros(spec, pls, device), inputs["prompt"],
+                    DECODE_STEPS)
+                res["greedy_spec"] = pls["0"]["k"].spec
+            else:
+                res["rows"], res["rows_spec"] = seeded_step(cfg, mesh, params, 4,
+                                                            MESH_DECODE_CACHE, inputs["rows"])
+            res[f"row_{shape}"] = seeded_step(cfg, mesh, params, 1, ATTN_S, inputs["row"])
+            del params
+            torch.cuda.empty_cache()
+    # one bf16 run at full depth on (1, 4)
+    mesh = meshes[(1, SYNC_RANKS)]
+    cfg = tps_config("bfloat16", TPS_FULL_LAYERS)
+    params, held = blocks(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier(group)
+    t0 = time.perf_counter()
+    prefill = make_prefill_step(cfg, mesh, device=device)(params, {"tokens": inputs["prefill"]})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    serve, spec, pls = make_serve_step(
+        cfg, mesh, InputShape("serve", MESH_DECODE_CACHE, 4, "decode"), device=device)
+    toks, _, decode_ms = greedy_logits(serve, params, local_zeros(spec, pls, device),
+                                       inputs["prompt"], TPS_FULL_NEW)
+    out["full"] = dict(held=held, prefill=prefill.float().cpu(), prefill_ms=prefill_ms,
+                       tokens=toks, decode_ms=decode_ms, peak=torch.cuda.max_memory_allocated())
+    out["T"], out["counts"] = T, dict(LAUNCHES)
+    del params, prefill
+    torch.cuda.empty_cache()
+    return out
+
+
+def tps_check(dev, smi: str, tps) -> None:
+    """Phase 15(f) against one device: the same seeded parameters whole on
+    the card through ``make_prefill_step`` and ``decode_step``. Every
+    rank's outputs the same bits; in fp32 the greedy tokens equal and every
+    logit within ``TP_LOSS_TOL``; in bf16 each output no further from the
+    fp32 one-device logits than ``SEQ_BF16_RATIO`` x the one-device bf16
+    run's; at full depth the prefill and decode times and the peak a rank
+    beside one device's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+
+    first = tps[0]
+    for rank, r in enumerate(tps):
+        for key in ("float32", "bfloat16"):
+            for item in ("prefill", "tokens", "rows", f"row_{(1, SYNC_RANKS)}", "row_(2, 2)"):
+                a, b = r[key][item], first[key][item]
+                a, b = (a[0], b[0]) if isinstance(a, tuple) else (a, b)
+                if not np_same_bits(np.asarray(a), np.asarray(b)):
+                    raise AssertionError(f"tps rank {rank}: {key} {item} differs from rank 0's")
+    inputs = {k: v.to(dev) for k, v in tps_inputs(tps_config("float32", 1).vocab_size).items()}
+
+    one = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = tps_config(dtype, REMAT_LAYERS)
+        params = seeded_params(cfg, dev)
+        o = one[dtype] = {}
+        o["prefill"] = make_prefill_step(cfg, device=dev)(
+            params, {"tokens": inputs["prefill"]}).float().cpu()
+        o["tokens"], o["greedy"], _ = greedy_logits(
+            one_device_decode(cfg), params,
+            tfm.init_cache(cfg, 4, MESH_DECODE_CACHE, device=dev),
+            inputs["prompt"], DECODE_STEPS)
+        for key, rows, length in (("rows", 4, MESH_DECODE_CACHE), ("row", 1, ATTN_S)):
+            cache = seeded_cache(cfg, length - 1, dev, batch=rows, length=length)
+            o[key] = tfm.decode_step(params, cfg, cache, inputs[key], length - 1)[0].float().cpu()
+            del cache
+        del params
+        torch.cuda.empty_cache()
+
+    def pairs(key):
+        """(label, mesh output, one-device output) of every held output."""
+        m, o = first[key], one[key]
+        return [(label, torch.as_tensor(a), b) for label, a, b in (
+            ("prefill (1, 4)", m["prefill"], o["prefill"]),
+            ("greedy (1, 4), last prompt position", m["greedy"][0], o["greedy"][0]),
+            ("4-row step (2, 2)", m["rows"], o["rows"]),
+            ("1-row step (1, 4)", m[f"row_{(1, SYNC_RANKS)}"][0], o["row"]),
+            ("1-row step (2, 2)", m["row_(2, 2)"][0], o["row"]))]
+
+    if not np.array_equal(first["float32"]["tokens"], one["float32"]["tokens"].numpy()):
+        raise AssertionError(f"tps fp32 greedy tokens {first['float32']['tokens'].tolist()} "
+                             f"differ from one device's {one['float32']['tokens'].tolist()}")
+    fp32 = {}
+    for label, m, o in pairs("float32"):
+        fp32[label] = float((m - o).abs().max())
+        if not fp32[label] <= TP_LOSS_TOL:
+            raise AssertionError(f"tps fp32 {label}: max |mesh - one device| {fp32[label]}")
+    bf16 = {}
+    for (label, m, o), (_, _, o32) in zip(pairs("bfloat16"), pairs("float32")):
+        bf16[label] = (float((m - o32).abs().max()), float((o - o32).abs().max()))
+        if not bf16[label][0] <= SEQ_BF16_RATIO * bf16[label][1]:
+            raise AssertionError(f"tps bf16 {label}: {bf16[label][0]} off fp32, above "
+                                 f"{SEQ_BF16_RATIO} x the one device's {bf16[label][1]}")
+    agree = float(np.mean(first["bfloat16"]["tokens"] == one["bfloat16"]["tokens"].numpy()))
+    held = {k: [r[k]["held"] for r in tps] for k in ("float32", "bfloat16")}
+    log(f"check tps {FSDP_ARCH} ({REMAT_LAYERS} of 28 layers) served on compute blocks, 4 gloo "
+        f"ranks on one card, every rank the same bits; bytes a rank (1, 4) / (2, 2): fp32 "
+        f"{held['float32'][0][(1, SYNC_RANKS)]:,} / {held['float32'][0][(2, 2)]:,}, bf16 "
+        f"{held['bfloat16'][0][(1, SYNC_RANKS)]:,} / {held['bfloat16'][0][(2, 2)]:,} (the plan's "
+        f"blocks, asserted in each rank); caches: greedy {first['float32']['greedy_spec']}, "
+        f"4 rows {first['float32']['rows_spec']}, 1 row (1, 4) "
+        f"{first['float32'][f'row_{(1, SYNC_RANKS)}'][1]}, (2, 2) "
+        f"{first['float32']['row_(2, 2)'][1]}; fp32: {DECODE_STEPS} greedy tokens of 4 slots "
+        f"equal one device's, max |mesh - one device| "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in fp32.items()})} (bar {TP_LOSS_TOL}); "
+        f"bf16 max |x - fp32 one device| (mesh, one device) "
+        f"{json.dumps({k: [float(f'{x:.3g}') for x in v] for k, v in bf16.items()})} (bar "
+        f"{SEQ_BF16_RATIO} x one device's); bf16 greedy tokens agreeing with one device's "
+        f"{agree:.3f}")
+    # the full-depth bf16 run on one device
+    cfg = tps_config("bfloat16", TPS_FULL_LAYERS)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    params = seeded_params(cfg, dev)
+    whole = nbytes(params)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prefill = make_prefill_step(cfg, device=dev)(params, {"tokens": inputs["prefill"]})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks, _, decode_ms = greedy_logits(one_device_decode(cfg), params,
+                                       tfm.init_cache(cfg, 4, MESH_DECODE_CACHE, device=dev),
+                                       inputs["prompt"], TPS_FULL_NEW)
+    peak = torch.cuda.max_memory_allocated() - live
+    full = [r["full"] for r in tps]
+    for rank, f in enumerate(full):
+        if not (np.isfinite(f["prefill"]).all() and f["prefill"].shape == prefill.shape):
+            raise AssertionError(f"tps full depth rank {rank}: prefill logits "
+                                 f"{f['prefill'].shape} not finite")
+        if not np_same_bits(f["prefill"], full[0]["prefill"]):
+            raise AssertionError(f"tps full depth rank {rank}: prefill differs from rank 0's")
+    prefill = prefill.float().cpu().numpy()
+    gap = float(np.abs(full[0]["prefill"] - prefill).max())
+    next_equal = float(np.mean(full[0]["prefill"].argmax(-1) == prefill.argmax(-1)))
+    log(f"tps {FSDP_ARCH} at full depth ({TPS_FULL_LAYERS} layers, bf16, {whole:,} B whole) on "
+        f"(data=1, model=4), 4 gloo ranks on one card: each rank holds "
+        f"{', '.join(f'{f['held']:,}' for f in full)} B ({full[0]['held'] / whole:.4f} of the "
+        f"whole); peak a rank {', '.join(f'{f['peak'] / 1e9:.2f}' for f in full)} GB against one "
+        f"device's {peak / 1e9:.2f} GB; prefill B = {TPS_PREFILL[0]} x {TPS_PREFILL[1]} host ms "
+        f"{', '.join(f'{f['prefill_ms']:.1f}' for f in full)} (one device {prefill_ms:.1f}); "
+        f"decode of 4 slots, ms a token {', '.join(f'{f['decode_ms']:.1f}' for f in full)} (one "
+        f"device {decode_ms:.1f}); max |mesh - one device| of the prefill's logits {gap:.3g}, "
+        f"next tokens equal {next_equal:.3f}, {TPS_FULL_NEW} greedy tokens agreeing "
+        f"{float(np.mean(full[0]['tokens'] == toks.numpy())):.3f} ({smi})")
+    del params, prefill
+    torch.cuda.empty_cache()
 
 
 def host_leaves(tree, placements, keep: bool):
@@ -3178,14 +3509,8 @@ def serve_mesh_rank(rank, group, device, payload):
         """Greedy decode of the global ``prompt`` rows; a batch-sharded
         step's logits are gathered (``gather_batch``) into the next global
         tokens."""
-        toks = []
-        for pos in range(prompt.shape[1] + n_new - 1):
-            tok = prompt[:, pos] if pos < prompt.shape[1] else toks[-1]
-            logits, cache = serve(p, cache, tok, pos)
-            logits = gather_batch(logits, mesh, prompt.shape[0])
-            if pos >= prompt.shape[1] - 1:
-                toks.append(torch.argmax(logits, dim=-1).cpu())
-        return torch.stack(toks, dim=1)
+        gather = functools.partial(gather_batch, mesh=mesh, batch=prompt.shape[0])
+        return greedy_logits(serve, p, cache, prompt.to(device), n_new, gather)[0]
 
     prompt = torch.as_tensor(payload["decode"])
     serve, spec, pls = make_serve_step(
@@ -3225,15 +3550,15 @@ def serve_mesh_rank(rank, group, device, payload):
     return out
 
 
-def seeded_cache(cfg, filled: int, dev):
-    """A one-row decode cache of ATTN_S positions whose first ``filled``
-    positions hold k / v drawn from a seed (the size of the model's own
-    keys and values), the rest zero."""
+def seeded_cache(cfg, filled: int, dev, batch: int = 1, length=None):
+    """A decode cache of ``batch`` rows and ``length`` positions (ATTN_S by
+    default) whose first ``filled`` positions hold k / v drawn from a seed
+    (the size of the model's own keys and values), the rest zero."""
     import torch
 
     from repro_torch.models import transformer as tfm
 
-    cache = tfm.init_cache(cfg, 1, ATTN_S, device="cpu")
+    cache = tfm.init_cache(cfg, batch, ATTN_S if length is None else length, device="cpu")
     gen = torch.Generator().manual_seed(21)
     for layer in cache.values():
         for x in layer.values():
@@ -3308,7 +3633,7 @@ def mesh_phase(dev, smi):
             raise AssertionError(f"fsdp {c['agg']}: the kernel route is off the plain route")
     if [c["agg"] for c in ranks[0]["checks"]] != [agg for agg, _ in FSDP_RUNS]:
         raise AssertionError(f"fsdp: checked {ranks[0]['checks']}, expected one step a rule")
-    log(f"fsdp phase (a) and (e) ran in {time.perf_counter() - t0:.1f} s, spawn included")
+    log(f"fsdp phase (a), (e) and (f) ran in {time.perf_counter() - t0:.1f} s, spawn included")
 
     # (e) the same group on (data=1, model=4): compute along the model axis
     launches["tp_train"] = {k: 0 for k in LAUNCHES}
@@ -3369,6 +3694,14 @@ def mesh_phase(dev, smi):
         if not one["agg_err"] <= TP_AGG_RTOL:
             raise AssertionError(f"tp {agg}: aggregate off the one-device step's by "
                                  f"{one['agg_err']}")
+
+    # (f) the same group serving gemma-7b on compute blocks
+    t0 = time.perf_counter()
+    launches["serve_tp"] = {k: sum(r["tps"]["counts"][k] for r in ranks) for k in LAUNCHES}
+    if any(launches["serve_tp"].values()):
+        raise AssertionError(f"serve tp: kernels launched {launches['serve_tp']}")
+    tps_check(dev, smi, [r["tps"] for r in ranks])
+    log(f"tps checks on one device ran in {time.perf_counter() - t0:.1f} s")
 
     # (b) + (d) the smoke-width step on both meshes
     launches["fsdp_smoke"] = {k: 0 for k in LAUNCHES}
@@ -3452,14 +3785,9 @@ def mesh_phase(dev, smi):
 
     def loop(c, p, prompt, n_new, cache_len):
         """The one-device greedy loop over ``decode_step``."""
-        cache = tfm.init_cache(c, prompt.shape[0], cache_len, device=dev)
-        toks = []
-        for pos in range(prompt.shape[1] + n_new - 1):
-            tok = prompt[:, pos].to(dev) if pos < prompt.shape[1] else toks[-1].to(dev)
-            logits, cache = tfm.decode_step(p, c, cache, tok, pos)
-            if pos >= prompt.shape[1] - 1:
-                toks.append(torch.argmax(logits, dim=-1).cpu())
-        return torch.stack(toks, dim=1).numpy()
+        return greedy_logits(one_device_decode(c), p,
+                             tfm.init_cache(c, prompt.shape[0], cache_len, device=dev),
+                             prompt.to(dev), n_new)[0].numpy()
 
     wide = loop(cfg, params, payload["decode"], DECODE_STEPS, MESH_DECODE_CACHE)
     rows = np.concatenate([loop(cfg, params, payload["decode"][i:i + 1], DECODE_STEPS,

@@ -268,6 +268,16 @@ def compute_shardings(cfg, params_shape, mesh):
     return tree_map_with_path(one, params_shape)
 
 
+def compute_blocks(cfg, params, mesh):
+    """This rank's compute blocks of a tree of whole parameters (or of a
+    checkpoint's whole leaves, ``training/checkpoint.py``), by the plan
+    ``compute_shardings``: each split leaf cut to a tensor of its own
+    (``Placement.local``), each whole leaf as it is. What
+    ``steps.make_prefill_step`` and ``make_serve_step`` take on a mesh
+    whose model axis has more than one rank."""
+    return tree_map(lambda x, pl: pl.local(x), params, compute_shardings(cfg, params, mesh))
+
+
 def batch_spec(mesh) -> Spec:
     """Global batch dim over all worker axes."""
     w = tuple(a for a in ("pod", "data") if a in mesh.axis_names)

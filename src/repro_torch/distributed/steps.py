@@ -48,7 +48,12 @@ decodes one token against a cache placed by ``sharding.cache_shardings``:
 batch-sharded (each rank its own rows), or for a batch smaller than the
 workers sequence-sharded over ``data`` with the heads over ``model``,
 where each rank attends over its own positions and the partial softmax
-statistics are combined across ranks (``_softmax_across``).
+statistics are combined across ranks (``_softmax_across``). Where the
+``model`` axis has T > 1 ranks both steps take this rank's compute blocks
+of the parameters (``sharding.compute_blocks``), as the reference's
+jitted steps take its model-sharded parameters: the ranks of a model
+group compute along it (``models/parallel.py``), and every one of them
+returns the logits of all V.
 
 Momentum modes (the reference's DESIGN.md §5):
   worker : Algorithm 2, per-worker momentum leaves [W, ...] (fp32), each
@@ -325,6 +330,30 @@ def make_train_step(
     return step_fn, state
 
 
+# ---------------------------------------------------------- serving blocks
+def _serving_axis(cfg, m) -> Tuple[Any, Callable]:
+    """The model axis a serving step computes along on mesh ``m`` (``None``
+    with one model rank or no mesh), and a check that the ``params`` it is
+    handed are this rank's compute blocks: each leaf of the shape the plan
+    gives it (``sharding.compute_shardings``)."""
+    ax = None if m is None else ModelAxis.of(cfg, m)
+    if ax is None:
+        return None, lambda params: None
+    specs = tfm.params_shape(cfg)
+    want = [pl.local_shape(s.shape) for s, pl in zip(
+        tree_flatten(specs)[0], tree_flatten(compute_shardings(cfg, specs, m))[0])]
+
+    def check(params):
+        got = [tuple(x.shape) for x in tree_flatten(params)[0]]
+        if got != want:
+            raise ValueError(
+                f"on a mesh whose model axis has {ax.size} ranks the serving steps take this "
+                "rank's compute blocks of the parameters: cut them with "
+                "sharding.compute_blocks(cfg, params, mesh)")
+
+    return ax, check
+
+
 # ------------------------------------------------------------ prefill step
 def make_prefill_step(cfg, mesh=None, last_only: bool = True, device=None) -> Callable:
     """Serving prefill: ``prefill(params, batch) -> fp32 logits``.
@@ -332,16 +361,24 @@ def make_prefill_step(cfg, mesh=None, last_only: bool = True, device=None) -> Ca
     logits a server needs ([B, 1, V]); the full-sequence [B, S, V] fp32
     logits would dominate peak memory. ``batch["tokens"]`` ([B, S] ints;
     [B, K, S] for codebooks) and ``batch["prefix_embeds"]`` ([B, n_prefix,
-    D], optional) are moved to ``device``, where the parameters must lie
-    (whole on every rank).
+    D], optional) are moved to ``device``, where the parameters must lie.
+    It records no autograd state.
 
     On a mesh the B rows split over the worker axes (``batch_shardings``),
     each rank prefills its own and returns their logits; ``gather_batch``
-    puts the ``[B, ...]`` logits together."""
+    puts the ``[B, ...]`` logits together. ``params`` are whole on every
+    rank where the mesh's model axis has one rank; where it has T > 1 they
+    are this rank's compute blocks (``sharding.compute_blocks``; whole
+    parameters raise a ``ValueError``): the forward runs on them along the
+    model axis, and every rank of a model group returns the logits of all
+    V of its rows."""
     dev = resolve_device(device)
     m = None if mesh is None else as_mesh(mesh)
+    ax, check = _serving_axis(cfg, m)
 
+    @torch.no_grad()
     def prefill(params, batch):
+        check(params)
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         prefix = batch.get("prefix_embeds")
         if prefix is not None:
@@ -350,50 +387,79 @@ def make_prefill_step(cfg, mesh=None, last_only: bool = True, device=None) -> Ca
             rows = Placement(m, (_rows_entry(m, tokens.shape[0]),))
             tokens = rows.local(tokens)
             prefix = None if prefix is None else rows.local(prefix)
-        h, _ = tfm.forward_hidden(params, cfg, tokens, prefix_embeds=prefix)
+        h, _ = tfm.forward_hidden(params, cfg, tokens, prefix_embeds=prefix, ax=ax)
         if last_only:
             h = h[:, -1:]
-        return tfm.unembed(params, cfg, h)
+        return tfm.unembed(params, cfg, h, ax)
 
     return prefill
 
 
 # ------------------------------------------------------------- decode step
+def block_stats(logits: torch.Tensor) -> torch.Tensor:
+    """A cache block's softmax statistics: per row and head the max of its
+    fp32 logits ``[B, h, 1, l]`` and the sum of their exponentials after
+    it, as ``[2 * B * h]`` (the maxes, then the sums). A block with no
+    valid slot has max NEG_INF; its sum is scaled by exp(NEG_INF - max) =
+    0 where the blocks meet (``merge_stats``)."""
+    m_loc = torch.amax(logits, dim=-1, keepdim=True)
+    l_loc = torch.sum(torch.exp(logits - m_loc), dim=-1, keepdim=True)
+    return torch.cat([m_loc.reshape(-1), l_loc.reshape(-1)])
+
+
+def merge_stats(stats: torch.Tensor, B: int, h: int):
+    """The max and the sum of exponentials over all positions from every
+    block's ``block_stats`` stacked in rank order (``[n, 2 B h]``): the max
+    of the maxes, then each block's sum rescaled to it, summed in rank
+    order. Each ``[B, h, 1, 1]``."""
+    m_r = stats[:, :B * h].reshape(-1, B, h, 1, 1)
+    l_r = stats[:, B * h:].reshape(-1, B, h, 1, 1)
+    m_all = torch.amax(m_r, dim=0)
+    return m_all, torch.sum(torch.exp(m_r - m_all) * l_r, dim=0)
+
+
+def block_values(logits, v_e, m_all, l_all, dtype) -> torch.Tensor:
+    """A block's share of the attention output ``[B, 1, h, dh]``, fp32: its
+    probabilities ``exp(logits - m_all) / l_all`` rounded to ``dtype``, as
+    ``attention.softmax_values`` rounds them, times its values, summed in
+    fp32."""
+    probs = (torch.exp(logits - m_all) / l_all).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v_e.float())
+
+
 def _softmax_across(pl: Placement) -> Callable:
     """The ``attention.decode_attention`` combine for a KV cache block
     whose positions (dim 2 of the stacked cache) and heads (dim 3) ``pl``
     may split over ranks.
 
     Over the position ranks each rank's logits give, per head, a partial
-    max and a partial sum of exponentials; one gather brings every rank's
-    two, and each rank finds the max, then the sum rescaled to it, in rank
-    order. The probabilities are rounded to the cache dtype, as
-    ``softmax_values`` rounds them, and each rank's values weighted by them
-    are summed in fp32; a second gather sums those in rank order and
+    max and a partial sum of exponentials (``block_stats``); one gather
+    brings every rank's two, and each rank finds the max, then the sum
+    rescaled to it, in rank order (``merge_stats``). The probabilities are
+    rounded to the cache dtype, as ``softmax_values`` rounds them, and each
+    rank's values weighted by them are summed in fp32 (``block_values``);
+    a second gather sums those in rank order (``combine.fp32_sums``) and
     rounds once, so every rank holds the same bits. The heads' outputs are
-    then gathered over the head ranks."""
+    then gathered over the head ranks. One device sums all positions'
+    products in one fp32 accumulation and rounds once: the two agree but
+    for the order of the fp32 sums, and of the probabilities' own fp32
+    rounding before their cast (``tests/test_torch_tp_serving.py``)."""
     m = pl.mesh
     seq = Placement(m, (pl.spec[2],))  # a leading dim over the position ranks
     heads = Placement(m, (None, None, pl.spec[3]))
 
+    def fp32_sums(logits, v_e, dtype):
+        B, h = logits.shape[:2]
+        m_all, l_all = merge_stats(seq.gather(block_stats(logits)[None]), B, h)
+        part = block_values(logits, v_e, m_all, l_all, dtype)
+        return torch.sum(seq.gather(part[None]), dim=0)
+
     def combine(logits, v_e, dtype):
         if seq.parts(0) == 1:
             return heads.gather(attn_mod.softmax_values(logits, v_e, dtype))
-        B, h = logits.shape[:2]
-        m_loc = torch.amax(logits, dim=-1, keepdim=True)  # [B, h, 1, 1]
-        # a block with no valid slot has m_loc = NEG_INF, and its sum is
-        # scaled by exp(NEG_INF - max) = 0 below
-        l_loc = torch.sum(torch.exp(logits - m_loc), dim=-1, keepdim=True)
-        stats = seq.gather(torch.cat([m_loc.reshape(-1), l_loc.reshape(-1)])[None])
-        m_r = stats[:, :B * h].reshape(-1, B, h, 1, 1)  # [n, ...] in rank order
-        l_r = stats[:, B * h:].reshape(-1, B, h, 1, 1)
-        m_all = torch.amax(m_r, dim=0)
-        l_all = torch.sum(torch.exp(m_r - m_all) * l_r, dim=0)
-        probs = (torch.exp(logits - m_all) / l_all).to(dtype)
-        part = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v_e.float())
-        out = torch.sum(seq.gather(part[None]), dim=0).to(dtype)
-        return heads.gather(out)
+        return heads.gather(fp32_sums(logits, v_e, dtype).to(dtype))
 
+    combine.fp32_sums = fp32_sums
     return combine
 
 
@@ -405,17 +471,25 @@ def make_serve_step(cfg, mesh, shape, device=None) -> Tuple[Callable, Any, Any]:
     ``cache_placements`` its ``Placement`` tree (``cache_shardings``;
     ``sharding.local_zeros`` builds this rank's empty blocks).
 
-    ``params`` are whole on every rank; ``cache`` is this rank's blocks;
-    ``token`` the global ``[B]`` (``[B, K]``) tokens. Where the worker
-    groups divide B the cache is batch-sharded and each rank decodes its
-    own rows, returning their logits (``gather_batch``); else (batch 1,
-    long context) the KV cache is sequence-sharded over ``data`` with the
-    heads over ``model`` and every rank returns all B rows' logits, the
-    attention crossing the ranks (``_softmax_across``). A cache
-    dim the rules place elsewhere (an SSM state's channels, a head dim)
-    is gathered for the step and cut again after it."""
+    ``params`` are whole on every rank where the mesh's model axis has one
+    rank, and this rank's compute blocks (``sharding.compute_blocks``;
+    whole parameters raise a ``ValueError``) where it has T > 1: the
+    embedding, the attention layers, MLPs and head the plan splits run on
+    them along the model axis (``attention.decode_attention``'s ``ax``),
+    and every rank of a model group returns the logits of all V.
+    ``cache`` is this rank's blocks; ``token`` the global ``[B]`` (``[B,
+    K]``) tokens. Where the worker groups divide B the cache is
+    batch-sharded and each rank decodes its own rows, returning their
+    logits (``gather_batch``); else (batch 1, long context) the KV cache
+    is sequence-sharded over ``data`` with the heads over ``model`` and
+    every rank returns all B rows' logits, the attention crossing the
+    ranks (``_softmax_across``). A cache dim the rules place elsewhere (an
+    SSM state's channels, a head dim) is gathered for the step and cut
+    again after it."""
     dev = resolve_device(device)
     m = as_mesh(mesh)
+    ax, check = _serving_axis(cfg, m)
+    attn_ax = ax if ax is not None and ax.attn else None
     B = shape.global_batch
     cache_spec = tfm.cache_shape(cfg, B, shape.seq_len)
     placements = cache_shardings(cache_spec, m, B)
@@ -442,14 +516,16 @@ def make_serve_step(cfg, mesh, shape, device=None) -> Tuple[Callable, Any, Any]:
 
     def attend(i, p, x, layer_cache, position):
         return attn_mod.decode_attention(p, x, layer_cache, cfg, position, span=spans[str(i)],
-                                         combine=combines[str(i)])
+                                         combine=combines[str(i)], ax=attn_ax)
 
+    @torch.no_grad()
     def serve(params, cache, token, position):
+        check(params)
         token = rows.local(torch.as_tensor(token, device=dev))
         whole = tree_map_with_path(lambda path, x: pl_at[path].gather(x, dims=gathered[path]),
                                    cache)
         logits, new = tfm.decode_step(params, cfg, whole, token, position,
-                                      attend=attend if spread else None)
+                                      attend=attend if spread else None, ax=ax)
         new = tree_map_with_path(lambda path, x: pl_at[path].local(x, dims=gathered[path]), new)
         return logits, new
 

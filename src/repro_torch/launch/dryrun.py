@@ -14,10 +14,13 @@ Nothing runs on a card and no other rank exists:
 - the step runs under ``FakeTensorMode`` on fake CUDA tensors, which carry
   shapes and dtypes and hold no memory; parameters, optimizer state and
   worker momenta come from the port's own init, cut to this rank's blocks
-  by ``distributed/sharding.py``. A CPU-only build of PyTorch cannot copy
-  even a fake tensor to CUDA (``.to("cuda")`` raises), so there the same
-  trace runs on fake CPU tensors (``trace_device``): shapes, dtypes, bytes,
-  operations and collectives are the same;
+  by ``distributed/sharding.py``; a serving step's parameters are this
+  rank's compute blocks (``sharding.compute_shardings``), made as fresh
+  tensors, so its ``argument`` prices what a serving rank holds. A
+  CPU-only build of PyTorch cannot copy even a fake tensor to CUDA
+  (``.to("cuda")`` raises), so there the same trace runs on fake CPU
+  tensors (``trace_device``): shapes, dtypes, bytes, operations and
+  collectives are the same;
 - the kernel wrappers, handed a fake tensor, launch nothing and record the
   call's bytes and operations (``kernels/cost.py``).
 
@@ -174,20 +177,23 @@ def make_step(cfg, shape, mesh, byz, dev):
     arguments (this rank's blocks), made inside the caller's fake mode;
     ``run()`` returns the step's outputs."""
     from repro_torch.distributed import steps
-    from repro_torch.distributed.sharding import local_zeros
+    from repro_torch.distributed.sharding import compute_shardings, local_zeros
     from repro_torch.models import transformer as tfm
 
     specs = steps.input_specs(cfg, shape)
-    gen = torch.Generator()  # draws on the (fake) CPU; init moves them to dev
     if shape.kind == "train":
         step_fn, state = steps.make_train_step(cfg, byz, mesh, device=dev)
-        params = state["init_params"](gen)
+        # draws on the (fake) CPU; init moves them to dev
+        params = state["init_params"](torch.Generator())
         opt_state = state["init_opt_state"](params)
         worker_m = state["init_worker_m"](params)
         batch = _zeros(specs, dev)
         args = (params, opt_state, worker_m, None, batch)
         return (lambda: step_fn(*args)), args
-    params = tfm.init_params(cfg, gen, device=dev)
+    # serving: this rank's compute blocks, fresh tensors (whole leaves
+    # where the model axis has one rank)
+    specs_p = tfm.params_shape(cfg)
+    params = local_zeros(specs_p, compute_shardings(cfg, specs_p, mesh), device=dev)
     if shape.kind == "prefill":
         prefill = steps.make_prefill_step(cfg, mesh, device=dev)
         batch = _zeros(specs, dev)

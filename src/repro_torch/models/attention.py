@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -197,7 +198,7 @@ def softmax_values(logits: torch.Tensor, v_e: torch.Tensor, dtype) -> torch.Tens
 
 
 def decode_attention(p, x, cache, cfg, position: int, span=None,
-                     combine: Optional[Callable] = None) -> Tuple[torch.Tensor, dict]:
+                     combine: Optional[Callable] = None, ax=None) -> Tuple[torch.Tensor, dict]:
     """One-token decode. x: [B, 1, D]; cache k/v: [B, L, KV, dh];
     position: int, the absolute position of the new token.
 
@@ -211,6 +212,15 @@ def decode_attention(p, x, cache, cfg, position: int, span=None,
     block holds the slot. ``combine(logits, v_e, dtype)`` then turns the
     block's logits and values into the output of all ``n_heads`` heads
     (``softmax_values``, the default, for a whole cache).
+
+    On a model axis ``ax`` that splits the attention, ``p`` holds this
+    rank's compute blocks: the token's q heads, and its kv heads where the
+    plan splits them (else wk / wv are whole and so are k / v), come from
+    them and are gathered into all heads (``parallel.gather_heads``), so
+    one route serves any cache block the placement rules give a rank
+    (positions, kv heads or neither over the model axis); this rank's q
+    heads of the output then meet its rows of wo, and the products are
+    summed over the model group.
     """
     B = x.shape[0]
     H, dh = cfg.n_heads, cfg.head_dim_
@@ -220,6 +230,10 @@ def decode_attention(p, x, cache, cfg, position: int, span=None,
     (l0, l1, L), (k0, k1) = span
     pos_arr = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, pos_arr)
+    if ax is not None and ax.kv:
+        q, k_new, v_new = parallel.gather_heads(ax, q, k_new, v_new)
+    elif ax is not None:  # wk / wv whole: k / v hold every kv head already
+        (q,) = parallel.gather_heads(ax, q)
 
     slot = position % L
     k = cache["k"].clone()
@@ -243,5 +257,8 @@ def decode_attention(p, x, cache, cfg, position: int, span=None,
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k_e).float() * scale
     logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
     out = (combine or softmax_values)(logits, v_e, x.dtype)
-    out = out.reshape(B, 1, H * dh) @ p["wo"]
-    return out, {"k": k, "v": v}
+    if ax is None:
+        return out.reshape(B, 1, H * dh) @ p["wo"], {"k": k, "v": v}
+    h0 = ax.index * H // ax.size  # this rank's q heads, its rows of wo
+    out = out[:, :, h0:h0 + H // ax.size].reshape(B, 1, -1) @ p["wo"]
+    return ax.reduce_out(out), {"k": k, "v": v}

@@ -37,9 +37,21 @@ the target logit (one all-reduce of both); it saves the rank's fp32
 logits ``[N, V/T]`` and recomputes the softmax from them in the backward,
 as Megatron's ``_VocabParallelCrossEntropy`` does.
 
-Every collective is an ``all_reduce`` over the model group, entered by
-every rank of the group in the same order, so a period recomputed in the
-backward (``remat="full"``) replays them alike on every rank.
+Every collective of the training forward and backward is an
+``all_reduce`` over the model group, entered by every rank of the group in
+the same order, so a period recomputed in the backward (``remat="full"``)
+replays them alike on every rank.
+
+Serving (a forward without grad: the prefill and the decode step) runs on
+the same blocks and adds two all-gathers over the model group, each
+entered by every rank in the same order and concatenating the blocks in
+rank order: ``gather_vocab``, the logits of this rank's vocab block into
+all V as fp32 (each codebook's on the last dim), and ``gather_heads``, a
+decode token's head blocks into all heads (``attention.decode_attention``
+attends over a cache block whose heads or positions need not be the
+rank's). Under gloo a CUDA block is staged through host memory
+(``sharding._gather_along``), so both stay one token's or one position's
+size.
 """
 
 from __future__ import annotations
@@ -49,6 +61,8 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed.sharding import _gather_along
 
 
 def model_split(cfg, T: int) -> Dict[str, bool]:
@@ -92,6 +106,26 @@ class ModelAxis:
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         """Megatron's g: ``x`` summed over the group; its gradient as it is."""
         return _ReduceOut.apply(x, self.group)
+
+
+def gather_vocab(ax: ModelAxis, logits: torch.Tensor) -> torch.Tensor:
+    """All V logits on every rank of the group from each rank's vocab
+    block on the last dim (``[..., V/T]``: ``[B, S, V/T]``, or ``[B, S, K,
+    V/T]`` for codebooks), in rank order, as fp32."""
+    return _gather_along(logits.float(), logits.dim() - 1, ax.group)
+
+
+def gather_heads(ax: ModelAxis, *blocks: torch.Tensor):
+    """Each of ``blocks`` (``[..., h / T, dh]``: this rank's heads of a
+    decode token's q, k or v) with all its heads, in rank order: one
+    all-gather of the blocks side by side, split back."""
+    flat = [b.flatten(-2) for b in blocks]
+    widths = [f.shape[-1] for f in flat]
+    lead = tuple(flat[0].shape[:-1])
+    got = _gather_along(torch.cat(flat, dim=-1), 0, ax.group)  # [T * lead[0], ...]
+    parts = got.reshape((ax.size,) + lead + (sum(widths),)).split(widths, dim=-1)
+    return [part.movedim(0, -2).reshape(lead + (-1, b.shape[-1]))
+            for part, b in zip(parts, blocks)]
 
 
 def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

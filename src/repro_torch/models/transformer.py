@@ -141,16 +141,23 @@ def embed_tokens(params, cfg, tokens, ax=None) -> torch.Tensor:
     return params["embed"][tokens]
 
 
-def unembed(params, cfg, h) -> torch.Tensor:
-    if cfg.n_codebooks:
-        logits = torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
-    elif cfg.tie_embeddings:
-        logits = h @ params["embed"].T
-    else:
-        logits = h @ params["lm_head"]
-    logits = logits.float()
+def _head_form(cfg) -> str:
+    return "books" if cfg.n_codebooks else ("tied" if cfg.tie_embeddings else "head")
+
+
+def unembed(params, cfg, h, ax=None) -> torch.Tensor:
+    """fp32 logits ``[B, S, V]`` (``[B, S, K, V]`` for codebooks) of the
+    stream ``h``, softcapped. On a model axis ``ax`` that splits the vocab
+    (a forward without grad), from this rank's vocab block of the head,
+    the blocks' logits gathered into all V on every rank
+    (``parallel.gather_vocab``)."""
+    form = _head_form(cfg)
+    w = params["embed"] if form == "tied" else params["lm_head"]
+    logits = parallel._local_logits(form, h, w).float()
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    if ax is not None and ax.vocab:
+        logits = parallel.gather_vocab(ax, logits)
     return logits
 
 
@@ -294,7 +301,7 @@ def loss_fn(params, cfg, batch, ax=None) -> Tuple[torch.Tensor, Dict[str, torch.
     valid = labels != -100
     labels_c = torch.clamp(labels, min=0)
     if vocab_split:
-        form = "books" if cfg.n_codebooks else ("tied" if cfg.tie_embeddings else "head")
+        form = _head_form(cfg)
         w = params["embed"] if form == "tied" else params["lm_head"]
         nll = parallel.vocab_parallel_nll(ax, h, w, labels_c, form, cfg.logit_softcap)
     else:
@@ -346,14 +353,19 @@ def cache_shape(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
 
 
 def decode_step(params, cfg, cache, token, position: int,
-                attend=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                attend=None, ax=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode. token: [B] int ([B, K] for codebooks); position:
     int. Returns (logits [B, V] or [B, K, V], new cache); the cache passed
     in is left as it was. A MoE layer routes the B decode tokens together
     and its aux is discarded. ``attend(i, p, x, cache, position)`` takes
     the place of ``attention.decode_attention`` for pattern index ``i``
-    (the cache sharded over ranks: ``distributed/steps.py``)."""
-    h = embed_tokens(params, cfg, token)[:, None, :]
+    (the cache sharded over ranks: ``distributed/steps.py``). On a model
+    axis ``ax`` ``params`` are this rank's compute blocks: the embedding,
+    the attention layers ``ax`` splits (through ``attend`` where given),
+    the MLPs and the head run on them, and the logits of all V come back
+    on every rank of the model group."""
+    h = embed_tokens(params, cfg, token, ax)[:, None, :]
+    attn_ax = ax if ax is not None and ax.attn else None
     new_cache = []
     for p in range(cfg.n_periods):
         lp_p, cache_p = _period(params["blocks"], p), _period(cache, p)
@@ -365,11 +377,11 @@ def decode_step(params, cfg, cache, token, position: int,
                 out, nc[str(i)] = attend(i, lp["mixer"], x, cache_p[str(i)], position)
             elif mixer == "attn":
                 out, nc[str(i)] = attn_mod.decode_attention(lp["mixer"], x, cache_p[str(i)],
-                                                            cfg, position)
+                                                            cfg, position, ax=attn_ax)
             else:
                 out, nc[str(i)] = ssm_mod.decode_ssm(lp["mixer"], x, cache_p[str(i)], cfg)
-            h, _ = _feed_forward(lp, h + out, ff, cfg)
+            h, _ = _feed_forward(lp, h + out, ff, cfg, ax)
         new_cache.append(nc)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = unembed(params, cfg, h)  # [B, 1, ...]
+    logits = unembed(params, cfg, h, ax)  # [B, 1, ...]
     return logits[:, 0], tree_map(lambda *xs: torch.stack(xs), *new_cache)

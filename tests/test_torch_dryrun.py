@@ -8,6 +8,7 @@ period for the hybrid), since a full-depth 32k-token prefill dispatches
 millions of fake ops; ``chip_smoke.py`` runs the CLI at full depth.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -280,3 +281,35 @@ def test_local_cuts_only_the_named_dims(fake_group):
     assert torch.equal(pl.local(x, dims=[2]), x[:, :, 4:])
     with pytest.raises(ValueError):
         pl.local(x)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_serving_argument_is_the_compute_blocks(fake_group, shape):
+    """gemma-7b at full width, 2 of 28 layers, on the fake (16, 16) mesh: the
+    serving steps trace on this rank's compute blocks, made as fresh
+    tensors, and their ``argument`` bytes are exactly those blocks (16 / 16
+    heads and kv heads, d_ff and the vocab split, the norms whole), this
+    rank's cache blocks and the batch, so the parameters a rank holds fall
+    below a fifteenth of the whole. The attention's blocks are widened to
+    8,192 positions so the 32k prefill traces in seconds (they change its
+    temporaries, not its arguments)."""
+    fake_group(256, rank=17)
+    mesh = make_production_mesh(dist.group.WORLD)
+    overrides = {"n_layers": 2, "attn_block_q": 8192, "attn_block_kv": 8192}
+    result = dryrun.dryrun_one("gemma-7b", shape, verbose=False, overrides=overrides)
+    cfg = dataclasses.replace(get_config("gemma-7b"), **overrides)
+    inputs = INPUT_SHAPES[shape]
+    specs = tfm.params_shape(cfg)
+    blocks = sum(math.prod(pl.local_shape(s.shape)) * 2 for s, pl in zip(
+        tree_flatten(specs)[0], tree_flatten(compute_shardings(cfg, specs, mesh))[0]))
+    batch = sum(math.prod(v.shape) * 4 for v in steps.input_specs(cfg, inputs).values())
+    cache = 0
+    if inputs.kind == "decode":
+        _, cache_spec, placements = steps.make_serve_step(cfg, mesh, inputs, device="cpu")
+        cache = sum(math.prod(pl.local_shape(s.shape)) * 2 for s, pl in zip(
+            tree_flatten(cache_spec)[0], tree_flatten(placements)[0]))
+    assert result["bytes_per_device"]["argument"] == blocks + cache + batch
+    whole = sum(math.prod(s.shape) * 2 for s in tree_flatten(specs)[0])
+    norms = 2 * cfg.d_model * (2 * cfg.n_layers + 1)
+    assert blocks == (whole - norms) // 16 + norms < whole / 15
+    assert result["flops"] > 0 and result["collectives"]["all-reduce"] > 0

@@ -8,7 +8,8 @@ reference's mixing matrices. ``run_telemetry`` serves
 tests/test_torch_telemetry.py; ``run_train`` the worker-sharded train step;
 ``train_step_refusals`` tests/test_torch_train.py; ``fsdp_remat_step``
 tests/test_torch_remat.py; ``tensor_parallel``
-tests/test_torch_tensor_parallel.py.
+tests/test_torch_tensor_parallel.py; ``tp_serving``
+tests/test_torch_tp_serving.py.
 """
 
 import contextlib
@@ -336,18 +337,20 @@ def _restore_blocks(directory, tree, shardings):
 
 def _serve(mesh, p):
     """The sharded prefill, and greedy decode through ``make_serve_step``
-    with a batch-sharded and with a sequence-sharded cache."""
+    with a batch-sharded and with a sequence-sharded cache, on this rank's
+    compute blocks of the parameters (whole where the model axis has one
+    rank)."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
     from repro_torch.configs.base import InputShape
     from repro_torch.convert import params_from_jax
-    from repro_torch.distributed.sharding import local_zeros
+    from repro_torch.distributed.sharding import compute_blocks, local_zeros
     from repro_torch.distributed.steps import gather_batch, make_prefill_step, make_serve_step
     from repro_torch.utils.tree import tree_map
 
     cfg = dataclasses.replace(smoke_config(p["arch"]), **p["cfg"])
-    params = params_from_jax(p["params"], "cpu")
+    params = compute_blocks(cfg, params_from_jax(p["params"], "cpu"), mesh)
     prompt = torch.tensor(p["prompt"])
     out = {}
     prefill = make_prefill_step(cfg, mesh, device="cpu")
@@ -391,14 +394,14 @@ def _qwen_serve(mesh, p):
     from repro_torch.configs import smoke_config
     from repro_torch.configs.base import InputShape
     from repro_torch.convert import params_from_jax
-    from repro_torch.distributed.sharding import local_zeros
+    from repro_torch.distributed.sharding import compute_blocks, local_zeros
     from repro_torch.distributed.steps import gather_batch, make_serve_step
 
     cfg = smoke_config("qwen2.5-14b")
     shape = InputShape("test_decode", seq_len=64, global_batch=2, kind="decode")
     serve, spec, placements = make_serve_step(cfg, mesh, shape, device="cpu")
-    logits, _ = serve(params_from_jax(p, "cpu"), local_zeros(spec, placements, "cpu"),
-                      torch.zeros(2, dtype=torch.long), 0)
+    logits, _ = serve(compute_blocks(cfg, params_from_jax(p, "cpu"), mesh),
+                      local_zeros(spec, placements, "cpu"), torch.zeros(2, dtype=torch.long), 0)
     return {"local": tuple(logits.shape), "logits": gather_batch(logits, mesh, 2)}
 
 
@@ -693,4 +696,202 @@ def tensor_parallel(rank, group, device, p):
            "cases": {label: _tp_case(mesh, case) for label, case in p["cases"].items()},
            "ingress": _tp_ingress(mesh), "steps": _tp_steps(mesh, p["steps"]),
            "one_model_rank": _tp_one_model_rank(group, p["steps"])}
+    return out
+
+
+# ------------------------------------------------------- serving along the model axis
+def _tps_case(mesh, case, p):
+    """One case of ``tp_serving``: this rank's compute blocks of the case's
+    parameters, the prefill's last-position logits and a greedy decode
+    through ``make_serve_step`` with a batch-sharded cache of all rows and,
+    where the mesh has more than one worker group, a one-row cache (on
+    (1, T) one row is batch-sharded too)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed.sharding import compute_blocks, local_zeros
+    from repro_torch.distributed.steps import gather_batch, make_prefill_step, make_serve_step
+
+    cfg = dataclasses.replace(smoke_config(case["arch"]), **case["cfg"])
+    whole = params_from_jax(case["params"], "cpu")
+    params = compute_blocks(cfg, whole, mesh)
+    leaves = tree_flatten(params)[0]
+    prompt = torch.tensor(case["prompt"])
+    B = prompt.shape[0]
+    batch = {"tokens": prompt}
+    if "prefix" in case:
+        batch["prefix_embeds"] = torch.tensor(case["prefix"])
+    out = {"shapes": [tuple(x.shape) for x in leaves],
+           "bytes": sum(x.numel() * x.element_size() for x in leaves),
+           "storage": sum(x.untyped_storage().nbytes() for x in leaves)}
+    out["prefill"] = gather_batch(make_prefill_step(cfg, mesh, device="cpu")(params, batch),
+                                  mesh, B)
+    runs = [("batch", B)] + ([("single", 1)] if mesh.shape["data"] > 1 else [])
+    for label, rows in runs:
+        shape = InputShape("test", seq_len=p["cache_len"], global_batch=rows, kind="decode")
+        serve, spec, placements = make_serve_step(cfg, mesh, shape, device="cpu")
+        cache = local_zeros(spec, placements, "cpu")
+        tokens = prompt[:rows]
+        S = tokens.shape[-1]
+        logits_seq, chosen = [], []
+        for pos in range(S + p["new_tokens"]):
+            tok = tokens[..., pos] if pos < S else chosen[-1]
+            logits, cache = serve(params, cache, tok, pos)
+            logits = gather_batch(logits, mesh, rows)
+            logits_seq.append(logits)
+            chosen.append(torch.argmax(logits, dim=-1))
+        first = next(iter(placements.values()))
+        out[label] = dict(logits=torch.stack(logits_seq), tokens=torch.stack(chosen),
+                          spec=next(iter(first.values())).spec)
+    return out
+
+
+def _tps_whole_raises(mesh, case):
+    """Whole parameters handed to either serving step on a mesh whose model
+    axis has T > 1 ranks: the ``ValueError``s' messages, and the
+    collectives the two calls made."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed.sharding import local_zeros
+    from repro_torch.distributed.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.collectives import record_collectives
+
+    cfg = dataclasses.replace(smoke_config(case["arch"]), **case["cfg"])
+    whole = params_from_jax(case["params"], "cpu")
+    prompt = torch.tensor(case["prompt"])
+    prefill = make_prefill_step(cfg, mesh, device="cpu")
+    serve, spec, placements = make_serve_step(
+        cfg, mesh, InputShape("test", 16, prompt.shape[0], "decode"), device="cpu")
+    cache = local_zeros(spec, placements, "cpu")
+    out = []
+    with record_collectives() as calls:
+        try:
+            prefill(whole, {"tokens": prompt})
+        except ValueError as e:
+            out.append(str(e))
+        try:
+            serve(whole, cache, prompt[:, 0], 0)
+        except ValueError as e:
+            out.append(str(e))
+    return {"messages": out, "calls": len(calls)}
+
+
+def _tps_one_model_rank(group, case, p):
+    """On the (4, 1) mesh of the group the serving steps take whole
+    parameters and run today's route: the prefill's and each decode step's
+    logits beside the same rows through ``forward_hidden`` / ``unembed``
+    and ``decode_step`` called directly, and the collectives each made."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed.sharding import Placement, local_zeros
+    from repro_torch.distributed.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.collectives import record_collectives
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.parallel import ModelAxis
+
+    mesh = make_host_mesh(group, data=4, model=1)
+    cfg = dataclasses.replace(smoke_config(case["arch"]), **case["cfg"])
+    params = params_from_jax(case["params"], "cpu")
+    prompt = torch.tensor(case["prompt"])
+    rows = Placement(mesh, ("data",)).local(prompt)
+    with record_collectives() as calls:
+        got = make_prefill_step(cfg, mesh, device="cpu")(params, {"tokens": prompt})
+    h, _ = tfm.forward_hidden(params, cfg, rows)
+    out = {"axis": ModelAxis.of(cfg, mesh), "prefill": (got, tfm.unembed(params, cfg, h[:, -1:])),
+           "calls": len(calls), "decode": []}
+    shape = InputShape("test", seq_len=p["cache_len"], global_batch=prompt.shape[0],
+                       kind="decode")
+    serve, spec, placements = make_serve_step(cfg, mesh, shape, device="cpu")
+    cache = local_zeros(spec, placements, "cpu")
+    mine = tfm.init_cache(cfg, rows.shape[0], p["cache_len"], device="cpu")
+    with record_collectives() as calls:
+        for pos in range(prompt.shape[-1]):
+            logits, cache = serve(params, cache, prompt[..., pos], pos)
+            want, mine = tfm.decode_step(params, cfg, mine, rows[..., pos], pos)
+            out["decode"].append((logits, want))
+    out["decode_calls"] = len(calls)
+    return out
+
+
+def seeded_cache(cfg, length: int, filled: int):
+    """A one-row decode cache of ``length`` positions whose first ``filled``
+    hold k / v drawn from a seed, the rest zero (``chip_smoke.py``'s)."""
+    from repro_torch.models import transformer as tfm
+
+    cache = tfm.init_cache(cfg, 1, length, device="cpu")
+    gen = torch.Generator().manual_seed(21)
+    for layer in cache.values():
+        for x in layer.values():
+            x[:, :, :filled] = torch.randn(x[:, :, :filled].shape, generator=gen).to(x.dtype)
+    return cache
+
+
+def _tps_softmax(group, p):
+    """One bf16 decode step of smoke TinyLlama on the (4, 1) mesh, its one
+    row's cache sequence-sharded over the 4 ranks and seeded: each
+    attention layer's combine, its inputs (this rank's logits and values),
+    its fp32 sums over all ranks before the one rounding
+    (``combine.fp32_sums``) and its output; the step's logits (bf16
+    tensors as fp32, which holds them exactly)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.tree import tree_map
+
+    mesh = make_host_mesh(group, data=4, model=1)
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), dtype="bfloat16", **p["cfg"])
+    params = tree_map(lambda t: t.to(torch.bfloat16), params_from_jax(p["params"], "cpu"))
+    records, real = [], steps._softmax_across
+
+    def spy(pl):
+        combine = real(pl)
+
+        def recorded(logits, v_e, dtype):
+            out = combine(logits, v_e, dtype)
+            records.append({"logits": logits, "values": v_e.float(), "out": out.float(),
+                            "sums": combine.fp32_sums(logits, v_e, dtype)})
+            return out
+        return recorded
+
+    steps._softmax_across = spy
+    try:
+        serve, _, placements = steps.make_serve_step(
+            cfg, mesh, InputShape("seeded", p["length"], 1, "decode"), device="cpu")
+    finally:
+        steps._softmax_across = real
+    cache = tree_map(lambda x, pl: pl.local(x), seeded_cache(cfg, p["length"], p["length"] - 1),
+                     placements)
+    logits, _ = serve(params, cache, torch.tensor([p["token"]]), p["length"] - 1)
+    return {"records": records, "logits": logits.float(), "spec": placements["0"]["k"].spec}
+
+
+def tp_serving(rank, group, device, p):
+    """Everything tests/test_torch_tp_serving.py holds, in one group: on
+    each (data, model) mesh of ``p["meshes"]`` each case's prefill and
+    greedy decode on compute blocks and the refusal of whole parameters;
+    on the (4, 1) mesh today's route and the bf16 sequence-sharded step."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {}
+    for shape in p["meshes"]:
+        mesh = make_host_mesh(group, *shape)
+        out[tuple(shape)] = {
+            "cases": {label: _tps_case(mesh, case, p) for label, case in p["cases"].items()},
+            "whole_raises": _tps_whole_raises(mesh, p["cases"]["gemma"])}
+    out["softmax"] = _tps_softmax(group, p["softmax"])
+    out["one_model_rank"] = {label: _tps_one_model_rank(group, p["cases"][label], p)
+                             for label in p["one_model_rank"]}
     return out
