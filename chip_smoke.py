@@ -202,8 +202,8 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    tied 256,000-row embedding, bf16, fsdp, server momentum) with the depth
    cut to 1 of 28 layers (1,063,265,280 parameters, the tree's count
    asserted) trained on the mesh (data=4, model=1), W = 4 workers of one
-   1024-token sequence each: RFA with bucketing s = 2 for 2 steps (the
-   second carries the first's momenta), then CM for 1 (``FSDP_RUNS``),
+   1024-token sequence each: RFA with bucketing s = 2 for 2 steps, then CM
+   for 1 from RFA's state (``FSDP_RUNS``),
    each with the group's exact launches per rank, a finite loss and
    moving parameters, the first step of each rule held against the plain
    route of the same sharded sync on each rank's column slice
@@ -224,9 +224,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    positions, one decode step's logits against ``decode_step`` on the same
    cache (in fp32 within the reference's decode bar, rtol and atol 2e-3;
    in bf16 no further from the fp32 logits than ``SEQ_BF16_RATIO`` x the
-   one-device bf16 step); then a 48-token prompt
-   in a 64-position cache (16 positions a rank) decoded greedily for 16
-   steps, in fp32 the tokens equal to the one-device loop's (in bf16 the
+   one-device bf16 step); then a ``SEQ_PROMPT``-token prompt
+   in a ``SEQ_CACHE``-position cache (4 positions a rank) decoded greedily
+   for ``SEQ_NEW`` steps, in fp32 the tokens equal to the one-device loop's (in bf16 the
    share that agrees is printed: bf16 products over a rank's positions
    round otherwise than over all of them and can move a near tie); no
    kernel of ours launches (counted). (d) (b)'s fsdp state on (4, 1) saved from the mesh, restored on one device
@@ -261,7 +261,26 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    Then one bf16 run at full depth (``TPS_FULL_LAYERS``) on (1, 4): each
    rank's bytes and peak against one device's, prefill ms and decode ms a
    token (``TPS_FULL_NEW`` tokens), with the card's name and power limit;
-   no kernel of ours launches (counted).
+   no kernel of ours launches (counted). (g) In (a)'s group, OLMoE-1B-7B's
+   MoE layers along the model axis of (data=1, model=4) (``moe_rank``):
+   each rank computes its 16 of 64 experts, the router and routing whole
+   on every rank (``models/moe.py``). Training: (e)'s step and holds
+   (``tp_rank`` / ``tp_check``; one RFA step, ``MOE_TP_RUNS``) on OLMoE at
+   its published width, MOE_TP_LAYERS deep in MOE_TP_DTYPE, worker
+   momentum, the replicated egress: exact launches, the loss within
+   ``TP_LOSS_TOL`` and the aggregate within ``TP_AGG_RTOL`` of one
+   device's, each rank's peak at the end of the forward and backward
+   below one device's, the assignments routed otherwise printed; then the
+   same step in bf16, held
+   to the same bits on every rank, a finite loss, exact launches, the
+   plain-route check and a peak below one device's, its gap to one
+   device's loss and aggregate printed. Serving:
+   (f)'s ``tps_rank`` / ``tps_check`` with ``TPS_MOE`` (MOE_TRAIN_LAYERS
+   deep in fp32 and bf16: the B = 2 x 1,024 prefill and the 4-slot greedy
+   decode on (1, 4), one batch-sharded step on (2, 2); the bf16 holds on
+   each output and on the mean over every held logit row; the assignments
+   the prefill routed otherwise than one device printed; one bf16 run at
+   the full 16 layers, each rank's expert bytes printed).
 16. The CNN of App. Table 5 (``models/mlp.py::init_cnn``, HWIO convolutions
    run by cuDNN under ``ieee_fp32()``) and the static-analysis gate. (a)
    ``ByzantineSim`` with the CNN at phase 9's scale (n = 25, 300 steps) for
@@ -389,7 +408,7 @@ TRAIN_W, TRAIN_S, TRAIN_LR = 4, 1024, 1e-2
 TRAIN_RUNS = [("rfa", 3), ("cm", 1)]
 #: phase 15(a)'s steps: a gemma-7b fsdp step takes 15-21 s over gloo, and
 #: the plain-route checks read the first step of each rule; RFA's second
-#: step carries its first's worker and server momentum
+#: step carries its worker momentum, CM's its parameters and server momentum
 FSDP_RUNS = [("rfa", 2), ("cm", 1)]
 #: phase 15(e): one step of each rule of (a)'s gemma-7b on (data=1,
 #: model=4), computing along the model axis; its loss against the same
@@ -443,11 +462,15 @@ PROFILED_DECODE_STEPS = 5
 #: smoke-width step on the (4, 1) and (2, 2) meshes; TinyLlama served on
 #: the (4, 1) mesh: MESH_DECODE_CACHE positions for the batch-sharded loop,
 #: ATTN_S for the one sequence-sharded step, then a SEQ_PROMPT-token prompt
-#: in a SEQ_CACHE-position cache decoded for SEQ_NEW tokens
+#: in a SEQ_CACHE-position cache decoded for SEQ_NEW tokens (4 positions a
+#: rank, the prompt across three ranks' blocks and the decode into the
+#: fourth: the loop steps every position through 22 layers over gloo, ~0.3
+#: s in bf16 and ~0.5 s in fp32 a position on the H100, and the script's
+#: time limit wants the seconds for phase 15(g))
 FSDP_ARCH, FSDP_LAYERS, FSDP_PARAMS = "gemma-7b", 1, 1_063_265_280
 MESH_SHAPES = [(4, 1), (2, 2)]
 MESH_DECODE_PROMPT, MESH_DECODE_CACHE = 16, 64
-SEQ_PROMPT, SEQ_CACHE, SEQ_NEW = 48, 64, 16
+SEQ_PROMPT, SEQ_CACHE, SEQ_NEW = 12, 16, 4
 #: phase 15(c)'s bar for a row's prefill alone against the B = 4 prefill,
 #: relative to the largest |logit|; and for the sequence-sharded bf16 step,
 #: its max |logit - fp32 one device| against the one-device bf16 step's
@@ -459,7 +482,44 @@ PREFILL_MESH_TOL, SEQ_BF16_RATIO = 2e-2, 1.5
 #: positions) and one step on a seeded cache (4 rows of MESH_DECODE_CACHE
 #: positions, and 1 row of ATTN_S); one bf16 run at TPS_FULL_LAYERS, the
 #: full depth, with TPS_FULL_NEW greedy tokens after the prompt
-TPS_PREFILL, TPS_FULL_LAYERS, TPS_FULL_NEW = (2, 1024), 28, 8
+#: (TPS_FULL_NEW: a gemma-7b token takes ~1 s over gloo at full depth, and
+#: the script's time limit wants the seconds for phase 15(g))
+TPS_PREFILL, TPS_FULL_LAYERS, TPS_FULL_NEW = (2, 1024), 28, 4
+#: phase 15(f)'s serving runs and 15(g)'s: the arch, the depth of the holds
+#: against one device, the full depth of the one timed bf16 run, and whether
+#: the one-row ATTN_S steps run
+TPS_GEMMA = dict(label="tps", arch=FSDP_ARCH, layers=REMAT_LAYERS, full=TPS_FULL_LAYERS,
+                 one_row=True, pooled=False)
+#: ``pooled``: beside the bf16 hold on each output, one on the mean over
+#: every held logit row (each prompt position of the greedy decode, the
+#: prefill's and the 4-row step's rows) of max |x - fp32 one device|. A
+#: top-8 near-tie among 64 experts routes otherwise than fp32 in either
+#: bf16 run (the H100, 2 layers: 5 and 2 of the prompt's 1,024 decode
+#: assignments), and a row whose own token routed otherwise sits far off
+#: fp32 (the prefill's 1.33 in both), so an output's max says whether a
+#: near-tie flipped, the mean over rows how far each run's rounding is
+TPS_MOE = dict(label="moe serve", arch=MOE_ARCH, layers=MOE_TRAIN_LAYERS, full=16,
+               one_row=False, pooled=True)
+#: phase 15(e)'s compute blocks: the dim each leaf splits on (path suffix ->
+#: dim; every other leaf whole); 15(g)'s OLMoE adds its lm_head and its
+#: experts on the expert dim of [P, E, D, F] / [P, E, F, D], the router whole
+TP_GEMMA_DIMS = {"embed": 0, "mixer/wq": 2, "mixer/wk": 2, "mixer/wv": 2, "mixer/wo": 1,
+                 "ff/w_gate": 2, "ff/w_up": 2, "ff/w_down": 1}
+TP_MOE_DIMS = {"embed": 0, "lm_head": 1, "mixer/wq": 2, "mixer/wk": 2, "mixer/wv": 2,
+               "mixer/wo": 1, "ff/w_gate": 1, "ff/w_up": 1, "ff/w_down": 1}
+#: phase 15(g): one RFA step of OLMoE (its worker momentum) on the model
+#: axis, held against one device in fp32 at MOE_TP_LAYERS. In bf16 a router
+#: near-tie that routes otherwise moves a token's whole expert gradient, and
+#: the bf16 prefill on the mesh routes some assignments otherwise than one
+#: device (60 of 32,768 on the H100), so the same step in bf16 (OLMoE's own
+#: dtype) is held to what it can meet: the same bits on every rank, a finite
+#: loss, its launches and peak; its gap to one device is printed. In fp32 no
+#: assignment is routed otherwise (0 of 32,768). One layer (625,612,800
+#: parameters) in both: four ranks share the card, the 1-layer fp32 step
+#: peaks at 11.5 GB a rank (rows, ingress buffers, the replicated egress
+#: row), the 2-layer bf16 step at 18.45 GB, and four of those with the
+#: script's own process did not fit the 80 GB card
+MOE_TP_RUNS, MOE_TP_LAYERS, MOE_TP_DTYPE = ("rfa",), 1, "float32"
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
 SYNC_ROUTE = {
@@ -2352,12 +2412,12 @@ def moe_routing(params, cfg, batch):
     counts, drops = [], []
     layer = moe_mod.moe_layer
 
-    def recording(p, x, c):
+    def recording(p, x, c, ax=None):
         gates = torch.softmax(x.reshape(-1, c.d_model).float() @ p["router"], dim=-1)
         top = torch.sort(gates, dim=-1, descending=True, stable=True).indices
         counts.append(torch.bincount(top[:, :c.experts_per_token].reshape(-1),
                                      minlength=c.n_experts))
-        return layer(p, x, c)
+        return layer(p, x, c, ax=ax)
 
     moe_mod.moe_layer = recording
     try:
@@ -2864,21 +2924,60 @@ def fsdp_rank(rank, group, device):
     torch.cuda.empty_cache()
     return dict(held=held, block_elems=block_elems, steps=steps, moved=moved,
                 n_pad=_n_pad(sh["params_shape"]), checks=checks,
-                tp=tp_rank(rank, group, device, cfg, batch), tps=tps_rank(rank, group, device))
+                tp=tp_rank(rank, group, device, cfg, batch), tps=tps_rank(rank, group, device),
+                moe=moe_rank(rank, group, device))
 
 
-def tp_rank(rank, group, device, cfg, batch):
+def moe_config(n_layers: int = MOE_TP_LAYERS, dtype: str = MOE_TP_DTYPE):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=n_layers, dtype=dtype)
+
+
+def moe_rank(rank, group, device):
+    """Phase 15(g), in each rank of (a)'s group: OLMoE-1B-7B at its
+    published width on the (data=1, model=4) mesh, each rank on its 16 of
+    64 experts (``models/moe.py``: routing whole on every rank, the
+    experts' fp32 partial all-reduced) beside its split attention and
+    vocab. Training: (e)'s ``tp_rank`` with one RFA step
+    (``MOE_TP_RUNS``) at MOE_TP_LAYERS deep in MOE_TP_DTYPE on a token
+    stream of OLMoE's vocab, worker momentum in compute blocks, then the
+    same in bf16. Serving: (f)'s ``tps_rank`` with
+    ``TPS_MOE``."""
+    import torch
+
+    from repro_torch.data.synthetic import make_token_stream
+
+    cfg = moe_config()
+    toks = make_token_stream(torch.Generator().manual_seed(11), TRAIN_W, TRAIN_S, 1,
+                             cfg.vocab_size, device=device)[:, 0]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    train = tp_rank(rank, group, device, cfg, batch, rules=MOE_TP_RUNS, split_dims=TP_MOE_DIMS)
+    torch.cuda.empty_cache()
+    train16 = tp_rank(rank, group, device, moe_config(dtype="bfloat16"), batch,
+                      rules=MOE_TP_RUNS, split_dims=TP_MOE_DIMS)
+    del toks, batch
+    torch.cuda.empty_cache()
+    return dict(train=train, train16=train16, serve=tps_rank(rank, group, device, TPS_MOE))
+
+
+def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_DIMS):
     """Phase 15(e), in each rank of (a)'s group: (a)'s gemma-7b on the
     (data=1, model=4) mesh, where the training forward and backward run on
     this rank's compute blocks (4 of 16 heads, 4 of 16 kv heads, d_ff
     24,576 / 4, vocab 256,000 / 4; ``models/parallel.py``) and the rows go
-    into the sync in those blocks. One step of each rule of ``TP_RUNS``
-    from the seeded init on (a)'s batch: the blocks' shapes, the exact
-    launches, the loss, host ms and the peak at the end of the forward and
-    backward; (a)'s ``plain_sync_check``; the aggregate gathered whole.
-    Then rank 0 alone (the others have returned) runs the same step with
-    ``mesh=None`` on the gathered parameters, batch and mix: its loss, its
-    aggregate and the largest norm of the rows it synced."""
+    into the sync in those blocks; 15(g) runs it on OLMoE (16 of 64
+    experts a rank). One step of each rule of ``rules`` from the seeded
+    init on ``batch``: the blocks' shapes (``split_dims``, path suffix ->
+    split dim), the exact launches, the loss,
+    host ms and the peak at the end of the forward and backward; (a)'s
+    ``plain_sync_check``; the aggregate gathered whole. Then rank 0 alone
+    (the others have returned) runs the same step with ``mesh=None`` on
+    the gathered parameters, batch and mix: its loss, its aggregate, the
+    largest norm of the rows it synced and its peak at the end of the
+    forward and backward."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2887,6 +2986,7 @@ def tp_rank(rank, group, device, cfg, batch):
     from repro_torch.distributed import packing, steps
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
     from repro_torch.telemetry import phase_times
     from repro_torch.utils.tree import (tree_flatten, tree_flatten_with_path, tree_map,
                                         tree_unflatten)
@@ -2894,27 +2994,25 @@ def tp_rank(rank, group, device, cfg, batch):
     mesh = make_host_mesh(group, data=1, model=SYNC_RANKS)
     T = SYNC_RANKS
     runs, kept = [], []
-    sync, pack, unpack = (steps.robust_gradient_sync, packing.pack_from_shardings,
-                          packing.unpack_to_shardings)
-    for i, agg in enumerate(TP_RUNS):
+    sync, pack, unpack, row_out = (steps.robust_gradient_sync, packing.pack_from_shardings,
+                                   packing.unpack_to_shardings, packing.reshard_out)
+    for i, agg in enumerate(rules):
         byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2)
         step_fn, st = steps.make_train_step(cfg, byz, mesh=mesh, lr=TRAIN_LR,
                                             n_workers=TRAIN_W, device=device)
         sh = st["shardings"]
         # the compute blocks: each leaf's split dim cut by T, the rest whole
-        want = {"embed": 0, "mixer/wq": 2, "mixer/wk": 2, "mixer/wv": 2, "mixer/wo": 1,
-                "ff/w_gate": 2, "ff/w_up": 2, "ff/w_down": 1}
         blocks = {}
         for (path, cpl), (_, spec) in zip(tree_flatten_with_path(sh["compute"])[0],
                                           tree_flatten_with_path(sh["params_shape"])[0]):
-            d = next((v for k, v in want.items() if path.endswith(k)), None)
+            d = next((v for k, v in split_dims.items() if path.endswith(k)), None)
             shape = tuple(n // T if j == d else n for j, n in enumerate(spec.shape))
             if cpl.local_shape(spec.shape) != shape:
                 raise AssertionError(f"tp rank {rank}: {path}'s compute block "
                                      f"{cpl.local_shape(spec.shape)}, expected {shape}")
             blocks[path] = shape
         params = st["init_params"](torch.Generator(device).manual_seed(0))
-        opt_state = st["init_opt_state"](params)
+        opt_state, worker_m = st["init_opt_state"](params), st["init_worker_m"](params)
         treedef = tree_flatten(params)[1]
         whole = host_leaves(params, sh["params"], rank == 0)
         mix = st["aggregator"].mixing_matrix(TRAIN_W, torch.Generator().manual_seed(40 + i),
@@ -2930,12 +3028,20 @@ def tp_rank(rank, group, device, cfg, batch):
                        blocks=unpack(packer, local, out_shardings))
             return cap["blocks"]
 
+        def keep_row(vec, n, group_):
+            """The replicated egress (a config without fsdp): the combined
+            slice, and this rank's columns of the row it gives."""
+            row = row_out(vec, n, group_)
+            cap.update(out=vec, row=row[rank * vec.shape[0]:][:vec.shape[0]].clone(), n=n)
+            return row
+
         def keep_agg(*a, **kw):
             out = sync(*a, **kw)
             cap["agg"] = out[0]
             return out
 
         packing.pack_from_shardings, packing.unpack_to_shardings = keep_cols, keep_out
+        packing.reshard_out = keep_row
         steps.robust_gradient_sync = keep_agg
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2943,13 +3049,16 @@ def tp_rank(rank, group, device, cfg, batch):
         reset_launches()
         t0 = time.perf_counter()
         try:
-            with phase_times() as pt:
-                params, opt_state, _, metrics = step_fn(params, opt_state, {}, mix, batch)
+            with phase_times() as pt, moe.recorded_routes() as routes:
+                params, opt_state, _, metrics = step_fn(params, opt_state, worker_m, mix,
+                                                        batch)
             torch.cuda.synchronize()
         finally:
             packing.pack_from_shardings, packing.unpack_to_shardings = pack, unpack
+            packing.reshard_out = row_out
             steps.robust_gradient_sync = sync
         wall = (time.perf_counter() - t0) * 1e3
+        routes = on_host(routes)
         counts = dict(LAUNCHES)
         want_counts = {k: SYNC_ROUTE[agg].get(k, 0) for k in counts}
         if counts != want_counts:
@@ -2959,25 +3068,29 @@ def tp_rank(rank, group, device, cfg, batch):
         if not np.isfinite(loss):
             raise AssertionError(f"tp rank {rank} {agg}: loss {loss}")
         peak, fb_peak = torch.cuda.max_memory_allocated(), pt.peaks["forward_backward"]
-        agg_whole = host_leaves(cap.pop("agg"), sh["params"], rank == 0)
+        # the aggregate: storage blocks of an fsdp config, else whole leaves
+        combined = cap.pop("agg")
+        agg_whole = (host_leaves(combined, sh["params"], rank == 0) if cfg.fsdp else
+                     [t.cpu() if rank == 0 else None for t in tree_flatten(combined)[0]])
+        del combined
         check = plain_sync_check(st["aggregator"], mix, cap, group)
         cap.clear()
         runs.append(dict(agg=agg, loss=loss, ms=wall, counts=counts, peak=peak,
                          fb_peak=fb_peak, check=check, blocks=blocks if i == 0 else None,
                          phase_ms=dict(pt)))
-        kept.append((agg, whole, mix.cpu(), agg_whole))
-        del params, opt_state, metrics, whole, agg_whole
+        kept.append((agg, whole, mix.cpu(), agg_whole, routes))
+        del params, opt_state, worker_m, metrics, whole, agg_whole
         torch.cuda.empty_cache()
     dist.barrier(group)
     if rank:
         return dict(runs=runs)
     # rank 0: the same steps on one device
-    for run, (agg, whole, mix, agg_mesh) in zip(runs, kept):
+    for run, (agg, whole, mix, agg_mesh, mesh_routes) in zip(runs, kept):
         byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2)
         step_fn, st = steps.make_train_step(cfg, byz, lr=TRAIN_LR, n_workers=TRAIN_W,
                                             device=device)
         params = tree_unflatten(treedef, [t.to(device) for t in whole])
-        opt_state = st["init_opt_state"](params)
+        opt_state, worker_m = st["init_opt_state"](params), st["init_worker_m"](params)
         seen = {}
 
         def keep(messages, *a, **kw):
@@ -2990,19 +3103,25 @@ def tp_rank(rank, group, device, cfg, batch):
             return out
 
         steps.robust_gradient_sync = keep
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
         try:
-            params, opt_state, _, metrics = step_fn(params, opt_state, {}, mix.to(device),
-                                                    batch)
+            with phase_times() as pt, moe.recorded_routes() as routes:
+                params, opt_state, _, metrics = step_fn(params, opt_state, worker_m,
+                                                        mix.to(device), batch)
             torch.cuda.synchronize()
         finally:
             steps.robust_gradient_sync = sync
+        routes = on_host(routes)
         d2 = sum(torch.sum(torch.square(a.float() - b.float()))
                  for a, b in zip(agg_mesh, tree_flatten(seen["agg"])[0]))
         run.update(one_loss=float(metrics["loss"]), one_counts=dict(LAUNCHES),
                    agg_err=float(torch.sqrt(d2)) / seen["row_norm"],
-                   row_norm=seen["row_norm"])
-        del params, opt_state, metrics, seen
+                   row_norm=seen["row_norm"], one_fb_peak=pt.peaks["forward_backward"],
+                   routed=routed_otherwise(mesh_routes, routes) + (
+                       sum(int(idx.numel()) for idx, _ in routes),))
+        del params, opt_state, worker_m, metrics, seen
         torch.cuda.empty_cache()
     return dict(runs=runs)
 
@@ -3039,12 +3158,38 @@ def seeded_params(cfg, device, mesh=None, seed: int = 0):
     return tree_unflatten(treedef, leaves)
 
 
-def tps_config(dtype: str, n_layers: int):
+def tps_config(dtype: str, n_layers: int, arch: str = FSDP_ARCH):
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(FSDP_ARCH), n_layers=n_layers, dtype=dtype)
+    return dataclasses.replace(get_config(arch), n_layers=n_layers, dtype=dtype)
+
+
+def on_host(routes):
+    """``models/moe.py::recorded_routes``'s list, each MoE layer's top-k
+    experts and kept assignments, copied to the host."""
+    return [(idx.cpu(), keep.cpu()) for idx, keep in routes]
+
+
+def moe_layers(cfg) -> int:
+    """How many MoE layers a forward of ``cfg`` runs."""
+    return sum(ff == "moe" for _, ff in cfg.pattern_) * cfg.n_periods
+
+
+def routed_otherwise(routes, want) -> tuple[int, int]:
+    """How many (token, expert) assignments of ``routes`` are not among
+    ``want``'s for the same token and layer (each layer's ``[T, K]`` top-k
+    compared as sets), and how many kept assignments differ in count."""
+    import torch
+
+    other, kept = 0, 0
+    for (idx, keep), (idx1, keep1) in zip(routes, want, strict=True):
+        idx, keep, idx1, keep1 = map(torch.as_tensor, (idx, keep, idx1, keep1))
+        same = (idx[:, :, None] == idx1[:, None, :]).any(-1)
+        other += int((~same).sum())
+        kept += abs(int(keep.sum()) - int(keep1.sum()))
+    return other, kept
 
 
 def tps_inputs(vocab: int):
@@ -3067,15 +3212,17 @@ def one_device_decode(cfg):
     return lambda params, cache, token, pos: tfm.decode_step(params, cfg, cache, token, pos)
 
 
-def greedy_logits(serve, params, cache, prompt, n_new, gather=None):
+def greedy_logits(serve, params, cache, prompt, n_new, gather=None, every_prompt=False):
     """Greedy decode of the global ``prompt`` rows through ``serve(params,
     cache, token, position)`` (``gather`` puts a batch-sharded step's
     logits together): the chosen tokens ``[B, n_new]``, the logits at the
-    prompt's last position and at the last step (host), and the host ms of
-    the steps after the prompt's last."""
+    prompt's last position and at the last step (host; with
+    ``every_prompt`` a third entry, the logits of every prompt position
+    ``[S, B, ...]``), and the host ms of the steps after the prompt's
+    last."""
     import torch
 
-    toks, kept = [], []
+    toks, kept, prompt_logits = [], [], []
     S = prompt.shape[1]
     t0 = time.perf_counter()
     for pos in range(S + n_new - 1):
@@ -3089,22 +3236,30 @@ def greedy_logits(serve, params, cache, prompt, n_new, gather=None):
             toks.append(torch.argmax(logits, dim=-1))
         if pos in (S - 1, S + n_new - 2):
             kept.append(logits.float().cpu())
+        if every_prompt and pos < S:
+            prompt_logits.append(logits.float().cpu())
     torch.cuda.synchronize()
+    if every_prompt:
+        kept.append(torch.stack(prompt_logits))
     return (torch.stack(toks, dim=1).cpu(), kept,
             (time.perf_counter() - t0) * 1e3 / max(n_new - 1, 1))
 
 
-def tps_rank(rank, group, device):
+def tps_rank(rank, group, device, spec=None):
     """Phase 15(f), in each rank of (a)'s group: gemma-7b served at its
     published width on each rank's compute blocks (4 / T of 16 heads and kv
-    heads, d_ff and vocab over T; ``models/parallel.py``). At REMAT_LAYERS
+    heads, d_ff and vocab over T; ``models/parallel.py``); 15(g) serves
+    OLMoE so (64 / T experts a rank). ``spec`` (``TPS_GEMMA`` by default,
+    ``TPS_MOE``) names the arch and the depths. At ``spec["layers"]``
     deep, in fp32 and in bf16: on (data=1, model=4) the prefill's
-    last-position logits and a greedy decode of 4 slots, and one step on a
+    last-position logits (and each MoE layer's routing) and a greedy
+    decode of 4 slots, and, where ``spec["one_row"]``, one step on a
     one-row ATTN_S cache (positions over model); on (2, 2) one
-    batch-sharded step on a seeded 4-row cache and one step on the one-row
-    cache (positions over data, kv heads over model). Then one bf16 run at
-    full depth on (1, 4): prefill ms, decode ms a token, the peak. Each
-    rank checks that it holds exactly the plan's blocks."""
+    batch-sharded step on a seeded 4-row cache and, where
+    ``spec["one_row"]``, one step on the one-row cache (positions over
+    data, kv heads over model). Then one bf16 run at ``spec["full"]``
+    layers on (1, 4): prefill ms, decode ms a token, the peak. Each rank
+    checks that it holds exactly the plan's blocks."""
     import math
 
     import torch
@@ -3115,27 +3270,36 @@ def tps_rank(rank, group, device):
     from repro_torch.distributed.steps import gather_batch, make_prefill_step, make_serve_step
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
-    from repro_torch.utils.tree import tree_flatten, tree_map
+    from repro_torch.utils.tree import tree_flatten, tree_flatten_with_path, tree_map
 
+    spec = TPS_GEMMA if spec is None else spec
+    arch = spec["arch"]
     meshes = {(1, SYNC_RANKS): make_host_mesh(group, data=1, model=SYNC_RANKS),
               (2, 2): make_host_mesh(group, data=2, model=2)}
     T = {shape: shape[1] for shape in meshes}
-    inputs = {k: v.to(device) for k, v in tps_inputs(tps_config("float32", 1).vocab_size).items()}
+    vocab = tps_config("float32", 1, arch).vocab_size
+    inputs = {k: v.to(device) for k, v in tps_inputs(vocab).items()}
 
     def blocks(cfg, mesh):
-        """This rank's blocks, asserted to be the plan's and nothing more."""
+        """This rank's blocks, asserted to be the plan's and nothing more;
+        their bytes, and those of its experts."""
         params = seeded_params(cfg, device, mesh)
         specs = tfm.params_shape(cfg)
-        want = [pl.local_shape(s.shape) for s, pl in zip(
-            tree_flatten(specs)[0], tree_flatten(compute_shardings(cfg, specs, mesh))[0])]
-        got = [tuple(x.shape) for x in tree_flatten(params)[0]]
-        size = torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size()
-        held = sum(x.untyped_storage().nbytes() for x in tree_flatten(params)[0])
-        if got != want or held != sum(math.prod(w) for w in want) * size:
+        flat = tree_flatten_with_path(specs)[0]
+        want = [pl.local_shape(s.shape) for (_, s), pl in zip(
+            flat, tree_flatten(compute_shardings(cfg, specs, mesh))[0])]
+        leaves = tree_flatten(params)[0]
+        got = [tuple(x.shape) for x in leaves]
+        held = sum(x.untyped_storage().nbytes() for x in leaves)
+        size = sum(math.prod(w) * s.dtype.itemsize for w, (_, s) in zip(want, flat))
+        if got != want or held != size:
             raise AssertionError(f"tps rank {rank}: holds {held} B in {got}, the plan's "
-                                 f"blocks are {want}")
-        return params, held
+                                 f"blocks are {want} ({size} B)")
+        experts = sum(x.untyped_storage().nbytes() for x, (path, _) in zip(leaves, flat)
+                      if "/ff/w_" in path and x.dim() == 4)
+        return params, held, experts
 
     def seeded_step(cfg, mesh, params, rows, length, token):
         serve, _, pls = make_serve_step(cfg, mesh, InputShape("seeded", length, rows, "decode"),
@@ -3149,29 +3313,34 @@ def tps_rank(rank, group, device):
     reset_launches()
     out = {}
     for dtype in ("float32", "bfloat16"):
-        cfg = tps_config(dtype, REMAT_LAYERS)
+        cfg = tps_config(dtype, spec["layers"], arch)
         res = out[dtype] = {"held": {}}
         for shape, mesh in meshes.items():
-            params, res["held"][shape] = blocks(cfg, mesh)
+            params, res["held"][shape], _ = blocks(cfg, mesh)
             if shape[0] == 1:
-                res["prefill"] = make_prefill_step(cfg, mesh, device=device)(
-                    params, {"tokens": inputs["prefill"]}).float().cpu()
-                serve, spec, pls = make_serve_step(
+                with moe.recorded_routes() as routes:
+                    res["prefill"] = make_prefill_step(cfg, mesh, device=device)(
+                        params, {"tokens": inputs["prefill"]}).float().cpu()
+                res["routes"] = on_host(routes)
+                serve, cache_spec, pls = make_serve_step(
                     cfg, mesh, InputShape("serve", MESH_DECODE_CACHE, 4, "decode"), device=device)
-                res["tokens"], res["greedy"], _ = greedy_logits(
-                    serve, params, local_zeros(spec, pls, device), inputs["prompt"],
-                    DECODE_STEPS)
+                with moe.recorded_routes() as routes:
+                    res["tokens"], res["greedy"], _ = greedy_logits(
+                        serve, params, local_zeros(cache_spec, pls, device), inputs["prompt"],
+                        DECODE_STEPS, every_prompt=spec["pooled"])
+                res["greedy_routes"] = on_host(routes[:moe_layers(cfg) * MESH_DECODE_PROMPT])
                 res["greedy_spec"] = pls["0"]["k"].spec
             else:
                 res["rows"], res["rows_spec"] = seeded_step(cfg, mesh, params, 4,
                                                             MESH_DECODE_CACHE, inputs["rows"])
-            res[f"row_{shape}"] = seeded_step(cfg, mesh, params, 1, ATTN_S, inputs["row"])
+            if spec["one_row"]:
+                res[f"row_{shape}"] = seeded_step(cfg, mesh, params, 1, ATTN_S, inputs["row"])
             del params
             torch.cuda.empty_cache()
     # one bf16 run at full depth on (1, 4)
     mesh = meshes[(1, SYNC_RANKS)]
-    cfg = tps_config("bfloat16", TPS_FULL_LAYERS)
-    params, held = blocks(cfg, mesh)
+    cfg = tps_config("bfloat16", spec["full"], arch)
+    params, held, experts = blocks(cfg, mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dist.barrier(group)
@@ -3179,54 +3348,69 @@ def tps_rank(rank, group, device):
     prefill = make_prefill_step(cfg, mesh, device=device)(params, {"tokens": inputs["prefill"]})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    serve, spec, pls = make_serve_step(
+    serve, cache_spec, pls = make_serve_step(
         cfg, mesh, InputShape("serve", MESH_DECODE_CACHE, 4, "decode"), device=device)
-    toks, _, decode_ms = greedy_logits(serve, params, local_zeros(spec, pls, device),
+    toks, _, decode_ms = greedy_logits(serve, params, local_zeros(cache_spec, pls, device),
                                        inputs["prompt"], TPS_FULL_NEW)
-    out["full"] = dict(held=held, prefill=prefill.float().cpu(), prefill_ms=prefill_ms,
-                       tokens=toks, decode_ms=decode_ms, peak=torch.cuda.max_memory_allocated())
+    out["full"] = dict(held=held, experts=experts, prefill=prefill.float().cpu(),
+                       prefill_ms=prefill_ms, tokens=toks, decode_ms=decode_ms,
+                       peak=torch.cuda.max_memory_allocated())
     out["T"], out["counts"] = T, dict(LAUNCHES)
     del params, prefill
     torch.cuda.empty_cache()
     return out
 
 
-def tps_check(dev, smi: str, tps) -> None:
-    """Phase 15(f) against one device: the same seeded parameters whole on
-    the card through ``make_prefill_step`` and ``decode_step``. Every
-    rank's outputs the same bits; in fp32 the greedy tokens equal and every
-    logit within ``TP_LOSS_TOL``; in bf16 each output no further from the
-    fp32 one-device logits than ``SEQ_BF16_RATIO`` x the one-device bf16
-    run's; at full depth the prefill and decode times and the peak a rank
-    beside one device's."""
+def tps_check(dev, smi: str, tps, spec=None) -> None:
+    """Phase 15(f) (and 15(g), ``spec`` ``TPS_MOE``) against one device:
+    the same seeded parameters whole on the card through
+    ``make_prefill_step`` and ``decode_step``. Every rank's outputs the
+    same bits; in fp32 the greedy tokens equal and every logit within
+    ``TP_LOSS_TOL``; in bf16 each output no further from the fp32
+    one-device logits than ``SEQ_BF16_RATIO`` x the one-device bf16 run's;
+    a MoE prefill's assignments routed otherwise than one device's
+    printed; at full depth the prefill and decode times and the peak a
+    rank beside one device's."""
     import numpy as np
     import torch
 
     from repro_torch.distributed.steps import make_prefill_step
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
 
+    spec = TPS_GEMMA if spec is None else spec
+    label, arch, layers = spec["label"], spec["arch"], spec["layers"]
+    rows_1 = [f"row_{(1, SYNC_RANKS)}", "row_(2, 2)"] if spec["one_row"] else []
     first = tps[0]
     for rank, r in enumerate(tps):
         for key in ("float32", "bfloat16"):
-            for item in ("prefill", "tokens", "rows", f"row_{(1, SYNC_RANKS)}", "row_(2, 2)"):
+            for item in ["prefill", "tokens", "rows"] + rows_1:
                 a, b = r[key][item], first[key][item]
                 a, b = (a[0], b[0]) if isinstance(a, tuple) else (a, b)
                 if not np_same_bits(np.asarray(a), np.asarray(b)):
-                    raise AssertionError(f"tps rank {rank}: {key} {item} differs from rank 0's")
-    inputs = {k: v.to(dev) for k, v in tps_inputs(tps_config("float32", 1).vocab_size).items()}
+                    raise AssertionError(f"{label} rank {rank}: {key} {item} differs from "
+                                         "rank 0's")
+    inputs = {k: v.to(dev) for k, v in
+              tps_inputs(tps_config("float32", 1, arch).vocab_size).items()}
 
     one = {}
     for dtype in ("float32", "bfloat16"):
-        cfg = tps_config(dtype, REMAT_LAYERS)
+        cfg = tps_config(dtype, layers, arch)
         params = seeded_params(cfg, dev)
         o = one[dtype] = {}
-        o["prefill"] = make_prefill_step(cfg, device=dev)(
-            params, {"tokens": inputs["prefill"]}).float().cpu()
-        o["tokens"], o["greedy"], _ = greedy_logits(
-            one_device_decode(cfg), params,
-            tfm.init_cache(cfg, 4, MESH_DECODE_CACHE, device=dev),
-            inputs["prompt"], DECODE_STEPS)
+        with moe.recorded_routes() as routes:
+            o["prefill"] = make_prefill_step(cfg, device=dev)(
+                params, {"tokens": inputs["prefill"]}).float().cpu()
+        o["routes"] = on_host(routes)
+        with moe.recorded_routes() as routes:
+            o["tokens"], o["greedy"], _ = greedy_logits(
+                one_device_decode(cfg), params,
+                tfm.init_cache(cfg, 4, MESH_DECODE_CACHE, device=dev),
+                inputs["prompt"], DECODE_STEPS, every_prompt=spec["pooled"])
+        o["greedy_routes"] = on_host(routes[:moe_layers(cfg) * MESH_DECODE_PROMPT])
         for key, rows, length in (("rows", 4, MESH_DECODE_CACHE), ("row", 1, ATTN_S)):
+            if key == "row" and not spec["one_row"]:
+                continue
             cache = seeded_cache(cfg, length - 1, dev, batch=rows, length=length)
             o[key] = tfm.decode_step(params, cfg, cache, inputs[key], length - 1)[0].float().cpu()
             del cache
@@ -3236,45 +3420,78 @@ def tps_check(dev, smi: str, tps) -> None:
     def pairs(key):
         """(label, mesh output, one-device output) of every held output."""
         m, o = first[key], one[key]
-        return [(label, torch.as_tensor(a), b) for label, a, b in (
-            ("prefill (1, 4)", m["prefill"], o["prefill"]),
-            ("greedy (1, 4), last prompt position", m["greedy"][0], o["greedy"][0]),
-            ("4-row step (2, 2)", m["rows"], o["rows"]),
-            ("1-row step (1, 4)", m[f"row_{(1, SYNC_RANKS)}"][0], o["row"]),
-            ("1-row step (2, 2)", m["row_(2, 2)"][0], o["row"]))]
+        held = [("prefill (1, 4)", m["prefill"], o["prefill"]),
+                ("greedy (1, 4), last prompt position", m["greedy"][0], o["greedy"][0]),
+                ("4-row step (2, 2)", m["rows"], o["rows"])]
+        if spec["one_row"]:
+            held += [("1-row step (1, 4)", m[f"row_{(1, SYNC_RANKS)}"][0], o["row"]),
+                     ("1-row step (2, 2)", m["row_(2, 2)"][0], o["row"])]
+        return [(name, torch.as_tensor(a), b) for name, a, b in held]
 
     if not np.array_equal(first["float32"]["tokens"], one["float32"]["tokens"].numpy()):
-        raise AssertionError(f"tps fp32 greedy tokens {first['float32']['tokens'].tolist()} "
+        raise AssertionError(f"{label} fp32 greedy tokens {first['float32']['tokens'].tolist()} "
                              f"differ from one device's {one['float32']['tokens'].tolist()}")
     fp32 = {}
-    for label, m, o in pairs("float32"):
-        fp32[label] = float((m - o).abs().max())
-        if not fp32[label] <= TP_LOSS_TOL:
-            raise AssertionError(f"tps fp32 {label}: max |mesh - one device| {fp32[label]}")
+    for name, m, o in pairs("float32"):
+        fp32[name] = float((m - o).abs().max())
+        if not fp32[name] <= TP_LOSS_TOL:
+            raise AssertionError(f"{label} fp32 {name}: max |mesh - one device| {fp32[name]}")
     bf16 = {}
-    for (label, m, o), (_, _, o32) in zip(pairs("bfloat16"), pairs("float32")):
-        bf16[label] = (float((m - o32).abs().max()), float((o - o32).abs().max()))
-        if not bf16[label][0] <= SEQ_BF16_RATIO * bf16[label][1]:
-            raise AssertionError(f"tps bf16 {label}: {bf16[label][0]} off fp32, above "
-                                 f"{SEQ_BF16_RATIO} x the one device's {bf16[label][1]}")
+    for (name, m, o), (_, _, o32) in zip(pairs("bfloat16"), pairs("float32")):
+        bf16[name] = (float((m - o32).abs().max()), float((o - o32).abs().max()))
+        if not bf16[name][0] <= SEQ_BF16_RATIO * bf16[name][1]:
+            raise AssertionError(f"{label} bf16 {name}: {bf16[name][0]} off fp32, above "
+                                 f"{SEQ_BF16_RATIO} x the one device's {bf16[name][1]}")
+    pooled = ""
+    if spec["pooled"]:  # and the mean over every held row of its max |x - fp32 one device|
+        def row_dist(a, b):
+            return (torch.as_tensor(a) - b).abs().reshape(-1, a.shape[-1]).amax(-1)
+
+        m16, o16, o32 = first["bfloat16"], one["bfloat16"], one["float32"]
+        rows = [(m16["greedy"][2], o16["greedy"][2], o32["greedy"][2])] + [
+            (m, o, x) for (name, m, o), (_, _, x) in zip(pairs("bfloat16"), pairs("float32"))
+            if not name.startswith("greedy")]
+        dm = torch.cat([row_dist(m, x) for m, _, x in rows])
+        do = torch.cat([row_dist(o, x) for _, o, x in rows])
+        pooled = (f"; pooled over {dm.numel()} rows (every prompt position of the greedy "
+                  f"decode, the prefill's and the 4-row step's): mean max |x - fp32 one "
+                  f"device| mesh {float(dm.mean()):.4g}, one device {float(do.mean()):.4g} "
+                  f"(bar {SEQ_BF16_RATIO} x one device's), median {float(dm.median()):.4g} / "
+                  f"{float(do.median()):.4g}; the prompt's decode assignments routed "
+                  f"otherwise than fp32 one device's: mesh "
+                  f"{routed_otherwise(m16['greedy_routes'], o32['greedy_routes'])[0]}, one "
+                  f"device {routed_otherwise(o16['greedy_routes'], o32['greedy_routes'])[0]}")
+        if not float(dm.mean()) <= SEQ_BF16_RATIO * float(do.mean()):
+            raise AssertionError(f"{label} bf16: mean row distance from fp32 "
+                                 f"{float(dm.mean())} above {SEQ_BF16_RATIO} x the one "
+                                 f"device's {float(do.mean())}")
     agree = float(np.mean(first["bfloat16"]["tokens"] == one["bfloat16"]["tokens"].numpy()))
     held = {k: [r[k]["held"] for r in tps] for k in ("float32", "bfloat16")}
-    log(f"check tps {FSDP_ARCH} ({REMAT_LAYERS} of 28 layers) served on compute blocks, 4 gloo "
+    routing = ""
+    if one["float32"]["routes"]:
+        other = {k: routed_otherwise(first[k]["routes"], one[k]["routes"])
+                 for k in ("float32", "bfloat16")}
+        n = sum(int(idx.numel()) for idx, _ in one["float32"]["routes"])
+        routing = (f"; the prefill's (token, expert) assignments routed otherwise than one "
+                   f"device's, of {n:,}: fp32 {other['float32'][0]}, bf16 "
+                   f"{other['bfloat16'][0]} (kept counts differing by {other['float32'][1]} / "
+                   f"{other['bfloat16'][1]})")
+    one_row = (f", 1 row (1, 4) {first['float32'][f'row_{(1, SYNC_RANKS)}'][1]}, (2, 2) "
+               f"{first['float32']['row_(2, 2)'][1]}" if spec["one_row"] else "")
+    log(f"check {label} {arch} ({layers} layers) served on compute blocks, 4 gloo "
         f"ranks on one card, every rank the same bits; bytes a rank (1, 4) / (2, 2): fp32 "
         f"{held['float32'][0][(1, SYNC_RANKS)]:,} / {held['float32'][0][(2, 2)]:,}, bf16 "
         f"{held['bfloat16'][0][(1, SYNC_RANKS)]:,} / {held['bfloat16'][0][(2, 2)]:,} (the plan's "
         f"blocks, asserted in each rank); caches: greedy {first['float32']['greedy_spec']}, "
-        f"4 rows {first['float32']['rows_spec']}, 1 row (1, 4) "
-        f"{first['float32'][f'row_{(1, SYNC_RANKS)}'][1]}, (2, 2) "
-        f"{first['float32']['row_(2, 2)'][1]}; fp32: {DECODE_STEPS} greedy tokens of 4 slots "
-        f"equal one device's, max |mesh - one device| "
+        f"4 rows {first['float32']['rows_spec']}{one_row}; fp32: {DECODE_STEPS} greedy tokens "
+        f"of 4 slots equal one device's, max |mesh - one device| "
         f"{json.dumps({k: float(f'{v:.3g}') for k, v in fp32.items()})} (bar {TP_LOSS_TOL}); "
         f"bf16 max |x - fp32 one device| (mesh, one device) "
         f"{json.dumps({k: [float(f'{x:.3g}') for x in v] for k, v in bf16.items()})} (bar "
-        f"{SEQ_BF16_RATIO} x one device's); bf16 greedy tokens agreeing with one device's "
-        f"{agree:.3f}")
+        f"{SEQ_BF16_RATIO} x one device's{', and pooled' if spec['pooled'] else ''}); bf16 "
+        f"greedy tokens agreeing with one device's {agree:.3f}{pooled}{routing}")
     # the full-depth bf16 run on one device
-    cfg = tps_config("bfloat16", TPS_FULL_LAYERS)
+    cfg = tps_config("bfloat16", spec["full"], arch)
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
     params = seeded_params(cfg, dev)
@@ -3291,18 +3508,22 @@ def tps_check(dev, smi: str, tps) -> None:
     full = [r["full"] for r in tps]
     for rank, f in enumerate(full):
         if not (np.isfinite(f["prefill"]).all() and f["prefill"].shape == prefill.shape):
-            raise AssertionError(f"tps full depth rank {rank}: prefill logits "
+            raise AssertionError(f"{label} full depth rank {rank}: prefill logits "
                                  f"{f['prefill'].shape} not finite")
         if not np_same_bits(f["prefill"], full[0]["prefill"]):
-            raise AssertionError(f"tps full depth rank {rank}: prefill differs from rank 0's")
+            raise AssertionError(f"{label} full depth rank {rank}: prefill differs from rank "
+                                 "0's")
     prefill = prefill.float().cpu().numpy()
     gap = float(np.abs(full[0]["prefill"] - prefill).max())
     next_equal = float(np.mean(full[0]["prefill"].argmax(-1) == prefill.argmax(-1)))
-    log(f"tps {FSDP_ARCH} at full depth ({TPS_FULL_LAYERS} layers, bf16, {whole:,} B whole) on "
+    experts = (f" ({', '.join(f'{f['experts']:,}' for f in full)} B of experts)"
+               if full[0]["experts"] else "")
+    log(f"{label} {arch} at full depth ({spec['full']} layers, bf16, {whole:,} B whole) on "
         f"(data=1, model=4), 4 gloo ranks on one card: each rank holds "
-        f"{', '.join(f'{f['held']:,}' for f in full)} B ({full[0]['held'] / whole:.4f} of the "
-        f"whole); peak a rank {', '.join(f'{f['peak'] / 1e9:.2f}' for f in full)} GB against one "
-        f"device's {peak / 1e9:.2f} GB; prefill B = {TPS_PREFILL[0]} x {TPS_PREFILL[1]} host ms "
+        f"{', '.join(f'{f['held']:,}' for f in full)} B{experts} "
+        f"({full[0]['held'] / whole:.4f} of the whole); peak a rank "
+        f"{', '.join(f'{f['peak'] / 1e9:.2f}' for f in full)} GB against one device's "
+        f"{peak / 1e9:.2f} GB; prefill B = {TPS_PREFILL[0]} x {TPS_PREFILL[1]} host ms "
         f"{', '.join(f'{f['prefill_ms']:.1f}' for f in full)} (one device {prefill_ms:.1f}); "
         f"decode of 4 slots, ms a token {', '.join(f'{f['decode_ms']:.1f}' for f in full)} (one "
         f"device {decode_ms:.1f}); max |mesh - one device| of the prefill's logits {gap:.3g}, "
@@ -3331,9 +3552,11 @@ def plain_sync_check(aggregator, mix, cap, group):
     route of the same sharded sync (``ref``'s mix, then RFA's Weiszfeld
     with the ``[W]`` norms all-reduced, or CM) on this rank's column slice
     ``cap["buf"]`` of the packed rows, against the kernel route's combined
-    slice ``cap["out"]`` and against its egress blocks ``cap["blocks"]``
-    (the plain slice put through ``unpack_to_shardings``). Both as
-    ``|kernel - plain|_2 / max_i |x_i|_2`` over all ranks' columns."""
+    slice ``cap["out"]`` and against its egress: the blocks
+    ``cap["blocks"]`` of an fsdp config (the plain slice put through
+    ``unpack_to_shardings``), else this rank's columns ``cap["row"]`` of the
+    replicated row. Both as ``|kernel - plain|_2 / max_i |x_i|_2`` over
+    all ranks' columns."""
     import torch
     import torch.distributed as dist
 
@@ -3361,10 +3584,14 @@ def plain_sync_check(aggregator, mix, cap, group):
         out = ref.bucket_mix(c[None, :], mixed)[0]
     del mixed
     slice_err = float(torch.sqrt(summed(torch.sum(torch.square(cap["out"] - out))[None])))
-    blocks = unpack_to_shardings(cap["packer"], out, cap["shardings"])
-    del out
-    d2 = sum(torch.sum(torch.square(a.float() - b.float()))
-             for a, b in zip(tree_flatten(cap["blocks"])[0], tree_flatten(blocks)[0]))
+    if "blocks" in cap:
+        blocks = unpack_to_shardings(cap["packer"], out, cap["shardings"])
+        del out
+        d2 = sum(torch.sum(torch.square(a.float() - b.float()))
+                 for a, b in zip(tree_flatten(cap["blocks"])[0], tree_flatten(blocks)[0]))
+    else:  # the row's columns past n_pad are no one's
+        d2 = torch.sum(torch.square(cap["row"] - out[:cap["row"].shape[0]]))
+        del out
     egress_err = float(torch.sqrt(summed(d2.reshape(1))))
     return dict(slice=slice_err / row_norm, egress=egress_err / row_norm, cols=cols,
                 rows=int(mix.shape[1]), buckets=int(mix.shape[0]))
@@ -3566,12 +3793,91 @@ def seeded_cache(cfg, filled: int, dev, batch: int = 1, length=None):
     return {i: {k: x.to(dev) for k, x in layer.items()} for i, layer in cache.items()}
 
 
+def tp_check(launches, key: str, name: str, tp, rules, smi: str, peak_bar=None,
+             near: bool = True) -> None:
+    """Phase 15(e)'s holds (and 15(g)'s) on ``tp_rank``'s results ``tp``
+    of every rank, one step per rule of ``rules``: the losses the same bits
+    on every rank, the plain-route checks equal and within
+    ``TRAIN_AGG_RTOL``, the one-device step's exact ``TRAIN_ROUTE``
+    launches, and, where ``near``, the loss within ``TP_LOSS_TOL`` and the
+    aggregate within ``TP_AGG_RTOL`` of the one-device step's (else both
+    gaps printed); each rank's peak at the end of the forward and backward
+    below ``peak_bar`` (``(peaks a rank, label)``), or below the one-device
+    step's where it is ``None``. The launches are added to
+    ``launches[key + "_train"]`` and ``[key + "_one_device"]``."""
+    from repro_torch.kernels import LAUNCHES
+
+    launches[f"{key}_train"] = {k: 0 for k in LAUNCHES}
+    launches[f"{key}_one_device"] = {k: 0 for k in LAUNCHES}
+    log(f"{key} {name} on (data=1, model=4): rank 0's compute blocks "
+        f"{json.dumps(tp[0][0]['blocks'])}")
+    for i, agg in enumerate(rules):
+        runs = [t[i] for t in tp]
+        for run in runs:
+            for k, v in run["counts"].items():
+                launches[f"{key}_train"][k] += v
+        if not all(np_same_bits(run["loss"], runs[0]["loss"]) for run in runs):
+            raise AssertionError(f"{key} {agg}: the ranks' losses differ "
+                                 f"{[float(run['loss']) for run in runs]}")
+        if any(run["check"] != runs[0]["check"] for run in runs):
+            raise AssertionError(f"{key} {agg}: the ranks' plain-route checks differ")
+        c, one = runs[0]["check"], runs[0]
+        if not (c["slice"] <= TRAIN_AGG_RTOL and c["egress"] <= TRAIN_AGG_RTOL):
+            raise AssertionError(f"{key} {agg}: the kernel route is off the plain route {c}")
+        want = {k: TRAIN_ROUTE[agg].get(k, 0) for k in one["one_counts"]}
+        if one["one_counts"] != want:
+            raise AssertionError(f"{key} {agg} one device: launches {one['one_counts']}, "
+                                 f"expected {want}")
+        for k, v in one["one_counts"].items():
+            launches[f"{key}_one_device"][k] += v
+        loss_gap = abs(float(one["loss"]) - one["one_loss"])
+        bar, bar_label = peak_bar or ([one["one_fb_peak"]] * len(runs), "one device's")
+        for rank, run in enumerate(runs):
+            if not run["fb_peak"] < bar[rank]:
+                raise AssertionError(f"{key} {agg} rank {rank}: peak at the end of the forward "
+                                     f"and backward {run['fb_peak']} not below "
+                                     f"{bar_label} {bar[rank]}")
+        wall = max(run["ms"] for run in runs)
+        log(f"{key} {name} {agg} step on (data=1, model=4), 4 gloo ranks on one card, W = "
+            f"{TRAIN_W} x {TRAIN_S} tokens on every rank: loss {float(one['loss']):.5f}, the same "
+            f"bits on every rank, one device {one['one_loss']:.5f} (|gap| {loss_gap:.3g}, bar "
+            f"{TP_LOSS_TOL if near else 'none'}); host ms {wall:.1f} (slowest rank), "
+            f"{TRAIN_W * TRAIN_S / wall * 1e3:.0f} tokens/s; launches per rank "
+            f"{json.dumps({k: v for k, v in one['counts'].items() if v})}, one device "
+            f"{json.dumps({k: v for k, v in one['one_counts'].items() if v})}; peak at the "
+            f"end of the forward and backward per rank "
+            f"{', '.join(f'{run['fb_peak'] / 1e9:.2f}' for run in runs)} GB against "
+            f"{bar_label} {', '.join(f'{p / 1e9:.2f}' for p in bar)} (one device's "
+            f"{one['one_fb_peak'] / 1e9:.2f}); step peak "
+            f"{', '.join(f'{run['peak'] / 1e9:.2f}' for run in runs)} GB; device ms by phase "
+            f"(rank 0) {json.dumps({k: round(v, 1) for k, v in one['phase_ms'].items()})} "
+            f"({smi})")
+        other, kept, n = one["routed"]
+        routed = (f"; (token, expert) assignments the mesh routed otherwise than one device, "
+                  f"of {n:,}: {other} (kept counts differing by {kept})" if n else "")
+        log(f"check {key} {agg}: kernel route vs plain route of the sharded sync on each rank's "
+            f"column slice X[{c['rows']}, {c['cols']:,}]: {c['slice']:.3g} on the combined "
+            f"slice, {c['egress']:.3g} on the egress (bar {TRAIN_AGG_RTOL}); the "
+            f"aggregate gathered whole against the one-device step's: |mesh - one device|_2 / "
+            f"max_i |x_i|_2 = {one['agg_err']:.3g} (bar {TP_AGG_RTOL if near else 'none'}; "
+            f"max_i |x_i|_2 "
+            f"{one['row_norm']:.4g}){routed}")
+        if near and not loss_gap <= TP_LOSS_TOL:
+            raise AssertionError(f"{key} {agg}: loss {float(one['loss'])} vs one device "
+                                 f"{one['one_loss']}")
+        if near and not one["agg_err"] <= TP_AGG_RTOL:
+            raise AssertionError(f"{key} {agg}: aggregate off the one-device step's by "
+                                 f"{one['agg_err']}")
+
+
 def mesh_phase(dev, smi):
     """Phase 15: (a) gemma-7b's fsdp training at full width, then in the
     same group (e) its steps computing along a (1, 4) mesh's model axis,
-    (b) the smoke step on the (4, 1) and (2, 2) meshes against the
-    replicated and the one-device steps, (c) TinyLlama served on (4, 1),
-    (d) checkpoints. Returns the launch counts by path."""
+    (f) gemma-7b served on compute blocks and (g) OLMoE's experts along the
+    model axis, trained and served, (b) the smoke step on the (4, 1) and
+    (2, 2) meshes against the replicated and the one-device steps, (c)
+    TinyLlama served on (4, 1), (d) checkpoints. Returns the launch counts
+    by path."""
     import dataclasses
 
     import numpy as np
@@ -3633,67 +3939,14 @@ def mesh_phase(dev, smi):
             raise AssertionError(f"fsdp {c['agg']}: the kernel route is off the plain route")
     if [c["agg"] for c in ranks[0]["checks"]] != [agg for agg, _ in FSDP_RUNS]:
         raise AssertionError(f"fsdp: checked {ranks[0]['checks']}, expected one step a rule")
-    log(f"fsdp phase (a), (e) and (f) ran in {time.perf_counter() - t0:.1f} s, spawn included")
+    log(f"fsdp phase (a), (e), (f) and (g) ran in {time.perf_counter() - t0:.1f} s, spawn "
+        "included")
 
     # (e) the same group on (data=1, model=4): compute along the model axis
-    launches["tp_train"] = {k: 0 for k in LAUNCHES}
-    launches["tp_one_device"] = {k: 0 for k in LAUNCHES}
     a_fb = [min(st["fb_peak"] for st in r["steps"]) for r in ranks]
-    tp = [r["tp"]["runs"] for r in ranks]
-    log(f"tp {FSDP_ARCH} on (data=1, model=4): rank 0's compute blocks "
-        f"{json.dumps(tp[0][0]['blocks'])}")
-    for i, agg in enumerate(TP_RUNS):
-        runs = [t[i] for t in tp]
-        for run in runs:
-            for k, v in run["counts"].items():
-                launches["tp_train"][k] += v
-        if not all(np_same_bits(run["loss"], runs[0]["loss"]) for run in runs):
-            raise AssertionError(f"tp {agg}: the ranks' losses differ "
-                                 f"{[float(run['loss']) for run in runs]}")
-        if any(run["check"] != runs[0]["check"] for run in runs):
-            raise AssertionError(f"tp {agg}: the ranks' plain-route checks differ")
-        c, one = runs[0]["check"], runs[0]
-        if not (c["slice"] <= TRAIN_AGG_RTOL and c["egress"] <= TRAIN_AGG_RTOL):
-            raise AssertionError(f"tp {agg}: the kernel route is off the plain route {c}")
-        want = {k: TRAIN_ROUTE[agg].get(k, 0) for k in one["one_counts"]}
-        if one["one_counts"] != want:
-            raise AssertionError(f"tp {agg} one device: launches {one['one_counts']}, "
-                                 f"expected {want}")
-        for k, v in one["one_counts"].items():
-            launches["tp_one_device"][k] += v
-        loss_gap = abs(float(one["loss"]) - one["one_loss"])
-        for rank, run in enumerate(runs):
-            if not run["fb_peak"] < a_fb[rank]:
-                raise AssertionError(f"tp {agg} rank {rank}: peak at the end of the forward "
-                                     f"and backward {run['fb_peak']} not below (a)'s "
-                                     f"{a_fb[rank]}")
-        wall = max(run["ms"] for run in runs)
-        log(f"tp {FSDP_ARCH} ({FSDP_LAYERS} of 28 layers, {FSDP_PARAMS:,} parameters) {agg} "
-            f"step on (data=1, model=4), 4 gloo ranks on one card, W = {TRAIN_W} x {TRAIN_S} "
-            f"tokens on every rank: loss {float(one['loss']):.5f}, the same bits on every "
-            f"rank, one device {one['one_loss']:.5f} (|gap| {loss_gap:.3g}, bar "
-            f"{TP_LOSS_TOL}); host ms {wall:.1f} (slowest rank), "
-            f"{TRAIN_W * TRAIN_S / wall * 1e3:.0f} tokens/s; launches per rank "
-            f"{json.dumps({k: v for k, v in one['counts'].items() if v})}, one device "
-            f"{json.dumps({k: v for k, v in one['one_counts'].items() if v})}; peak at the "
-            f"end of the forward and backward per rank "
-            f"{', '.join(f'{run['fb_peak'] / 1e9:.2f}' for run in runs)} GB against (a)'s "
-            f"(4, 1) {', '.join(f'{p / 1e9:.2f}' for p in a_fb)}; step peak "
-            f"{', '.join(f'{run['peak'] / 1e9:.2f}' for run in runs)} GB; device ms by phase "
-            f"(rank 0) {json.dumps({k: round(v, 1) for k, v in one['phase_ms'].items()})} "
-            f"({smi})")
-        log(f"check tp {agg}: kernel route vs plain route of the sharded sync on each rank's "
-            f"column slice X[{c['rows']}, {c['cols']:,}]: {c['slice']:.3g} on the combined "
-            f"slice, {c['egress']:.3g} on the egress blocks (bar {TRAIN_AGG_RTOL}); the "
-            f"aggregate gathered whole against the one-device step's: |mesh - one device|_2 / "
-            f"max_i |x_i|_2 = {one['agg_err']:.3g} (bar {TP_AGG_RTOL}; max_i |x_i|_2 "
-            f"{one['row_norm']:.4g})")
-        if not loss_gap <= TP_LOSS_TOL:
-            raise AssertionError(f"tp {agg}: loss {float(one['loss'])} vs one device "
-                                 f"{one['one_loss']}")
-        if not one["agg_err"] <= TP_AGG_RTOL:
-            raise AssertionError(f"tp {agg}: aggregate off the one-device step's by "
-                                 f"{one['agg_err']}")
+    tp_check(launches, "tp", f"{FSDP_ARCH} ({FSDP_LAYERS} of 28 layers, {FSDP_PARAMS:,} "
+             "parameters)", [r["tp"]["runs"] for r in ranks], TP_RUNS, smi,
+             (a_fb, "(a)'s (4, 1)"))
 
     # (f) the same group serving gemma-7b on compute blocks
     t0 = time.perf_counter()
@@ -3702,6 +3955,26 @@ def mesh_phase(dev, smi):
         raise AssertionError(f"serve tp: kernels launched {launches['serve_tp']}")
     tps_check(dev, smi, [r["tps"] for r in ranks])
     log(f"tps checks on one device ran in {time.perf_counter() - t0:.1f} s")
+
+    # (g) the same group: OLMoE's experts along the model axis, trained and served
+    t0 = time.perf_counter()
+    cfg = moe_config()
+    tp_check(launches, "moe.tp", f"{MOE_ARCH} ({MOE_TP_LAYERS} of "
+             f"{get_config(MOE_ARCH).n_layers} layers, {MOE_TP_DTYPE}, "
+             f"{cfg.param_count():,} parameters, {cfg.n_experts} experts top-"
+             f"{cfg.experts_per_token})", [r["moe"]["train"]["runs"] for r in ranks],
+             MOE_TP_RUNS, smi)
+    cfg = moe_config(dtype="bfloat16")
+    tp_check(launches, "moe.tp16", f"{MOE_ARCH} ({MOE_TP_LAYERS} of "
+             f"{get_config(MOE_ARCH).n_layers} layers, bfloat16, {cfg.param_count():,} "
+             f"parameters)", [r["moe"]["train16"]["runs"] for r in ranks], MOE_TP_RUNS, smi,
+             near=False)
+    launches["moe.serve_tp"] = {k: sum(r["moe"]["serve"]["counts"][k] for r in ranks)
+                                for k in LAUNCHES}
+    if any(launches["moe.serve_tp"].values()):
+        raise AssertionError(f"moe serve tp: kernels launched {launches['moe.serve_tp']}")
+    tps_check(dev, smi, [r["moe"]["serve"] for r in ranks], TPS_MOE)
+    log(f"moe tp checks on one device ran in {time.perf_counter() - t0:.1f} s")
 
     # (b) + (d) the smoke-width step on both meshes
     launches["fsdp_smoke"] = {k: 0 for k in LAUNCHES}
@@ -4483,6 +4756,16 @@ def x16_phase(dev, smi: str, results):
     return launches
 
 
+def stop_resource_tracker() -> None:
+    """Stop the process ``multiprocessing`` starts beside this one to track
+    the rank groups' semaphores (``spawn_ranks``) and wait for it. It exits
+    by itself only once this process has exited, so without this it can
+    outlive the script."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+
+
 def main() -> int:
     import torch
 
@@ -4597,6 +4880,7 @@ def main() -> int:
             library_ms=main_row["library_ms"], shape=main_row["shape"], cases=rows,
             **other.get(name, {})))
     log(f"chip_smoke: phases 1-17 passed in {time.perf_counter() - t_start:.1f} s")
+    stop_resource_tracker()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

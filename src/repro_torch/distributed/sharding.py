@@ -16,12 +16,12 @@ The rules are the reference's, entry for entry:
 These rules place storage: parameters, optimizer moments and the sync's
 egress. Compute has a plan of its own, ``compute_shardings``: the block
 of each parameter a rank runs the training forward and backward on,
-Megatron's column / row split of attention and the MLP and the vocab
-split where the model axis's size divides them, the leaf whole elsewhere
-(``models/parallel.py``). The storage rule picks the largest dim, the
-first on a tie, so it often splits a weight on its input dim where the
-column split needs the output dim; the train step gathers each leaf from
-its storage blocks and keeps its compute block.
+Megatron's column / row split of attention and the MLP, the vocab split
+and a MoE layer's experts over the model axis where its size divides
+them, the leaf whole elsewhere (``models/parallel.py``). The storage rule
+picks the largest dim, the first on a tie, so it often splits a weight on
+its input dim where the column split needs the output dim; the train step
+gathers each leaf from its storage blocks and keeps its compute block.
 
 Per-arch overrides replace the inferred spec: ``overrides={path_regex:
 spec}``, matched with ``re.search`` against the leaf's path string
@@ -222,10 +222,11 @@ def compute_shardings(cfg, params_shape, mesh):
     entries are only ``"model"`` or ``None``, each leaf's block the one a
     rank computes on in the training forward and backward
     (``models/parallel.py``): Megatron's layout wherever the model axis's
-    size T divides the part (``parallel.model_split``), the leaf whole on
-    every model rank elsewhere (attention T does not split, MoE, SSM, the
-    norms). Decided from the config and the mesh alone; with T = 1 every
-    leaf is whole. It is its own plan beside the storage rules
+    size T divides the part (``parallel.model_split``), the experts of a
+    MoE layer on their expert dim (a shared expert as the MLP, the router
+    whole), the leaf whole on every model rank elsewhere (attention or
+    experts T does not split, SSM, the norms). Decided from the config
+    and the mesh alone; with T = 1 every leaf is whole. It is its own plan beside the storage rules
     (``param_shardings``), which often put the model axis on a weight's
     input dim (the largest dim, the first on a tie) where the column
     split needs the output dim."""
@@ -241,20 +242,27 @@ def compute_shardings(cfg, params_shape, mesh):
             return ndim - 2 if split["vocab"] else None  # [V, D] / [K, V, D]
         if parts[0] == "lm_head":
             return ndim - 1 if split["vocab"] else None
-        if parts[0] != "blocks" or len(parts) != 4:
+        if parts[0] != "blocks" or len(parts) not in (4, 5):
             return None
         mixer, ff = kinds[int(parts[1])]
-        name = parts[3]
+        name = parts[-1]
+        if len(parts) == 5:  # a MoE layer's shared expert: the MLP's dims
+            mlp = ff == "moe" and parts[3].startswith("shared_") and split["moe_shared"]
+        else:
+            mlp = ff == "mlp" and split["mlp"]
         if parts[2] == "mixer" and mixer == "attn" and split["attn"]:
             if name in ("wq", "bq") or (name in ("wk", "wv", "bk", "bv") and split["kv"]):
                 return ndim - 1
             if name == "wo":
                 return 1
-        if parts[2] == "ff" and ff == "mlp" and split["mlp"]:
+        if parts[2] == "ff" and mlp:
             if name in ("w_gate", "w_up"):
                 return ndim - 1
             if name == "w_down":
                 return 1
+        if parts[2] == "ff" and ff == "moe" and split["moe"] and len(parts) == 4:
+            if name in ("w_gate", "w_up", "w_down"):  # [P, E, D, F] / [P, E, F, D]
+                return ndim - 3
         return None
 
     def one(path, leaf):

@@ -27,10 +27,12 @@ The forward and backward run on compute blocks, placed by the compute
 plan ``sharding.compute_shardings`` (``state["shardings"]["compute"]``): a
 step gathers each leaf, keeps its compute block and frees the whole leaf
 before the next. Where the ``model`` axis has T > 1 ranks the ranks of a
-worker group compute along it (``models/parallel.py``: heads, d_ff and
-vocab split where T divides them, all-reduces over the model group), so
-each holds its blocks' activations, gradients and worker momenta only;
-with T = 1 the compute blocks are the whole leaves. The packed sync takes
+worker group compute along it (``models/parallel.py``: heads, d_ff, vocab
+and a MoE layer's experts split where T divides them, all-reduces over
+the model group), so each holds its blocks' activations, gradients and
+worker momenta only (a MoE layer's E/T experts; its router, held whole
+by the group, is sent to the sync by model coordinate 0 alone); with
+T = 1 the compute blocks are the whole leaves. The packed sync takes
 the rows worker-sharded and runs the sharded kernels on column slices
 over all R ranks (``shard_kernels.py``): with T = 1 one ``all_to_all`` of
 whole rows from the ranks at model coordinate 0
@@ -370,8 +372,9 @@ def make_prefill_step(cfg, mesh=None, last_only: bool = True, device=None) -> Ca
     rank where the mesh's model axis has one rank; where it has T > 1 they
     are this rank's compute blocks (``sharding.compute_blocks``; whole
     parameters raise a ``ValueError``): the forward runs on them along the
-    model axis, and every rank of a model group returns the logits of all
-    V of its rows."""
+    model axis (a MoE layer on the rank's E/T experts, every rank routing
+    all of its rows' tokens), and every rank of a model group returns the
+    logits of all V of its rows."""
     dev = resolve_device(device)
     m = None if mesh is None else as_mesh(mesh)
     ax, check = _serving_axis(cfg, m)
@@ -474,9 +477,10 @@ def make_serve_step(cfg, mesh, shape, device=None) -> Tuple[Callable, Any, Any]:
     ``params`` are whole on every rank where the mesh's model axis has one
     rank, and this rank's compute blocks (``sharding.compute_blocks``;
     whole parameters raise a ``ValueError``) where it has T > 1: the
-    embedding, the attention layers, MLPs and head the plan splits run on
-    them along the model axis (``attention.decode_attention``'s ``ax``),
-    and every rank of a model group returns the logits of all V.
+    embedding, the attention layers, MLPs, MoE experts and head the plan
+    splits run on them along the model axis (``attention.decode_attention``'s
+    ``ax``; a MoE layer routes the step's tokens whole on every rank), and
+    every rank of a model group returns the logits of all V.
     ``cache`` is this rank's blocks; ``token`` the global ``[B]`` (``[B,
     K]``) tokens. Where the worker groups divide B the cache is
     batch-sharded and each rank decodes its own rows, returning their

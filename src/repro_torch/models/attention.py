@@ -169,8 +169,8 @@ def attention(p, x, cfg, positions, impl: Optional[str] = None, ax=None) -> torc
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     B, S = x.shape[:2]
-    out = out.reshape(B, S, q.shape[2] * cfg.head_dim_) @ p["wo"]
-    return out if ax is None else ax.reduce_out(out)
+    out = out.reshape(B, S, q.shape[2] * cfg.head_dim_)
+    return out @ p["wo"] if ax is None else ax.project_out(out, p["wo"])
 
 
 # ----------------------------------------------------------------- decode
@@ -260,5 +260,5 @@ def decode_attention(p, x, cache, cfg, position: int, span=None,
     if ax is None:
         return out.reshape(B, 1, H * dh) @ p["wo"], {"k": k, "v": v}
     h0 = ax.index * H // ax.size  # this rank's q heads, its rows of wo
-    out = out[:, :, h0:h0 + H // ax.size].reshape(B, 1, -1) @ p["wo"]
-    return ax.reduce_out(out), {"k": k, "v": v}
+    out = out[:, :, h0:h0 + H // ax.size].reshape(B, 1, -1)
+    return ax.project_out(out, p["wo"]), {"k": k, "v": v}

@@ -86,7 +86,8 @@ def init_mlp_block(generator, d: int, f: int, kind: str, dtype, device):
 
 def mlp_block(p, x: torch.Tensor, kind: str, ax=None) -> torch.Tensor:
     """The MLP; on a model axis ``ax`` (``models/parallel.py``) over this
-    rank's d_ff columns, the output all-reduced."""
+    rank's d_ff columns, the output summed over the group
+    (``ax.project_out``)."""
     if ax is not None:
         x = ax.copy_in(x)
     if kind == "swiglu":
@@ -97,5 +98,4 @@ def mlp_block(p, x: torch.Tensor, kind: str, ax=None) -> torch.Tensor:
         act = F.gelu(x @ p["w_up"], approximate="tanh")
     else:
         raise ValueError(kind)
-    out = act @ p["w_down"]
-    return out if ax is None else ax.reduce_out(out)
+    return act @ p["w_down"] if ax is None else ax.project_out(act, p["w_down"])

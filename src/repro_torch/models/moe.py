@@ -29,12 +29,28 @@ buffer that is cut off (the reference's scatter ``mode="drop"``).
 
 Aux losses: the Switch load-balance loss on the top-1 counts, the router
 z-loss, and the fraction of assignments dropped.
+
+Along a model axis (``ax``, ``models/parallel.py``; the reference's
+expert axis over ``model``) rank m of the group holds experts ``[m E/T,
+(m+1) E/T)``. Routing is whole on every rank: the router, top-k, the
+dispatch sort, the capacity (from all T tokens), the drops and the aux
+losses come from the stream, which is the same bits on every rank, so
+every rank makes the same choices. A rank dispatches only the kept
+assignments of its experts into a ``[E/T, C + 1, D]`` buffer (the others
+to the spare slot), sums its gated outputs over K in fp32, and one
+all-reduce of that ``[T, D]`` fp32 partial over the group, rounded once to
+``x.dtype``, gives one device's fp32 sum over K and its one rounding. The
+gates reach the combine through a ``copy_in`` of their own, so the router
+gets whole, equal gradients; the aux losses take the gates before it and
+count once. Shared experts follow, split as the MLP where
+``ax.moe_shared``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,15 +95,35 @@ def expert_capacity(n_tokens: int, cfg) -> int:
     return max(8, min(c, n_tokens))
 
 
-def moe_layer(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B, S, D] -> (out [B, S, D], aux dict with losses)."""
-    B, S, D = x.shape
-    T = B * S
+#: where ``recorded_routes`` is open, the list it yields
+_ROUTES: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every routing ``_route`` makes inside the block, in call order (a
+    period recomputed in the backward routes again): each MoE layer's
+    top-k experts ``[T, K]`` and kept assignments ``[T*K]`` in dispatch
+    order, on their device. For the tests and the smoke run, which hold
+    every rank's routing against one device's."""
+    global _ROUTES
+    outer, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = outer
+
+
+def _route(p, xt: torch.Tensor, cfg):
+    """Routing, the same on one device and on every rank of a model group:
+    the fp32 router logits ``[T, E]``, the softmax gates, the renormalised
+    top-k gates and experts ``[T, K]`` (a stable descending sort), and the
+    dispatch: the stable sort of the ``T*K`` assignments by expert
+    (``order``, ``sorted_e``), each one's slot ``pos`` within its expert and
+    whether it fits the capacity ``C`` (``keep``)."""
+    T = xt.shape[0]
     E, K = cfg.n_experts, cfg.experts_per_token
     C = expert_capacity(T, cfg)
-    xt = x.reshape(T, D)
-    dev = x.device
-
     logits = (xt.float() @ p["router"]).float()  # [T, E]
     gates_all = torch.softmax(logits, dim=-1)
     gate_sorted, idx_sorted = torch.sort(gates_all, dim=-1, descending=True, stable=True)
@@ -96,50 +132,92 @@ def moe_layer(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Te
 
     # ---- sort-based dispatch
     flat_e = idx_topk.reshape(-1)  # [T*K]
-    flat_g = gate_topk.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     counts = _bincount(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(T * K, device=dev) - starts[sorted_e]
+    pos = torch.arange(T * K, device=xt.device) - starts[sorted_e]
     keep = pos < C
-    write_pos = torch.where(keep, pos, C)  # slot C takes the dropped ones
-    tok_of = order // K
+    if _ROUTES is not None:
+        _ROUTES.append((idx_topk.detach(), keep.detach()))
+    return dict(logits=logits, gates_all=gates_all, gate_topk=gate_topk, idx_topk=idx_topk,
+                order=order, sorted_e=sorted_e, pos=pos, keep=keep, C=C)
 
-    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=dev)
-    buf = torch.index_put(buf, (sorted_e, write_pos), xt[tok_of])[:, :C]
 
-    # ---- expert compute (batched products over the stacked weights)
+def _experts(p, buf: torch.Tensor, cfg) -> torch.Tensor:
+    """The batched expert products over the stacked weights: ``[e, C, D]``
+    in, ``[e, C, D]`` out."""
     if "w_gate" in p:
         gate = torch.bmm(buf, p["w_gate"])
         act_g = F.silu(gate) if cfg.mlp_kind == "swiglu" else F.gelu(gate, approximate="tanh")
         act = act_g * torch.bmm(buf, p["w_up"])
     else:
         act = F.gelu(torch.bmm(buf, p["w_up"]), approximate="tanh")
-    out_buf = torch.bmm(act, p["w_down"])  # [E, C, D]
+    return torch.bmm(act, p["w_down"])
+
+
+def _aux(r, E: int, T: int, K: int) -> Dict[str, torch.Tensor]:
+    """Switch load balance ``E * sum_e f_e P_e`` with ``f_e`` the fraction
+    of tokens whose TOP-1 expert is e (the reference's note), the router
+    z-loss and the fraction of assignments dropped."""
+    top1 = _bincount(r["idx_topk"][:, 0].contiguous(), E)
+    f_e = top1.float() / T
+    p_e = torch.mean(r["gates_all"], dim=0)
+    return {
+        "moe_lb_loss": E * torch.sum(f_e * p_e),
+        "moe_z_loss": torch.mean(torch.square(torch.logsumexp(r["logits"], dim=-1))),
+        "moe_drop_frac": 1.0 - torch.sum(r["keep"]) / (T * K),
+    }
+
+
+def moe_layer(p, x: torch.Tensor, cfg, ax=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B, S, D] -> (out [B, S, D], aux dict with losses). On a model
+    axis ``ax`` that splits the experts (``ax.moe``), ``p`` holds this
+    rank's experts and the output is the same on every rank of the group
+    (module docstring)."""
+    B, S, D = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.experts_per_token
+    xt = x.reshape(T, D)
+    r = _route(p, xt, cfg)
+    out = _routed_experts(p, xt, r, cfg, ax if ax is not None and ax.moe else None)
+    shared_ax = ax if ax is not None and ax.moe_shared else None
+    for i in range(cfg.n_shared_experts):  # always on, kimi-style
+        out = out + mlp_block(p[f"shared_{i}"], xt, cfg.mlp_kind, shared_ax)
+    return out.reshape(B, S, D), _aux(r, E, T, K)
+
+
+def _routed_experts(p, xt: torch.Tensor, r, cfg, ax=None) -> torch.Tensor:
+    """The routed experts' output ``[T, D]``: the experts ``p`` holds, ``[e0,
+    e0 + n)`` (all E on one device; this rank's E/T on ``ax``), on their
+    kept assignments; the gated outputs summed over K in fp32 (as one
+    device's 16-bit sum accumulates) and, on ``ax``, all-reduced over the
+    group, then rounded once to ``x.dtype``."""
+    T, D = xt.shape
+    K, C = cfg.experts_per_token, r["C"]
+    n = p["w_up"].shape[0]
+    e0 = 0 if ax is None else ax.index * n
+    order, sorted_e = r["order"], r["sorted_e"]
+    mine = r["keep"] & (sorted_e >= e0) & (sorted_e < e0 + n)
+    local_e = torch.where(mine, sorted_e - e0, 0)
+    write_pos = torch.where(mine, r["pos"], C)  # slot C takes every other assignment
+    tok_of = order // K
+    flat_g = r["gate_topk"].reshape(-1)
+    if ax is not None:  # whole gate and input gradients, all-reduced
+        flat_g, xt = ax.copy_in(flat_g), ax.copy_in(xt)
+
+    buf = torch.zeros((n, C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf = torch.index_put(buf, (local_e, write_pos), xt[tok_of])[:, :C]
+    out_buf = _experts(p, buf, cfg)  # [n, C, D]
 
     # ---- gather + gate-combine back to tokens, in a fixed order
-    gathered = out_buf[sorted_e, torch.clamp(write_pos, max=C - 1)]  # [T*K, D]
-    gathered = gathered * (keep * flat_g[order]).to(x.dtype)[:, None]
+    gathered = out_buf[local_e, torch.clamp(write_pos, max=C - 1)]  # [T*K, D]
+    gated = gathered * flat_g[order].to(xt.dtype)[:, None]
+    # where, not a 0/1 product: another rank's or a dropped assignment
+    # reads an arbitrary row, whose inf or NaN a product would carry
+    gated = torch.where(mine[:, None], gated, torch.zeros((), dtype=xt.dtype, device=xt.device))
     inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(T * K, device=dev)
-    out = torch.sum(gathered[inverse].reshape(T, K, D), dim=1)
-
-    # ---- shared experts (always on, kimi-style)
-    for i in range(cfg.n_shared_experts):
-        out = out + mlp_block(p[f"shared_{i}"], xt, cfg.mlp_kind)
-
-    # ---- aux losses: Switch load balance E * sum_e f_e P_e with f_e the
-    # fraction of tokens whose TOP-1 expert is e (the reference's note)
-    top1 = _bincount(idx_topk[:, 0].contiguous(), E)
-    f_e = top1.float() / T
-    p_e = torch.mean(gates_all, dim=0)
-    lb_loss = E * torch.sum(f_e * p_e)
-    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-    dropped = 1.0 - torch.sum(keep) / (T * K)
-    aux = {
-        "moe_lb_loss": lb_loss,
-        "moe_z_loss": z_loss,
-        "moe_drop_frac": dropped,
-    }
-    return out.reshape(B, S, D), aux
+    inverse[order] = torch.arange(T * K, device=xt.device)
+    acc = torch.promote_types(xt.dtype, torch.float32)
+    out = torch.sum(gated[inverse].reshape(T, K, D), dim=1, dtype=acc)
+    return (out if ax is None else ax.reduce_out(out)).to(xt.dtype)

@@ -14,19 +14,37 @@ part (``model_split``):
   MLP        the columns of w_gate / w_up, the rows of w_down.
   vocab      embed rows ``[m V/T, ...)`` and lm_head columns (each
              codebook's the same).
+  MoE        experts ``[m E/T, (m+1) E/T)``: the block on the expert dim
+             of the stacked w_gate / w_up ``[P, E, D, F]`` and w_down
+             ``[P, E, F, D]``, where T divides E (the reference's expert
+             axis over ``model``); each shared expert split as the MLP
+             where T also divides d_ff_expert, else whole; the fp32
+             router ``[P, D, E]`` whole (``models/moe.py``).
 
-Attention whose head counts T does not split, MoE and SSM layers and the
-norms run whole on every rank of the group, as without a model axis.
+Attention whose head counts T does not split, MoE layers whose experts T
+does not split, SSM layers and the norms run whole on every rank of the
+group, as without a model axis.
 
 Two operators over the model group carry the residual stream across a
 split part (Megatron's f and g): ``copy_in``, the identity whose backward
 all-reduces the gradient, before the column-split products, and
 ``reduce_out``, an all-reduce whose backward is the identity, after the
-row-split product. The residual stream, and every gradient of a part held
-whole, is so the same on every rank of the group. Whole k / v are
-computed from the stream before ``copy_in`` and pass through a
-``copy_in`` of their own, so wk / wv get whole, equal gradients and the
-stream's gradient counts them once.
+row-split product (``project_out``). The residual stream, and every
+gradient of a part held whole, is so the same on every rank of the group.
+Whole k / v are computed from the stream before ``copy_in`` and pass
+through a ``copy_in`` of their own, so wk / wv get whole, equal gradients
+and the stream's gradient counts them once. A MoE layer's router gates follow the
+same pattern: every rank routes all tokens from the stream, and the gates
+enter the combine through a ``copy_in`` of their own.
+
+A 16-bit row-split product (``reduce_out(x @ w)``) rounds each rank's
+partial to 16 bits and sums the partials in 16 bits, where one device's
+product accumulates in fp32 and rounds once. A dense model keeps that. In
+a model whose experts are split (``moe``) the extra rounding moves a
+router's near-ties, and a token routed otherwise than on one device is far
+off it, so there ``project_out`` writes each rank's partial in fp32 from a
+16-bit GEMM, all-reduces the fp32 partials and rounds the sum once: one
+device's rounding, at twice the all-reduce's bytes.
 
 The embedding lookup gives a zero row for a token outside the rank's
 rows; the rows' all-reduce adds exact zeros, so the embedded stream
@@ -68,12 +86,15 @@ from repro_torch.distributed.sharding import _gather_along
 def model_split(cfg, T: int) -> Dict[str, bool]:
     """Which parts of ``cfg`` run split over T model ranks (module
     docstring): ``attn`` (q heads, and kv heads or whole k / v), ``kv``
-    (the kv heads split too), ``mlp`` (d_ff), ``vocab``. Decided from the
-    config and T alone."""
-    H, KV = cfg.n_heads, cfg.n_kv_heads
+    (the kv heads split too), ``mlp`` (d_ff), ``vocab``, ``moe`` (the
+    experts), ``moe_shared`` (the shared experts' d_ff_expert, beside split
+    experts). Decided from the config and T alone."""
+    H, KV, E = cfg.n_heads, cfg.n_kv_heads, cfg.n_experts
     attn = T > 1 and H > 0 and KV > 0 and H % T == 0 and (KV % T == 0 or T % KV == 0)
+    moe = T > 1 and E > 0 and E % T == 0
     return {"attn": attn, "kv": attn and KV % T == 0,
-            "mlp": T > 1 and cfg.d_ff % T == 0, "vocab": T > 1 and cfg.vocab_size % T == 0}
+            "mlp": T > 1 and cfg.d_ff % T == 0, "vocab": T > 1 and cfg.vocab_size % T == 0,
+            "moe": moe, "moe_shared": moe and (cfg.d_ff_expert or cfg.d_ff) % T == 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +110,8 @@ class ModelAxis:
     kv: bool
     mlp: bool
     vocab: bool
+    moe: bool
+    moe_shared: bool
 
     @classmethod
     def of(cls, cfg, mesh) -> Optional["ModelAxis"]:
@@ -106,6 +129,16 @@ class ModelAxis:
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         """Megatron's g: ``x`` summed over the group; its gradient as it is."""
         return _ReduceOut.apply(x, self.group)
+
+    def project_out(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The row-split product ``x @ w`` (``x`` this rank's columns, ``w``
+        its rows) summed over the group: ``reduce_out(x @ w)``, but for a
+        16-bit product in a model whose experts are split (module
+        docstring), where each rank's partial is written in fp32, the fp32
+        partials are summed and the sum is rounded once."""
+        if not (self.moe and x.dtype in (torch.bfloat16, torch.float16)):
+            return self.reduce_out(x @ w)
+        return self.reduce_out(_Fp32Partial.apply(x, w)).to(x.dtype)
 
 
 def gather_vocab(ax: ModelAxis, logits: torch.Tensor) -> torch.Tensor:
@@ -153,6 +186,32 @@ class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _Fp32Partial(torch.autograd.Function):
+    """``x @ w`` of 16-bit ``x [..., F]`` and ``w [F, D]`` written in fp32:
+    one 16-bit GEMM with fp32 output (``mm``'s ``out_dtype``), or, on a
+    backend without it (the CPU), the product of the widened operands,
+    each of whose products fp32 holds exactly. Its gradients are one
+    device's 16-bit products from the saved 16-bit operands (the fp32
+    gradient that reaches it is a 16-bit one widened)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        try:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        except NotImplementedError:
+            out = x2.float() @ w.float()
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gw = x.reshape(-1, x.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
+        return g @ w.mT, gw
 
 
 # ------------------------------------------------------------ vocab parallel

@@ -178,12 +178,14 @@ def _periods(tree, n_periods: int):
 
 def _feed_forward(lp, h, ff: str, cfg, ax=None):
     """``h`` plus layer ``lp``'s feed-forward ``ff``, and the MoE layer's aux
-    (or ``None``); an MLP over ``ax`` where it splits d_ff."""
+    (or ``None``); an MLP over ``ax`` where it splits d_ff, a MoE layer's
+    experts over ``ax`` where it splits them."""
     if ff == "none":
         return h, None
     x = rmsnorm(lp["norm2"], h, cfg.norm_eps)
     if ff == "moe":
-        out, aux = moe_mod.moe_layer(lp["ff"], x, cfg)
+        moe_ax = ax if ax is not None and ax.moe else None
+        out, aux = moe_mod.moe_layer(lp["ff"], x, cfg, ax=moe_ax)
         return h + out, aux
     return h + mlp_block(lp["ff"], x, cfg.mlp_kind, ax if ax is not None and ax.mlp else None), None
 
@@ -195,8 +197,8 @@ def _has_moe(cfg) -> bool:
 def _run_period(period, h, aux, cfg, positions, ax=None):
     """One period, every layer of ``cfg.pattern_``: ``(h, aux)`` after it,
     ``aux`` the MoE layers' losses summed so far (the reference's
-    ``period_body`` carry). On a model axis ``ax`` the attention and MLP
-    layers it splits run on this rank's compute blocks."""
+    ``period_body`` carry). On a model axis ``ax`` the attention, MLP and
+    MoE layers it splits run on this rank's compute blocks."""
     for i, (mixer, ff) in enumerate(cfg.pattern_):
         lp = period[str(i)]
         x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
@@ -362,7 +364,7 @@ def decode_step(params, cfg, cache, token, position: int,
     (the cache sharded over ranks: ``distributed/steps.py``). On a model
     axis ``ax`` ``params`` are this rank's compute blocks: the embedding,
     the attention layers ``ax`` splits (through ``attend`` where given),
-    the MLPs and the head run on them, and the logits of all V come back
+    the MLPs, the MoE layers' experts and the head run on them, and the logits of all V come back
     on every rank of the model group."""
     h = embed_tokens(params, cfg, token, ax)[:, None, :]
     attn_ax = ax if ax is not None and ax.attn else None

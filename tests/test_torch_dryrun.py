@@ -33,7 +33,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.collectives import record_collectives
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh, n_workers
 from repro_torch.models import transformer as tfm
-from repro_torch.utils.tree import tree_flatten
+from repro_torch.utils.tree import tree_flatten, tree_flatten_with_path
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BYZ = ByzConfig(aggregator="rfa", mixing="bucketing", s=2, worker_momentum=0.9, delta=0.1)
@@ -312,4 +312,37 @@ def test_serving_argument_is_the_compute_blocks(fake_group, shape):
     whole = sum(math.prod(s.shape) * 2 for s in tree_flatten(specs)[0])
     norms = 2 * cfg.d_model * (2 * cfg.n_layers + 1)
     assert blocks == (whole - norms) // 16 + norms < whole / 15
+    assert result["flops"] > 0 and result["collectives"]["all-reduce"] > 0
+
+
+def test_moe_serving_argument_is_the_expert_blocks(fake_group):
+    """Kimi K2 x decode_32k at full width, 2 of 61 layers, on the fake (16,
+    16) mesh: the serving step traces on this rank's compute blocks, whose
+    384 experts split 24 a rank, the shared expert's d_ff_expert 2,048 / 16
+    and the fp32 router whole; its ``argument`` is exactly those blocks
+    (each leaf at its dtype's bytes), this rank's cache blocks and the
+    batch, and its expert leaves hold 1 / 16 of the whole ones."""
+    fake_group(256, rank=17)
+    mesh = make_production_mesh(dist.group.WORLD)
+    overrides = {"n_layers": 2}
+    result = dryrun.dryrun_one("kimi-k2-1t-a32b", "decode_32k", verbose=False,
+                               overrides=overrides)
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), **overrides)
+    inputs = INPUT_SHAPES["decode_32k"]
+    specs = tfm.params_shape(cfg)
+    flat = tree_flatten(specs)[0]
+    plan = tree_flatten(compute_shardings(cfg, specs, mesh))[0]
+    size = {torch.float32: 4, torch.bfloat16: 2}
+    blocks = sum(math.prod(pl.local_shape(s.shape)) * size[s.dtype] for s, pl in zip(flat, plan))
+    batch = sum(math.prod(v.shape) * 4 for v in steps.input_specs(cfg, inputs).values())
+    _, cache_spec, placements = steps.make_serve_step(cfg, mesh, inputs, device="cpu")
+    cache = sum(math.prod(pl.local_shape(s.shape)) * size[s.dtype] for s, pl in zip(
+        tree_flatten(cache_spec)[0], tree_flatten(placements)[0]))
+    assert result["bytes_per_device"]["argument"] == blocks + cache + batch
+    for (path, s), pl in zip(tree_flatten_with_path(specs)[0], plan):
+        name = path.split("/")[-1]
+        if "/ff/" in path and "shared" not in path and name in ("w_gate", "w_up", "w_down"):
+            assert pl.local_shape(s.shape)[1] == cfg.n_experts // 16 == 24, path
+        if name == "router":
+            assert pl.local_shape(s.shape) == tuple(s.shape) and s.dtype == torch.float32
     assert result["flops"] > 0 and result["collectives"]["all-reduce"] > 0

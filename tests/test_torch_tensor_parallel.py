@@ -31,6 +31,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.distributed.sharding import compute_shardings
 from repro_torch.distributed.steps import make_train_step
 from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.parallel import model_split
 from repro_torch.utils.tree import tree_flatten, tree_flatten_with_path, tree_map
@@ -44,7 +45,24 @@ CASES = {
     "mamba2": ("mamba2-130m", {}),
     "musicgen": ("musicgen-medium", {}),
     "gemma_remat": ("gemma-7b", {"remat": "full"}),
+    # MoE along the model axis: a shared expert beside the experts (fsdp),
+    # an SSM layer whole beside split experts, 6 experts (split on (2, 2),
+    # whole on (1, 4)), and a capacity that drops assignments
+    "kimi": ("kimi-k2-1t-a32b", {}),
+    "jamba": ("jamba-v0.1-52b", {}),
+    "olmoe_e6": ("olmoe-1b-7b", {"n_experts": 6}),
+    "olmoe_drops": ("olmoe-1b-7b", {"capacity_factor": 0.5}),
 }
+MOE_CASES = [label for label, (arch, _) in CASES.items()
+             if arch in ("olmoe-1b-7b", "kimi-k2-1t-a32b", "jamba-v0.1-52b")]
+#: label -> (arch, config fields) of the MoE train steps on the mesh: worker
+#: momentum and its momenta in expert blocks (OLMoE, one layer), fsdp and a
+#: shared expert with server momentum (Kimi K2; its optimizer momentum in
+#: fp32, since a bf16 one turns a last-bit difference of a gradient into a
+#: whole bf16 step), the hybrid's period (Jamba)
+MOE_STEPS = {"olmoe": ("olmoe-1b-7b", {"n_layers": 1}),
+             "kimi": ("kimi-k2-1t-a32b", {"n_layers": 1, "opt_m_dtype": "float32"}),
+             "jamba": ("jamba-v0.1-52b", {})}
 MESHES = [(1, 4), (2, 2)]
 B, S, W = 2, 16, 4
 RTOL, ATOL = 1e-4, 1e-5
@@ -80,22 +98,27 @@ def _case(label):
 @functools.lru_cache(maxsize=None)
 def _reference(label):
     """The reference's loss and gradient leaves, and the port's one-device
-    loss, gradients and embedded stream, on the case's parameters."""
+    loss, gradients and embedded stream, on the case's parameters; then
+    the port's one-device routing of each MoE layer (``(idx_topk, keep)``)
+    and both packages' ``moe_drop_frac`` (``None`` without MoE)."""
     cfg, rcfg, rp, batch = _case(label)
-    (rloss, _), rg = jax.jit(jax.value_and_grad(rtfm.loss_fn, has_aux=True),
-                             static_argnums=1)(rp, rcfg, {k: jnp.asarray(v)
-                                                          for k, v in batch.items()})
+    (rloss, raux), rg = jax.jit(jax.value_and_grad(rtfm.loss_fn, has_aux=True),
+                                static_argnums=1)(rp, rcfg, {k: jnp.asarray(v)
+                                                             for k, v in batch.items()})
     params = params_from_jax(rp, device="cpu")
     leaves, _ = tree_flatten(params)
     for p in leaves:
         p.requires_grad_(True)
     tb = {k: torch.tensor(v) for k, v in batch.items()}
-    loss, _ = tfm.loss_fn(params, cfg, tb)
+    with moe.recorded_routes() as routes:
+        loss, aux = tfm.loss_fn(params, cfg, tb)
     grads = torch.autograd.grad(loss, leaves)
     with torch.no_grad():
         h = tfm.embed_tokens(params, cfg, tb["tokens"])
+    drops = (None, None) if "moe_drop_frac" not in aux else (
+        aux["moe_drop_frac"].detach().numpy(), np.asarray(raux["moe_drop_frac"]))
     return (float(rloss), [np.asarray(g) for g in jax.tree_util.tree_leaves(rg)],
-            float(loss.detach()), [g.numpy() for g in grads], h.numpy())
+            float(loss.detach()), [g.numpy() for g in grads], h.numpy(), routes, drops)
 
 
 def _steps_payload():
@@ -103,7 +126,7 @@ def _steps_payload():
     toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (2 * W, 17))
     ra = RRobustAggregator.from_spec("rfa", mixing="bucketing", s=2)
     qtoks = np.random.default_rng(22).integers(0, 512, (2 * W, 17))
-    return {"W": W, "batch": {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+    return {"W": W, "batch": {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, "moe": MOE_STEPS,
             "qwen_batch": {"tokens": qtoks[:, :-1], "labels": qtoks[:, 1:]},
             "mix": np.asarray(ra.mixing_matrix(jax.random.PRNGKey(30), W))}
 
@@ -144,7 +167,7 @@ def test_loss_and_gradients_on_compute_blocks(tp_ranks, label):
     gathered gradients are the same bits on every rank (a leaf held whole
     gets the same gradient on every model rank)."""
     _, _, ranks = tp_ranks
-    rloss, rgrads, loss1, grads1, _ = _reference(label)
+    rloss, rgrads, loss1, grads1 = _reference(label)[:4]
     out = ranks[0]["cases"][label]
     np.testing.assert_allclose(float(out["loss"]), rloss, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(float(out["loss"]), loss1, rtol=RTOL, atol=ATOL)
@@ -164,15 +187,20 @@ def test_compute_blocks_follow_the_plan(tp_ranks):
     ``model_split``'s (whole k / v for tinyllama's 2 kv heads at T = 4,
     whole attention for 3 heads, everything split for gemma)."""
     (_, T), _, ranks = tp_ranks
-    want_flags = {"gemma": (True, True, True, True),
-                  "tinyllama_kv2": (True, T == 2, True, True),
-                  "whole_attention": (False, False, True, True)}
+    want_flags = {"gemma": (True, True, True, True, False, False),
+                  "tinyllama_kv2": (True, T == 2, True, True, False, False),
+                  "whole_attention": (False, False, True, True, False, False),
+                  "olmoe": (True, True, True, True, True, True),
+                  "kimi": (True, True, True, True, True, True),
+                  "jamba": (True, True, True, True, True, True),
+                  "olmoe_e6": (True, True, True, True, T == 2, T == 2)}
     for label in CASES:
         cfg = _case(label)[0]
         plan = compute_shardings(cfg, tfm.params_shape(cfg), _Mesh(data=4 // T, model=T))
         flags = model_split(cfg, T)
         if label in want_flags:
-            assert tuple(flags[k] for k in ("attn", "kv", "mlp", "vocab")) == want_flags[label]
+            assert tuple(flags[k] for k in ("attn", "kv", "mlp", "vocab", "moe",
+                                            "moe_shared")) == want_flags[label]
         for r, out in enumerate(ranks):
             case = out["cases"][label]
             assert case["split"] == flags
@@ -217,6 +245,60 @@ def test_plan_on_the_production_mesh():
         assert all(not any(pl.spec) for pl in tree_flatten(one)[0])
 
 
+def test_plan_puts_experts_on_the_model_axis():
+    """MoE at full width on (16, 16) (depth cut to 2 layers, one period for
+    Jamba, to build the shapes quickly): the three stacked expert leaves
+    split on their expert dim (dim 1 after the period dim), Kimi K2's shared
+    expert as the MLP (columns of w_gate / w_up, rows of w_down), the fp32
+    router whole, Jamba's SSM layers whole beside its split experts; on a
+    model axis of 5, which divides none of the expert counts, every expert
+    leaf whole; with T = 1 every leaf whole."""
+    experts = {"blocks/{i}/ff/w_gate": (None, "model", None, None),
+               "blocks/{i}/ff/w_up": (None, "model", None, None),
+               "blocks/{i}/ff/w_down": (None, "model", None, None),
+               "blocks/{i}/ff/router": (None, None, None)}
+    for arch, layers, i in (("olmoe-1b-7b", 2, 0), ("kimi-k2-1t-a32b", 2, 0),
+                            ("jamba-v0.1-52b", 8, 1)):
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+        shapes = tfm.params_shape(cfg)
+        got = {p: pl.spec for p, pl in tree_flatten_with_path(
+            compute_shardings(cfg, shapes, _Mesh(data=16, model=16)))[0]}
+        for path, spec in experts.items():
+            assert got[path.format(i=i)] == spec, (arch, path)
+        if arch == "kimi-k2-1t-a32b":
+            assert got["blocks/0/ff/shared_0/w_gate"] == (None, None, "model")
+            assert got["blocks/0/ff/shared_0/w_up"] == (None, None, "model")
+            assert got["blocks/0/ff/shared_0/w_down"] == (None, "model", None)
+        if arch == "jamba-v0.1-52b":
+            assert not any(any(spec) for path, spec in got.items() if "/mixer/" in path
+                           and path.split("/")[1] != "4"), "an SSM leaf split"
+        for model in (5, 1):
+            plan = compute_shardings(cfg, shapes, _Mesh(data=16, model=model))
+            assert not any(any(pl.spec) for path, pl in tree_flatten_with_path(plan)[0]
+                           if "/ff/" in path and cfg.pattern_[int(path.split("/")[1])][1]
+                           == "moe"), (arch, model)
+
+
+@pytest.mark.parametrize("label", MOE_CASES)
+def test_every_rank_routes_as_one_device(tp_ranks, label):
+    """Routing is whole on every rank: each MoE layer's top-k experts and
+    kept assignments on every rank equal the one-device ``loss_fn``'s bit
+    for bit, and ``moe_drop_frac`` equals one device's and the reference's
+    exactly (the drop-forcing case drops a fifth or more)."""
+    _, _, ranks = tp_ranks
+    _, _, _, _, _, routes1, (drop1, rdrop) = _reference(label)
+    assert routes1 and drop1 is not None
+    assert float(drop1) == float(rdrop)
+    if label == "olmoe_drops":
+        assert float(drop1) / _case(label)[0].n_layers >= 0.2
+    for out in ranks:
+        case = out["cases"][label]
+        assert len(case["routes"]) == len(routes1)
+        for (idx, keep), (idx1, keep1) in zip(case["routes"], routes1):
+            assert _same_bits(idx, idx1.numpy()) and _same_bits(keep, keep1.numpy())
+        assert _same_bits(case["drop"], drop1)
+
+
 def test_embedded_stream_is_the_one_device_stream(tp_ranks):
     """The vocab-parallel lookup (a zero row for a token outside the rank's
     rows, the rows all-reduced) gives the one-device stream bit for bit,
@@ -238,9 +320,17 @@ def test_block_ingress_equals_rows_to_cols(tp_ranks):
         assert _same_bits(out["ingress"]["blocks"], out["ingress"]["rows_to_cols"])
 
 
+def _step_config(label):
+    """The config of a train step on the mesh: gemma at one layer with
+    momentum mode ``label``, or the MoE step ``label`` of ``MOE_STEPS``
+    (``torch_shard_ranks._tp_steps`` builds the same)."""
+    arch, fields = MOE_STEPS.get(label, ("gemma-7b", {"n_layers": 1, "momentum_mode": label}))
+    return dataclasses.replace(configs.smoke_config(arch), **fields)
+
+
 @functools.lru_cache(maxsize=None)
 def _one_device_step(mode):
-    cfg = dataclasses.replace(configs.smoke_config("gemma-7b"), n_layers=1, momentum_mode=mode)
+    cfg = _step_config(mode)
     p = _steps_payload()
     step_fn, state = make_train_step(
         cfg, ByzConfig(aggregator="rfa", mixing="bucketing", s=2, worker_momentum=0.9),
@@ -252,13 +342,14 @@ def _one_device_step(mode):
     return [x.numpy() for x in tree_flatten(params)[0]], float(metrics["loss"])
 
 
-@pytest.mark.parametrize("mode", ["worker", "server"])
+@pytest.mark.parametrize("mode", ["worker", "server"] + list(MOE_STEPS))
 def test_rows_and_momenta_are_compute_blocks(tp_ranks, mode):
     """The rows a rank hands the sync (server momentum: the raw gradients;
     worker momentum: the momenta) hold exactly its workers' compute blocks,
     the worker momenta are placed by the plan with the worker axes on dim
     0, and the block ingress ran; the step's parameters and loss match the
-    one-device step (rtol 1e-4, atol 1e-6)."""
+    one-device step (rtol 1e-4, atol 1e-6). gemma in both modes, and the
+    MoE steps (``MOE_STEPS``), whose expert rows are the rank's experts."""
     (data, _), _, ranks = tp_ranks
     want_params, want_loss = _one_device_step(mode)
     for out in ranks:
@@ -266,7 +357,7 @@ def test_rows_and_momenta_are_compute_blocks(tp_ranks, mode):
         assert st["w_local"] == W // data and st["in_shardings"]
         blocks = [(st["w_local"],) + tuple(s) for s in st["compute"]]
         assert st["rows"] == blocks
-        if mode == "worker":
+        if _step_config(mode).momentum_mode == "worker":
             assert st["worker_m"] == blocks
             assert all(spec == ("data",) + tuple(c)
                        for spec, c in zip(st["worker_m_specs"], st["compute_specs"]))

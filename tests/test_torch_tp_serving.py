@@ -37,7 +37,7 @@ from repro_torch.models import attention as attn
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.models import transformer as tfm
 from repro_torch.models.parallel import model_split
-from repro_torch.utils.tree import tree_flatten, tree_map
+from repro_torch.utils.tree import tree_flatten, tree_flatten_with_path, tree_map
 
 #: label -> (arch, config fields): every family and every branch of the
 #: plan (``tests/test_torch_tensor_parallel.py``'s), and prefix embeddings
@@ -49,6 +49,11 @@ CASES = {
     "mamba2": ("mamba2-130m", {}),
     "musicgen": ("musicgen-medium", {}),
     "internvl2": ("internvl2-2b", {}),
+    # MoE along the model axis (the tensor-parallel training tests' cases)
+    "kimi": ("kimi-k2-1t-a32b", {}),
+    "jamba": ("jamba-v0.1-52b", {}),
+    "olmoe_e6": ("olmoe-1b-7b", {"n_experts": 6}),
+    "olmoe_drops": ("olmoe-1b-7b", {"capacity_factor": 0.5}),
 }
 MESHES = [(1, 4), (2, 2)]
 #: prompt rows and length, greedy tokens after it, cache positions (above
@@ -137,7 +142,7 @@ def _payload():
     softmax = {"cfg": CASES["tinyllama_kv2"][1], "params": cases["tinyllama_kv2"]["params"],
                "length": SEEDED, "token": 77}
     return {"meshes": MESHES, "cases": cases, "cache_len": CACHE, "new_tokens": NEW,
-            "one_model_rank": ["gemma", "musicgen"], "softmax": softmax}
+            "one_model_rank": ["gemma", "musicgen", "olmoe", "kimi"], "softmax": softmax}
 
 
 @pytest.fixture(scope="module")
@@ -241,7 +246,18 @@ def test_ranks_hold_only_their_blocks(ranks):
     whole = sum(math.prod(s.shape) * 4 for s in tree_flatten(tfm.params_shape(cfg))[0])
     norms = 4 * cfg.d_model * (2 * cfg.n_layers + 1)
     assert out[0]["cases"]["gemma"]["bytes"] == (whole - norms) // T + norms
-    assert all(model_split(cfg, T).values())
+    assert all(v for k, v in model_split(cfg, T).items() if not k.startswith("moe"))
+    # the experts: E / T of the stacked leaves a rank, where T divides E
+    for label in ("olmoe", "kimi", "jamba", "olmoe_e6"):
+        cfg = _case(label)[0]
+        split = cfg.n_experts % T == 0
+        for o in out:
+            for (path, s), shape in zip(tree_flatten_with_path(tfm.params_shape(cfg))[0],
+                                        o["cases"][label]["shapes"]):
+                if path.split("/")[-1] in ("w_gate", "w_up", "w_down") and "shared" not in path \
+                        and cfg.pattern_[int(path.split("/")[1])][1] == "moe":
+                    assert math.prod(shape) * (T if split else 1) == math.prod(s.shape), path
+                    assert shape[1] == cfg.n_experts // (T if split else 1), path
 
 
 def test_whole_parameters_raise(ranks):
@@ -255,7 +271,7 @@ def test_whole_parameters_raise(ranks):
         assert all("sharding.compute_blocks" in msg for msg in raised["messages"])
 
 
-@pytest.mark.parametrize("label", ["gemma", "musicgen"])
+@pytest.mark.parametrize("label", ["gemma", "musicgen", "olmoe", "kimi"])
 def test_one_model_rank_keeps_todays_bits(group, label):
     """On the (4, 1) mesh the model axis has one rank: no ``ModelAxis``, the
     prefill's and every decode step's logits equal bit for bit those of
@@ -364,3 +380,30 @@ def test_bf16_sequence_sharded_gap_is_the_rounding_order(group):
         attn.decode_attention(p, x, c, cfg, q, combine=in_rank_order)))
     for o in per_rank:
         assert _same_bits(o["logits"], ordered.float().numpy())
+
+
+def test_row_split_product_keeps_one_devices_rounding(group):
+    """``ModelAxis.project_out`` on bf16 where the experts are split: each
+    rank's partial of the row-split product in fp32, the partials summed,
+    the sum rounded once, as one device's bf16 product accumulates in fp32
+    and rounds once. On the (1, 4) mesh it equals one device's ``x @ w``
+    but where the fp32 sums' order moves a value across a bf16 rounding
+    boundary (at most one bf16 step, in under 1 % of the elements), and
+    every rank holds the same bits; the bf16 partials summed in bf16
+    (``reduce_out`` of each rank's rounded product) stray more often. Its
+    gradients are the bf16 route's bit for bit, and on an axis without
+    split experts it is that route."""
+    x, w = torch_shard_ranks.project_out_inputs()
+    one = (x @ w).float()
+    got = [torch.as_tensor(o["project_out"]["project_out"]) for o in group]
+    assert all(torch.equal(g, got[0]) for g in got)
+    off = got[0] != one
+    assert float(off.float().mean()) < 0.01
+    assert torch.all((got[0] - one).abs() <= _bf16_step(one))
+    for o in group:
+        old = torch.as_tensor(o["project_out"]["bf16_partials"])
+        assert torch.equal(torch.as_tensor(o["project_out"]["dense"]), old)
+        grads = o["project_out"]["grads"]
+        assert all(np.array_equal(a, b) for a, b in zip(grads["project_out"],
+                                                        grads["bf16_partials"]))
+    assert int((old != one).sum()) > int(off.sum())

@@ -536,8 +536,9 @@ def _tp_case(mesh, case):
     from repro_torch.configs import smoke_config
     from repro_torch.convert import params_from_jax
     from repro_torch.distributed.sharding import compute_shardings
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.parallel import ModelAxis
+    from repro_torch.models.parallel import ModelAxis, model_split
     from repro_torch.utils.tree import tree_map, tree_unflatten
 
     cfg = dataclasses.replace(smoke_config(case["arch"]), **case["cfg"])
@@ -548,15 +549,17 @@ def _tp_case(mesh, case):
     live = [p.detach().requires_grad_() for p in leaves]
     p_live = tree_unflatten(treedef, live)
     batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
-    loss, _ = tfm.loss_fn(p_live, cfg, batch, ax=ax)
+    with moe.recorded_routes() as routes:
+        loss, aux = tfm.loss_fn(p_live, cfg, batch, ax=ax)
     grads = torch.autograd.grad(loss, live)
     placements = tree_flatten(compute)[0]
     with torch.no_grad():
         h = tfm.embed_tokens(p_live, cfg, batch["tokens"], ax)
     return {"loss": loss.detach(), "grads": [pl.gather(g) for g, pl in zip(grads, placements)],
-            "h": h, "local": [tuple(g.shape) for g in grads],
+            "h": h, "local": [tuple(g.shape) for g in grads], "routes": routes,
+            "drop": aux.get("moe_drop_frac"),
             "split": None if ax is None else {k: getattr(ax, k)
-                                              for k in ("attn", "kv", "mlp", "vocab")}}
+                                              for k in model_split(cfg, ax.size)}}
 
 
 def _tp_ingress(mesh):
@@ -588,7 +591,8 @@ def _tp_ingress(mesh):
 
 
 def _tp_steps(mesh, p):
-    """One RFA step of each momentum mode (gemma at smoke width) on the
+    """One RFA step of each momentum mode (gemma at smoke width), and one of
+    each MoE config of ``p["moe"]`` (label -> arch, config fields), on the
     mesh: the gathered parameters and loss, and the rows the sync was
     handed and the worker momenta, beside this rank's compute blocks."""
     import dataclasses
@@ -600,8 +604,11 @@ def _tp_steps(mesh, p):
 
     out = {}
     sync = steps.robust_gradient_sync
-    for mode in ("worker", "server"):
-        cfg = dataclasses.replace(smoke_config("gemma-7b"), n_layers=1, momentum_mode=mode)
+    runs = [(mode, "gemma-7b", {"n_layers": 1, "momentum_mode": mode})
+            for mode in ("worker", "server")]
+    runs += [(label, arch, fields) for label, (arch, fields) in p["moe"].items()]
+    for mode, arch, fields in runs:
+        cfg = dataclasses.replace(smoke_config(arch), **fields)
         step_fn, state = steps.make_train_step(
             cfg, ByzConfig(aggregator="rfa", mixing="bucketing", s=2, worker_momentum=0.9),
             mesh=mesh, lr=0.05, n_workers=p["W"], device="cpu")
@@ -878,6 +885,43 @@ def _tps_softmax(group, p):
     return {"records": records, "logits": logits.float(), "spec": placements["0"]["k"].spec}
 
 
+def project_out_inputs():
+    """A seeded bf16 ``x`` [64, 256] and ``w`` [256, 96] for the row-split
+    product (``test_torch_tp_serving.py``)."""
+    gen = torch.Generator().manual_seed(23)
+    return (torch.randn(64, 256, generator=gen).to(torch.bfloat16),
+            (torch.randn(256, 96, generator=gen) / 16).to(torch.bfloat16))
+
+
+def _tps_project_out(group):
+    """On the (1, 4) mesh, from this rank's columns of ``x`` and rows of
+    ``w``: ``ModelAxis.project_out`` on an axis whose experts are split
+    (``moe``) and on one without, the bf16 partials summed by
+    ``reduce_out``, and the gradients of ``sum(out * g)`` for a seeded
+    ``g`` through the first and the last."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.parallel import ModelAxis
+
+    mesh = make_host_mesh(group, data=1, model=4)
+    ax = ModelAxis(mesh.axis_group("model"), mesh.coords["model"], 4, *([True] * 6))
+    dense = dataclasses.replace(ax, moe=False, moe_shared=False)
+    x, w = project_out_inputs()
+    b = x.shape[1] // 4
+    xs, ws = x[:, ax.index * b:(ax.index + 1) * b], w[ax.index * b:(ax.index + 1) * b]
+    g = torch.randn(x.shape[0], w.shape[1], generator=torch.Generator().manual_seed(24))
+    grads = {}
+    for name, fn in (("project_out", ax.project_out),
+                     ("bf16_partials", lambda a, c: ax.reduce_out(a @ c))):
+        a, c = xs.clone().requires_grad_(), ws.clone().requires_grad_()
+        grads[name] = [t.float() for t in torch.autograd.grad((fn(a, c).float() * g).sum(),
+                                                               [a, c])]
+    return {"project_out": ax.project_out(xs, ws).float(),
+            "dense": dense.project_out(xs, ws).float(),
+            "bf16_partials": ax.reduce_out(xs @ ws).float(), "grads": grads}
+
+
 def tp_serving(rank, group, device, p):
     """Everything tests/test_torch_tp_serving.py holds, in one group: on
     each (data, model) mesh of ``p["meshes"]`` each case's prefill and
@@ -892,6 +936,7 @@ def tp_serving(rank, group, device, p):
             "cases": {label: _tps_case(mesh, case, p) for label, case in p["cases"].items()},
             "whole_raises": _tps_whole_raises(mesh, p["cases"]["gemma"])}
     out["softmax"] = _tps_softmax(group, p["softmax"])
+    out["project_out"] = _tps_project_out(group)
     out["one_model_rank"] = {label: _tps_one_model_rank(group, p["cases"][label], p)
                              for label in p["one_model_rank"]}
     return out
