@@ -125,7 +125,7 @@ def packer_for(grads_w: Any, in_shardings: Any = None) -> GradPacker:
     leaves, treedef = tree_flatten(grads_w)
     shapes = tuple(tuple(l.shape[1:]) for l in leaves)
     if in_shardings is not None:
-        shapes = tuple(tuple(n * pl.parts(d) for d, n in enumerate(shape))
+        shapes = tuple(pl.whole_shape(shape)
                        for shape, pl in zip(shapes, tree_flatten(in_shardings)[0]))
     key = (treedef, shapes, tuple(l.dtype for l in leaves))
     packer = _PACKER_CACHE.get(key)
@@ -207,29 +207,38 @@ def _within(lo, hi, origin) -> tuple:
 
 def _egress_pieces(packer: GradPacker, placements, n_local: int, src: int, dst: int):
     """What rank ``src``'s column slice sends rank ``dst``: for each leaf and
-    each box of the slice within it, the part inside ``dst``'s block, as
-    ``(leaf, box start, box stop, part start, part stop)`` in leaf
-    coordinates, in the order both ranks walk."""
+    each box of the slice within it, the part inside each box of ``dst``'s
+    block (``Placement.boxes``: one, or one a segment of a segmented dim),
+    as ``(leaf, box start, box stop, part start, part stop, block box)`` in
+    leaf coordinates, in the order both ranks walk."""
     for i, (off, size, shape, pl) in enumerate(zip(packer.offsets, packer.sizes,
                                                    packer.leaf_shapes, placements)):
         a, b = max(src * n_local - off, 0), min((src + 1) * n_local - off, size)
         if a >= b:
             continue
-        block = pl.ranges(shape, dst)
+        block = pl.boxes(shape, dst)
         for start, stop in _flat_boxes(a, b, shape):
-            lo = tuple(max(s, r[0]) for s, r in zip(start, block))
-            hi = tuple(min(e, r[1]) for e, r in zip(stop, block))
-            if all(x < y for x, y in zip(lo, hi)):
-                yield i, start, stop, lo, hi
+            for box in block:
+                lo = tuple(max(s, r) for s, r in zip(start, box.lo))
+                hi = tuple(min(e, r) for e, r in zip(stop, box.hi))
+                if all(x < y for x, y in zip(lo, hi)):
+                    yield i, start, stop, lo, hi, box
 
 
-def _sends(mesh, rank: int, pl) -> bool:
-    """Whether ``rank``'s block of a leaf placed by ``pl`` goes into the
-    ingress: a block that ranks differing only off the worker axes and
-    off ``pl``'s own axes all hold (a leaf whole on every model rank) is
-    sent by the one at coordinate 0 there."""
+def _origin(box) -> tuple:
+    """Where the whole tensor's index 0 falls in the block that holds
+    ``box``: a part ``[lo, hi)`` of the box lies at ``_within(lo, hi,
+    _origin(box))`` in the block."""
+    return tuple(lo - at for lo, at in zip(box.lo, box.at))
+
+
+def _sends(mesh, rank: int, box) -> bool:
+    """Whether ``rank``'s ``box`` of a leaf's block goes into the ingress:
+    a box that ranks differing only off the worker axes and off the axes
+    that pick it all hold (a leaf, or a segment of one, whole on every
+    model rank) is sent by the one at coordinate 0 there."""
     coords = mesh.coords_of(rank)
-    own = set(worker_axes(mesh)).union(*(pl.axes(d) for d in range(len(pl.spec))))
+    own = set(worker_axes(mesh)).union(box.axes)
     return all(coords[a] == 0 for a in mesh.axis_names if a not in own)
 
 
@@ -241,32 +250,32 @@ def pack_from_shardings(packer: GradPacker, grads_w: Any, in_shardings: Any, mes
     blocks) to its column slice ``[W, n_up/R]`` of the packed stack of all
     W workers, through one ``all_to_all`` (``shard_kernels.exchange``) in
     which each rank sends each column owner exactly the fp32 elements of
-    its blocks that fall in the owner's columns. A block held alike by
-    several model ranks is sent once (``_sends``). Pure data movement: the
+    its blocks that fall in the owner's columns. A block, or a segment of
+    one, held alike by several model ranks is sent once (``_sends``; an
+    SSM layer's whole B / C columns by model coordinate 0, its heads'
+    columns by every rank). Pure data movement: the
     slice is ``shard_kernels.rows_to_cols``'s of the same global stack,
     bit for bit, padding zeros included."""
     placements, _ = tree_flatten(in_shardings)
     leaves, _ = tree_flatten(grads_w)
     R, me, w = mesh.size, mesh.rank, leaves[0].shape[0]
     n_local = -(-packer.n_pad // R)
-    sends = [[_sends(mesh, r, pl) for pl in placements] for r in range(R)]
 
     def elems(plan):
-        return w * sum(math.prod(y - x for x, y in zip(lo, hi)) for *_, lo, hi in plan)
+        return w * sum(math.prod(y - x for x, y in zip(lo, hi)) for *_, lo, hi, _ in plan)
 
     send_plan = [[piece for piece in _egress_pieces(packer, placements, n_local, q, me)
-                  if sends[me][piece[0]]] for q in range(R)]
+                  if _sends(mesh, me, piece[-1])] for q in range(R)]
     recv_plan = [[piece for piece in _egress_pieces(packer, placements, n_local, me, r)
-                  if sends[r][piece[0]]] for r in range(R)]
+                  if _sends(mesh, r, piece[-1])] for r in range(R)]
     device = leaves[0].device
     # each part converted to fp32 as it is copied in: one fp32 copy of the blocks
     send = torch.empty(sum(elems(plan) for plan in send_plan), dtype=torch.float32,
                        device=device)
     pos = 0
     for plan in send_plan:
-        for i, _, _, lo, hi in plan:
-            base = [r[0] for r in placements[i].ranges(packer.leaf_shapes[i])]
-            part = leaves[i][(slice(None),) + _within(lo, hi, base)]
+        for i, _, _, lo, hi, box in plan:
+            part = leaves[i][(slice(None),) + _within(lo, hi, _origin(box))]
             send[pos:pos + part.numel()].view(part.shape).copy_(part)
             pos += part.numel()
     recv = shard_kernels.exchange(send, [elems(plan) for plan in send_plan],
@@ -278,7 +287,7 @@ def pack_from_shardings(packer: GradPacker, grads_w: Any, in_shardings: Any, mes
         g = 0  # rank r's worker group: its worker-axis coordinates, row-major
         for a in worker_axes(mesh):
             g = g * mesh.shape[a] + mesh.coords_of(r)[a]
-        for i, start, stop, lo, hi in plan:
+        for i, start, stop, lo, hi, _ in plan:
             first, box_shape = _box(packer, i, start, stop, me * n_local)
             part_shape = tuple(y - x for x, y in zip(lo, hi))
             n = w * math.prod(part_shape)
@@ -307,7 +316,7 @@ def unpack_to_shardings(packer: GradPacker, local: torch.Tensor, out_shardings: 
     chunks, send_sizes = [], []
     for q in range(R):
         n = 0
-        for i, start, stop, lo, hi in _egress_pieces(packer, placements, n_local, me, q):
+        for i, start, stop, lo, hi, _ in _egress_pieces(packer, placements, n_local, me, q):
             first, box_shape = _box(packer, i, start, stop, me * n_local)
             box = local[first:first + math.prod(box_shape)].view(box_shape)
             part = box[_within(lo, hi, start)]
@@ -315,7 +324,7 @@ def unpack_to_shardings(packer: GradPacker, local: torch.Tensor, out_shardings: 
             n += part.numel()
         send_sizes.append(n)
     recv_plan = [list(_egress_pieces(packer, placements, n_local, r, me)) for r in range(R)]
-    recv_sizes = [sum(math.prod(y - x for x, y in zip(lo, hi)) for *_, lo, hi in plan)
+    recv_sizes = [sum(math.prod(y - x for x, y in zip(lo, hi)) for *_, lo, hi, _ in plan)
                   for plan in recv_plan]
     send = torch.cat(chunks) if chunks else local[:0]
     recv = shard_kernels.exchange(send, send_sizes, recv_sizes, mesh.group)
@@ -324,11 +333,10 @@ def unpack_to_shardings(packer: GradPacker, local: torch.Tensor, out_shardings: 
               for shape, pl in zip(packer.leaf_shapes, placements)]
     pos = 0
     for plan in recv_plan:
-        for i, _, _, lo, hi in plan:
-            base = [r[0] for r in placements[i].ranges(packer.leaf_shapes[i])]
+        for i, _, _, lo, hi, box in plan:
             part_shape = tuple(y - x for x, y in zip(lo, hi))
             n = math.prod(part_shape)
-            blocks[i][_within(lo, hi, base)] = recv[pos:pos + n].view(part_shape)
+            blocks[i][_within(lo, hi, _origin(box))] = recv[pos:pos + n].view(part_shape)
             pos += n
     del recv
     leaves = [blk.to(dtype) for blk, dtype in zip(blocks, packer.leaf_dtypes)]

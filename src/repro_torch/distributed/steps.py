@@ -74,8 +74,9 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.distributed.robust_sync import robust_gradient_sync
 from repro_torch.distributed.sharding import (Placement, batch_spec, cache_shardings,
-                                              compute_shardings, overrides_from_config,
-                                              param_shardings)
+                                              compute_shardings, gather_many,
+                                              overrides_from_config, param_shardings,
+                                              ssm_segments)
 from repro_torch.launch.mesh import as_mesh, worker_axes
 from repro_torch.launch.mesh import n_workers as mesh_n_workers
 from repro_torch.models import attention as attn_mod
@@ -489,7 +490,14 @@ def make_serve_step(cfg, mesh, shape, device=None) -> Tuple[Callable, Any, Any]:
     every rank returns all B rows' logits, the attention crossing the
     ranks (``_softmax_across``). A cache dim the rules place elsewhere (an
     SSM state's channels, a head dim) is gathered for the step and cut
-    again after it."""
+    again after it. Where the model axis splits the SSM heads, an SSM
+    layer decodes on its compute blocks of the cache (its heads' state;
+    the x channels of its heads and the whole B / C channels of the conv
+    ring): the SSM caches whose storage block is another are gathered
+    from it and cut to the compute block, then gathered from the compute
+    blocks and cut to the storage block again, each way one all-gather
+    over the model group for all of them (every layer's, ``gather_many``),
+    once a step."""
     dev = resolve_device(device)
     m = as_mesh(mesh)
     ax, check = _serving_axis(cfg, m)
@@ -517,20 +525,51 @@ def make_serve_step(cfg, mesh, shape, device=None) -> Tuple[Callable, Any, Any]:
             (l0, l1), (k0, k1) = pl.ranges(s.shape)[2:4]
             combines[i], spans[i] = _softmax_across(pl), ((l0, l1, s.shape[2]), (k0, k1))
     spread = any(pl_at[f"{i}/k"].parts(2) * pl_at[f"{i}/k"].parts(3) > 1 for i in spans)
+    # the SSM caches a step exchanges: path -> compute placement (the
+    # batch dim as the storage places it); a cache whose storage block is
+    # its compute block (Jamba's state on its heads) decodes as it lies
+    exchanged = {}
+    if ax is not None and ax.ssm:
+        conv = ssm_segments(cfg)["conv"]
+        for path, s in specs:
+            i, name = path.split("/")
+            if cfg.pattern_[int(i)][0] != "ssm":
+                continue
+            spec = (None, None, None, conv) if name == "conv" else (None, None, "model", None,
+                                                                     None)
+            if [e for d, e in enumerate(pl_at[path].spec) if d != 1] == list(spec[:1] + spec[2:]):
+                gathered[path] = []
+            else:
+                exchanged[path] = Placement(m, spec)
 
     def attend(i, p, x, layer_cache, position):
         return attn_mod.decode_attention(p, x, layer_cache, cfg, position, span=spans[str(i)],
                                          combine=combines[str(i)], ax=attn_ax)
 
+    def exchange(tree, source, dims=None):
+        """The exchanged SSM caches of ``tree`` gathered whole from the
+        blocks that ``source`` (path -> placement) places, on ``dims``
+        (path -> dims; all cut dims without it), by one all-gather."""
+        leaves = dict(tree_flatten_with_path(tree)[0])
+        paths = list(exchanged)
+        return dict(zip(paths, gather_many([leaves[p] for p in paths],
+                                           [source[p] for p in paths],
+                                           [dims and dims[p] for p in paths])))
+
     @torch.no_grad()
     def serve(params, cache, token, position):
         check(params)
         token = rows.local(torch.as_tensor(token, device=dev))
-        whole = tree_map_with_path(lambda path, x: pl_at[path].gather(x, dims=gathered[path]),
-                                   cache)
+        into = exchange(cache, pl_at, gathered)
+        whole = tree_map_with_path(
+            lambda path, x: exchanged[path].local(into[path]) if path in exchanged
+            else pl_at[path].gather(x, dims=gathered[path]), cache)
+        del into
         logits, new = tfm.decode_step(params, cfg, whole, token, position,
                                       attend=attend if spread else None, ax=ax)
-        new = tree_map_with_path(lambda path, x: pl_at[path].local(x, dims=gathered[path]), new)
+        back = exchange(new, exchanged)
+        new = tree_map_with_path(lambda path, x: pl_at[path].local(back.get(path, x),
+                                                                   dims=gathered[path]), new)
         return logits, new
 
     return serve, cache_spec, placements

@@ -39,9 +39,17 @@ def init_rmsnorm(d: int, dtype, device):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5, sum_across=None,
+            width: int = 0) -> torch.Tensor:
+    """RMSNorm over the last dim. Where ``sum_across`` is given, ``x`` holds
+    some of the columns of a ``width``-wide row: the fp32 sum of squares of
+    its columns goes through ``sum_across`` (a model axis's sum over the
+    group) and is divided by ``width``."""
     x32 = x.float()
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    if sum_across is None:
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    else:
+        var = sum_across(torch.sum(torch.square(x32), dim=-1, keepdim=True)) / width
     out = x32 * torch.rsqrt(var + eps)
     return (out * p["scale"].float()).to(x.dtype)
 

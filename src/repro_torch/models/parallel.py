@@ -20,10 +20,16 @@ part (``model_split``):
              axis over ``model``); each shared expert split as the MLP
              where T also divides d_ff_expert, else whole; the fp32
              router ``[P, D, E]`` whole (``models/moe.py``).
+  SSM        SSD heads ``[m H/T, (m+1) H/T)``, where T divides H: their
+             z, x and dt columns of in_proj and x channels of the conv,
+             A_log / D / dt_bias, the gated norm's scale and out_proj's
+             rows; B and C (one group) whole (``models/ssm.py``;
+             Megatron's layout as the Mamba-2 paper sets it out,
+             arXiv:2405.21060 §8).
 
 Attention whose head counts T does not split, MoE layers whose experts T
-does not split, SSM layers and the norms run whole on every rank of the
-group, as without a model axis.
+does not split, SSM layers whose heads T does not split, and the norms
+run whole on every rank of the group, as without a model axis.
 
 Two operators over the model group carry the residual stream across a
 split part (Megatron's f and g): ``copy_in``, the identity whose backward
@@ -35,7 +41,12 @@ Whole k / v are computed from the stream before ``copy_in`` and pass
 through a ``copy_in`` of their own, so wk / wv get whole, equal gradients
 and the stream's gradient counts them once. A MoE layer's router gates follow the
 same pattern: every rank routes all tokens from the stream, and the gates
-enter the combine through a ``copy_in`` of their own.
+enter the combine through a ``copy_in`` of their own; so do an SSM
+layer's whole B and C, each after its conv and silu. The SSM's gated
+RMSNorm normalises over all of d_inner: ``sum_across`` all-reduces the
+fp32 sum of squares of the rank's columns (and, in the backward, its
+gradient), which differs from one device's sum in the order of the fp32
+additions only.
 
 A 16-bit row-split product (``reduce_out(x @ w)``) rounds each rank's
 partial to 16 bits and sums the partials in 16 bits, where one device's
@@ -88,13 +99,16 @@ def model_split(cfg, T: int) -> Dict[str, bool]:
     docstring): ``attn`` (q heads, and kv heads or whole k / v), ``kv``
     (the kv heads split too), ``mlp`` (d_ff), ``vocab``, ``moe`` (the
     experts), ``moe_shared`` (the shared experts' d_ff_expert, beside split
-    experts). Decided from the config and T alone."""
+    experts), ``ssm`` (an SSM layer's heads). Decided from the config and
+    T alone."""
     H, KV, E = cfg.n_heads, cfg.n_kv_heads, cfg.n_experts
     attn = T > 1 and H > 0 and KV > 0 and H % T == 0 and (KV % T == 0 or T % KV == 0)
     moe = T > 1 and E > 0 and E % T == 0
+    has_ssm = any(mixer == "ssm" for mixer, _ in cfg.pattern_)
     return {"attn": attn, "kv": attn and KV % T == 0,
             "mlp": T > 1 and cfg.d_ff % T == 0, "vocab": T > 1 and cfg.vocab_size % T == 0,
-            "moe": moe, "moe_shared": moe and (cfg.d_ff_expert or cfg.d_ff) % T == 0}
+            "moe": moe, "moe_shared": moe and (cfg.d_ff_expert or cfg.d_ff) % T == 0,
+            "ssm": T > 1 and has_ssm and cfg.ssm_heads % T == 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +126,7 @@ class ModelAxis:
     vocab: bool
     moe: bool
     moe_shared: bool
+    ssm: bool = False
 
     @classmethod
     def of(cls, cfg, mesh) -> Optional["ModelAxis"]:
@@ -129,6 +144,12 @@ class ModelAxis:
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         """Megatron's g: ``x`` summed over the group; its gradient as it is."""
         return _ReduceOut.apply(x, self.group)
+
+    def sum_across(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the group, whose gradient is summed over the
+        group too: a sum that feeds every rank's own columns (the SSM's
+        gated norm)."""
+        return _SumAcross.apply(x, self.group)
 
     def project_out(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """The row-split product ``x @ w`` (``x`` this rank's columns, ``w``
@@ -186,6 +207,17 @@ class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _SumAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.group), None
 
 
 class _Fp32Partial(torch.autograd.Function):

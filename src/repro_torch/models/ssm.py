@@ -21,6 +21,21 @@ above 20).
 
 Decode is the O(1) recurrent update of a ``{"conv": [B, K-1, C],
 "ssm": [B, H, P, N]}`` state.
+
+On a model axis (``ax``, ``models/parallel.py``) both run on a rank's
+blocks of its H/T heads: ``in_proj``'s z | x | B | C | dt columns with z,
+x and dt of its heads and B / C whole, the conv's x | B | C channels alike,
+the per-head leaves, the gated norm's scale and ``out_proj``'s rows
+(``sharding.compute_shardings``); a decode cache holds the heads' state
+and the x channels of the conv ring beside the whole B / C channels. The
+z | x and dt products take the stream through ``copy_in``; B and C are
+computed whole from the stream and pass, after their conv and silu,
+through a ``copy_in`` of their own, so their weights get whole, equal
+gradients and the stream's gradient counts them once. The scan runs on
+the rank's heads as it is. The gated RMSNorm all-reduces the fp32 sum of
+squares of the rank's d_inner / T columns (``ModelAxis.sum_across``) and
+divides by the whole d_inner, and the output is ``project_out`` of the
+rank's rows. Without ``ax`` the one-device code runs as it did.
 """
 
 from __future__ import annotations
@@ -139,16 +154,43 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, h
 
 
-def ssm_layer(p, hidden: torch.Tensor, cfg) -> torch.Tensor:
-    """Full Mamba-2 block (train). hidden: [B, S, D]."""
-    B, S, D = hidden.shape
-    din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    P = cfg.ssm_head_dim
+def _widths(p) -> Tuple[int, int]:
+    """``(d_inner, heads)`` of the block ``p`` holds: the whole layer's, or
+    on a model axis its heads'."""
+    return p["norm_scale"].shape[-1], p["A_log"].shape[-1]
 
-    zxbcdt = hidden @ p["in_proj"]
-    z, xbc, dt_raw = torch.split(zxbcdt, [din, din + 2 * n, h], dim=-1)
+
+def _gated_out(p, gated: torch.Tensor, cfg, ax=None) -> torch.Tensor:
+    """The gated RMSNorm over d_inner and the out projection; on a model
+    axis from the rank's columns: their fp32 sum of squares summed over the
+    group, the output ``project_out``'s sum of the ranks' rows."""
+    norm = {"scale": p["norm_scale"]}
+    if ax is None:
+        return rmsnorm(norm, gated, cfg.norm_eps) @ p["out_proj"]
+    out = rmsnorm(norm, gated, cfg.norm_eps, ax.sum_across, cfg.d_inner)
+    return ax.project_out(out, p["out_proj"])
+
+
+def ssm_layer(p, hidden: torch.Tensor, cfg, ax=None) -> torch.Tensor:
+    """Full Mamba-2 block (train). hidden: [B, S, D]. On a model axis
+    ``ax`` ``p`` is this rank's blocks (module docstring)."""
+    B, S, D = hidden.shape
+    n, P = cfg.ssm_state, cfg.ssm_head_dim
+    din, h = _widths(p)
+
+    if ax is None:
+        zxbcdt = hidden @ p["in_proj"]
+        z, xbc, dt_raw = torch.split(zxbcdt, [din, din + 2 * n, h], dim=-1)
+    else:  # z | x and dt from the stream's copy; B | C whole from the stream
+        w, hc = p["in_proj"], ax.copy_in(hidden)
+        zx = hc @ w[..., :2 * din]
+        dt_raw = hc @ w[..., 2 * din + 2 * n:]
+        z, x_raw = torch.split(zx, [din, din], dim=-1)
+        xbc = torch.cat([x_raw, hidden @ w[..., 2 * din:2 * din + 2 * n]], dim=-1)
     xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))  # silu in the model dtype
     x, B_, C_ = torch.split(xbc, [din, n, n], dim=-1)
+    if ax is not None:  # B | C whole: their gradient summed over the group
+        B_, C_ = torch.split(ax.copy_in(xbc[..., din:]), [n, n], dim=-1)
 
     dt = softplus(dt_raw.float() + p["dt_bias"])  # [B,S,H]
     A = -torch.exp(p["A_log"])  # [H]
@@ -158,9 +200,7 @@ def ssm_layer(p, hidden: torch.Tensor, cfg) -> torch.Tensor:
     y = y.reshape(B, S, din).to(hidden.dtype)
 
     # gated RMSNorm + out projection
-    gated = y * F.silu(z)
-    gated = rmsnorm({"scale": p["norm_scale"]}, gated, cfg.norm_eps)
-    return gated @ p["out_proj"]
+    return _gated_out(p, y * F.silu(z), cfg, ax)
 
 
 # ------------------------------------------------------------------ decode
@@ -175,12 +215,15 @@ def init_ssm_cache(batch: int, cfg, dtype, device) -> dict:
     }
 
 
-def decode_ssm(p, hidden: torch.Tensor, cache, cfg) -> Tuple[torch.Tensor, dict]:
+def decode_ssm(p, hidden: torch.Tensor, cache, cfg, ax=None) -> Tuple[torch.Tensor, dict]:
     """One-token recurrent step. hidden: [B, 1, D]. Returns ([B, 1, D], new
-    cache); the cache passed in is left as it was."""
+    cache); the cache passed in is left as it was. On a model axis ``ax``
+    ``p`` and ``cache`` are this rank's blocks (module docstring): its
+    heads' state, its x channels and the whole B / C channels of the conv
+    ring."""
     B = hidden.shape[0]
-    din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    P = cfg.ssm_head_dim
+    n, P = cfg.ssm_state, cfg.ssm_head_dim
+    din, h = _widths(p)
 
     zxbcdt = hidden[:, 0] @ p["in_proj"]  # [B, ...]
     z, xbc, dt_raw = torch.split(zxbcdt, [din, din + 2 * n, h], dim=-1)
@@ -205,7 +248,5 @@ def decode_ssm(p, hidden: torch.Tensor, cache, cfg) -> Tuple[torch.Tensor, dict]
     y = y + xh * p["D"][None, :, None]
     y = y.reshape(B, din).to(hidden.dtype)
 
-    gated = y * F.silu(z)
-    gated = rmsnorm({"scale": p["norm_scale"]}, gated, cfg.norm_eps)
-    out = (gated @ p["out_proj"])[:, None, :]
+    out = _gated_out(p, y * F.silu(z), cfg, ax)[:, None, :]
     return out, {"conv": new_conv, "ssm": new_state}

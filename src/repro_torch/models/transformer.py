@@ -197,8 +197,8 @@ def _has_moe(cfg) -> bool:
 def _run_period(period, h, aux, cfg, positions, ax=None):
     """One period, every layer of ``cfg.pattern_``: ``(h, aux)`` after it,
     ``aux`` the MoE layers' losses summed so far (the reference's
-    ``period_body`` carry). On a model axis ``ax`` the attention, MLP and
-    MoE layers it splits run on this rank's compute blocks."""
+    ``period_body`` carry). On a model axis ``ax`` the attention, MLP,
+    MoE and SSM layers it splits run on this rank's compute blocks."""
     for i, (mixer, ff) in enumerate(cfg.pattern_):
         lp = period[str(i)]
         x = rmsnorm(lp["norm1"], h, cfg.norm_eps)
@@ -206,7 +206,8 @@ def _run_period(period, h, aux, cfg, positions, ax=None):
             h = h + attn_mod.attention(lp["mixer"], x, cfg, positions,
                                        ax=ax if ax is not None and ax.attn else None)
         else:
-            h = h + ssm_mod.ssm_layer(lp["mixer"], x, cfg)
+            h = h + ssm_mod.ssm_layer(lp["mixer"], x, cfg,
+                                      ax=ax if ax is not None and ax.ssm else None)
         h, layer_aux = _feed_forward(lp, h, ff, cfg, ax)
         if layer_aux is not None:
             aux = {k: aux[k] + v for k, v in layer_aux.items()}
@@ -364,10 +365,13 @@ def decode_step(params, cfg, cache, token, position: int,
     (the cache sharded over ranks: ``distributed/steps.py``). On a model
     axis ``ax`` ``params`` are this rank's compute blocks: the embedding,
     the attention layers ``ax`` splits (through ``attend`` where given),
-    the MLPs, the MoE layers' experts and the head run on them, and the logits of all V come back
-    on every rank of the model group."""
+    the MLPs, the MoE layers' experts, the SSM layers' heads (``cache``
+    then holds their blocks of the SSM state and conv ring) and the head
+    run on them, and the logits of all V come back on every rank of the
+    model group."""
     h = embed_tokens(params, cfg, token, ax)[:, None, :]
     attn_ax = ax if ax is not None and ax.attn else None
+    ssm_ax = ax if ax is not None and ax.ssm else None
     new_cache = []
     for p in range(cfg.n_periods):
         lp_p, cache_p = _period(params["blocks"], p), _period(cache, p)
@@ -381,7 +385,8 @@ def decode_step(params, cfg, cache, token, position: int,
                 out, nc[str(i)] = attn_mod.decode_attention(lp["mixer"], x, cache_p[str(i)],
                                                             cfg, position, ax=attn_ax)
             else:
-                out, nc[str(i)] = ssm_mod.decode_ssm(lp["mixer"], x, cache_p[str(i)], cfg)
+                out, nc[str(i)] = ssm_mod.decode_ssm(lp["mixer"], x, cache_p[str(i)], cfg,
+                                                     ax=ssm_ax)
             h, _ = _feed_forward(lp, h + out, ff, cfg, ax)
         new_cache.append(nc)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)

@@ -346,3 +346,46 @@ def test_moe_serving_argument_is_the_expert_blocks(fake_group):
         if name == "router":
             assert pl.local_shape(s.shape) == tuple(s.shape) and s.dtype == torch.float32
     assert result["flops"] > 0 and result["collectives"]["all-reduce"] > 0
+
+
+def test_ssm_serving_argument_is_the_head_blocks(fake_group):
+    """Jamba v0.1 x decode_32k at full width and depth on the fake (16, 16)
+    mesh: its 128 SSD heads split 8 a rank, so the serving step traces on
+    the rank's head blocks of every SSM layer (in_proj's z, x and dt
+    columns beside whole B / C, the conv's x channels beside whole B / C),
+    and its ``argument`` is exactly those blocks, this rank's cache blocks
+    and the batch: below 7e9 B, where the parent's whole SSM layers held
+    1.2098e10. The reference's cache placement puts the SSM state on its
+    heads, the compute block, so the step decodes it as it lies; the conv
+    ring, on a contiguous channel range, is brought to the compute block
+    and back by one all-gather each way for all 28 SSM layers."""
+    fake_group(256, rank=17)
+    mesh = make_production_mesh(dist.group.WORLD)
+    with record_collectives() as calls:
+        result = dryrun.dryrun_one("jamba-v0.1-52b", "decode_32k", verbose=False)
+    cfg = get_config("jamba-v0.1-52b")
+    inputs = INPUT_SHAPES["decode_32k"]
+    specs = tfm.params_shape(cfg)
+    flat = tree_flatten_with_path(specs)[0]
+    plan = tree_flatten(compute_shardings(cfg, specs, mesh))[0]
+    size = {torch.float32: 4, torch.bfloat16: 2}
+    blocks = sum(math.prod(pl.local_shape(s.shape)) * size[s.dtype]
+                 for (_, s), pl in zip(flat, plan))
+    batch = sum(math.prod(v.shape) * 4 for v in steps.input_specs(cfg, inputs).values())
+    _, cache_spec, placements = steps.make_serve_step(cfg, mesh, inputs, device="cpu")
+    cache = sum(math.prod(pl.local_shape(s.shape)) * size[s.dtype] for s, pl in zip(
+        tree_flatten(cache_spec)[0], tree_flatten(placements)[0]))
+    assert result["bytes_per_device"]["argument"] == blocks + cache + batch < 7e9
+    din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    for (path, s), pl in zip(flat, plan):
+        if path.endswith("mixer/in_proj"):
+            assert pl.local_shape(s.shape)[-1] == (2 * din + h) // 16 + 2 * n, path
+        if path.endswith("mixer/A_log"):
+            assert pl.local_shape(s.shape)[-1] == h // 16 == 8, path
+    ssm_layers = [i for i, (mixer, _) in enumerate(cfg.pattern_) if mixer == "ssm"]
+    assert placements[str(ssm_layers[0])]["ssm"].spec[2] == "model"  # heads: as it lies
+    gathers = [c for c in calls if c.kind == "all-gather"]
+    conv = sum(math.prod(pl.local_shape(s.shape)) * 2 for s, pl in zip(
+        [cache_spec[str(i)]["conv"] for i in ssm_layers],
+        [placements[str(i)]["conv"] for i in ssm_layers]))
+    assert sum(1 for c in gathers if c.received == 16 * conv) == 1  # the rings, in one gather

@@ -2,8 +2,8 @@
 ``distributed/sharding.py::compute_shardings``, the train step and the
 block ingress ``packing.pack_from_shardings``) held against the reference.
 
-4 gloo ranks on the CPU, laid out as the meshes (1, 4) and (2, 2), are
-started once per mesh for the module (``torch_shard_ranks.tensor_parallel``,
+4 gloo ranks on the CPU are started once for the module and lay out the
+meshes (1, 4) and (2, 2) in turn (``torch_shard_ranks.tensor_parallel``,
 which imports no jax). Each rank runs ``loss_fn`` on its compute blocks of
 the same parameters (numpy, carried by ``convert.params_from_jax``), and the
 gradients, gathered whole, are held against the reference's
@@ -12,6 +12,8 @@ against the port's one-device ``loss_fn``, at
 ``tests/test_torch_train.py``'s bars (rtol 1e-4, atol 1e-5).
 """
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 
@@ -52,17 +54,25 @@ CASES = {
     "jamba": ("jamba-v0.1-52b", {}),
     "olmoe_e6": ("olmoe-1b-7b", {"n_experts": 6}),
     "olmoe_drops": ("olmoe-1b-7b", {"capacity_factor": 0.5}),
+    # SSM heads along the model axis: 6 heads, split on (2, 2), whole on (1, 4);
+    # split heads in a period recomputed in the backward
+    "mamba2_h6": ("mamba2-130m", {"d_model": 192, "ssm_head_dim": 64}),
+    "mamba2_remat": ("mamba2-130m", {"remat": "full"}),
 }
 MOE_CASES = [label for label, (arch, _) in CASES.items()
              if arch in ("olmoe-1b-7b", "kimi-k2-1t-a32b", "jamba-v0.1-52b")]
-#: label -> (arch, config fields) of the MoE train steps on the mesh: worker
-#: momentum and its momenta in expert blocks (OLMoE, one layer), fsdp and a
-#: shared expert with server momentum (Kimi K2; its optimizer momentum in
-#: fp32, since a bf16 one turns a last-bit difference of a gradient into a
-#: whole bf16 step), the hybrid's period (Jamba)
+#: label -> (arch, config fields) of the MoE and SSM train steps on the
+#: mesh: worker momentum and its momenta in expert blocks (OLMoE, one
+#: layer), fsdp and a shared expert with server momentum (Kimi K2; its
+#: optimizer momentum in fp32, since a bf16 one turns a last-bit difference
+#: of a gradient into a whole bf16 step), the hybrid's period (Jamba), and
+#: worker momenta in an SSM layer's segmented head blocks (Mamba2, one layer)
 MOE_STEPS = {"olmoe": ("olmoe-1b-7b", {"n_layers": 1}),
              "kimi": ("kimi-k2-1t-a32b", {"n_layers": 1, "opt_m_dtype": "float32"}),
-             "jamba": ("jamba-v0.1-52b", {})}
+             "jamba": ("jamba-v0.1-52b", {}),
+             "mamba2": ("mamba2-130m", {"n_layers": 1})}
+#: the block ingress's plans: dense blocks, and Mamba2's segmented SSM leaves
+INGRESS = ("gemma-7b", "mamba2-130m")
 MESHES = [(1, 4), (2, 2)]
 B, S, W = 2, 16, 4
 RTOL, ATOL = 1e-4, 1e-5
@@ -131,17 +141,34 @@ def _steps_payload():
             "mix": np.asarray(ra.mixing_matrix(jax.random.PRNGKey(30), W))}
 
 
-@pytest.fixture(scope="module", params=MESHES, ids=["1x4", "2x2"])
-def tp_ranks(request):
-    """Every rank's results of ``tensor_parallel`` on one mesh."""
-    payload = {"mesh": request.param,
+@pytest.fixture(scope="module")
+def group():
+    """Every rank's results of ``tensor_parallel``: one group runs both
+    meshes. While the ranks run, this process computes the references the
+    tests read (cached; one that raises is left for its test to raise)."""
+    payload = {"meshes": MESHES,
                "cases": {label: {"arch": CASES[label][0], "cfg": CASES[label][1],
                                  "params": _case(label)[2], "batch": _case(label)[3]}
                          for label in CASES},
-               "steps": _steps_payload()}
-    ranks = spawn_ranks(torch_shard_ranks.tensor_parallel, 4, backend="gloo",
-                        devices=["cpu"] * 4, args=(payload,), timeout_s=600)
-    return request.param, payload, ranks
+               "ingress": INGRESS, "steps": _steps_payload()}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn_ranks, torch_shard_ranks.tensor_parallel, 4, backend="gloo",
+                            devices=["cpu"] * 4, args=(payload,), timeout_s=900)
+        for warm, keys in ((_reference, CASES), (_one_device_step, ["worker", "server"]
+                                                 + list(MOE_STEPS))):
+            for key in keys:
+                with contextlib.suppress(Exception):
+                    warm(key)
+        return payload, ranks.result()
+
+
+@pytest.fixture(params=MESHES, ids=["1x4", "2x2"])
+def tp_ranks(request, group):
+    """Every rank's results on one mesh, and the (4, 1) mesh's against the
+    bare group."""
+    payload, ranks = group
+    return request.param, payload, [dict(r[tuple(request.param)],
+                                         one_model_rank=r["one_model_rank"]) for r in ranks]
 
 
 def _same_bits(a, b) -> bool:
@@ -181,33 +208,55 @@ def test_loss_and_gradients_on_compute_blocks(tp_ranks, label):
         assert all(_same_bits(a, b) for a, b in zip(r["cases"][label]["grads"], out["grads"]))
 
 
+def _block_width(n: int, entry, T: int) -> int:
+    """A dim of ``n`` under a compute-plan entry: cut by T where it is
+    ``"model"``; for segments, each split one cut by T, each whole one
+    kept."""
+    if isinstance(entry, tuple):
+        assert sum(size for size, _ in entry) == n
+        return sum(size // T if e == "model" else size for size, e in entry)
+    return n // T if entry == "model" else n
+
+
 def test_compute_blocks_follow_the_plan(tp_ranks):
     """Each rank's gradients have its compute blocks' shapes: the split
-    dims cut by T, every other dim whole; the plan's flags are
+    dims cut by T, a segmented dim's split segments cut by T and its whole
+    ones kept, every other dim whole; the plan's flags are
     ``model_split``'s (whole k / v for tinyllama's 2 kv heads at T = 4,
-    whole attention for 3 heads, everything split for gemma)."""
+    whole attention for 3 heads, everything split for gemma, SSM heads
+    split where T divides them: Mamba2's 16 and Jamba's 16, the 6 of
+    ``mamba2_h6`` on (2, 2) only). An SSM layer's in_proj block is z, x
+    and dt of the rank's heads beside whole B and C, its conv's the x
+    channels beside whole B and C."""
     (_, T), _, ranks = tp_ranks
-    want_flags = {"gemma": (True, True, True, True, False, False),
-                  "tinyllama_kv2": (True, T == 2, True, True, False, False),
-                  "whole_attention": (False, False, True, True, False, False),
-                  "olmoe": (True, True, True, True, True, True),
-                  "kimi": (True, True, True, True, True, True),
-                  "jamba": (True, True, True, True, True, True),
-                  "olmoe_e6": (True, True, True, True, T == 2, T == 2)}
+    keys = ("attn", "kv", "mlp", "vocab", "moe", "moe_shared", "ssm")
+    want_flags = {"gemma": (True, True, True, True, False, False, False),
+                  "tinyllama_kv2": (True, T == 2, True, True, False, False, False),
+                  "whole_attention": (False, False, True, True, False, False, False),
+                  "olmoe": (True, True, True, True, True, True, False),
+                  "kimi": (True, True, True, True, True, True, False),
+                  "jamba": (True, True, True, True, True, True, True),
+                  "olmoe_e6": (True, True, True, True, T == 2, T == 2, False),
+                  "mamba2": (False, False, True, True, False, False, True),
+                  "mamba2_remat": (False, False, True, True, False, False, True),
+                  "mamba2_h6": (False, False, True, True, False, False, T == 2)}
     for label in CASES:
         cfg = _case(label)[0]
         plan = compute_shardings(cfg, tfm.params_shape(cfg), _Mesh(data=4 // T, model=T))
         flags = model_split(cfg, T)
         if label in want_flags:
-            assert tuple(flags[k] for k in ("attn", "kv", "mlp", "vocab", "moe",
-                                            "moe_shared")) == want_flags[label]
+            assert tuple(flags[k] for k in keys) == want_flags[label], label
         for r, out in enumerate(ranks):
             case = out["cases"][label]
             assert case["split"] == flags
-            specs = [pl.spec for pl in tree_flatten(plan)[0]]
-            for spec, shape, whole in zip(specs, case["local"], case["grads"]):
-                assert shape == tuple(n // T if e == "model" else n
-                                      for n, e in zip(whole.shape, spec))
+            specs = [(path, pl.spec) for path, pl in tree_flatten_with_path(plan)[0]]
+            for (path, spec), shape, whole in zip(specs, case["local"], case["grads"]):
+                assert shape == tuple(_block_width(n, e, T) for n, e in zip(whole.shape, spec))
+                if path.endswith("mixer/in_proj") and flags["ssm"]:
+                    din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+                    assert shape[-1] == (2 * din + h) // T + 2 * n, label
+                if path.endswith("mixer/conv_w") and flags["ssm"]:
+                    assert shape[1] == cfg.d_inner // T + 2 * cfg.ssm_state, label
 
 
 def test_plan_on_the_production_mesh():
@@ -250,7 +299,8 @@ def test_plan_puts_experts_on_the_model_axis():
     Jamba, to build the shapes quickly): the three stacked expert leaves
     split on their expert dim (dim 1 after the period dim), Kimi K2's shared
     expert as the MLP (columns of w_gate / w_up, rows of w_down), the fp32
-    router whole, Jamba's SSM layers whole beside its split experts; on a
+    router whole, Jamba's SSM layers split by heads beside its split
+    experts; on a
     model axis of 5, which divides none of the expert counts, every expert
     leaf whole; with T = 1 every leaf whole."""
     experts = {"blocks/{i}/ff/w_gate": (None, "model", None, None),
@@ -269,14 +319,79 @@ def test_plan_puts_experts_on_the_model_axis():
             assert got["blocks/0/ff/shared_0/w_gate"] == (None, None, "model")
             assert got["blocks/0/ff/shared_0/w_up"] == (None, None, "model")
             assert got["blocks/0/ff/shared_0/w_down"] == (None, "model", None)
-        if arch == "jamba-v0.1-52b":
-            assert not any(any(spec) for path, spec in got.items() if "/mixer/" in path
-                           and path.split("/")[1] != "4"), "an SSM leaf split"
+        if arch == "jamba-v0.1-52b":  # 128 SSM heads, 8 a rank
+            assert all(any(spec) for path, spec in got.items() if "/mixer/" in path
+                       and path.split("/")[1] != "4"), "an SSM leaf whole"
         for model in (5, 1):
             plan = compute_shardings(cfg, shapes, _Mesh(data=16, model=model))
             assert not any(any(pl.spec) for path, pl in tree_flatten_with_path(plan)[0]
                            if "/ff/" in path and cfg.pattern_[int(path.split("/")[1])][1]
                            == "moe"), (arch, model)
+
+
+def test_plan_splits_ssm_heads():
+    """SSM layers at full width: Jamba's 128 heads split 8 a rank on (16,
+    16) and 32 on (64, 4), Mamba2-130m's 24 split 6 a rank on (64, 4) and
+    stay whole on (16, 16), where 16 does not divide 24 (the rule's
+    outcome). Split, in_proj's columns are the segments z | x | B | C | dt
+    (z, x and dt by heads, B and C whole), the conv's channels x | B | C,
+    the per-head leaves, the norm's scale and out_proj's rows by heads."""
+    for arch, layers, T, split in (("jamba-v0.1-52b", 8, 16, True), ("jamba-v0.1-52b", 8, 4, True),
+                                   ("mamba2-130m", 1, 4, True), ("mamba2-130m", 1, 16, False)):
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+        assert model_split(cfg, T)["ssm"] == split == (cfg.ssm_heads % T == 0)
+        got = {p: pl.spec for p, pl in tree_flatten_with_path(compute_shardings(
+            cfg, tfm.params_shape(cfg), _Mesh(data=256 // T, model=T)))[0]}
+        din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        i = next(j for j, (mixer, _) in enumerate(cfg.pattern_) if mixer == "ssm")
+        want = {"in_proj": (None, None, ((din, "model"), (din, "model"), (n, None), (n, None),
+                                         (h, "model"))),
+                "conv_w": (None, ((din, "model"), (n, None), (n, None)), None),
+                "conv_b": (None, ((din, "model"), (n, None), (n, None))),
+                "A_log": (None, "model"), "D": (None, "model"), "dt_bias": (None, "model"),
+                "norm_scale": (None, "model"), "out_proj": (None, "model", None)}
+        for name, spec in want.items():
+            path = f"blocks/{i}/mixer/{name}"
+            assert got[path] == (spec if split else (None,) * len(spec)), (arch, T, path)
+        assert got[f"blocks/{i}/norm1/scale"] == (None, None)
+
+
+def test_segmented_placement_cuts_boxes_in_segment_order():
+    """``Placement`` on a segmented dim: a rank's block is its part of each
+    split segment and all of each whole one, joined in segment order
+    (``local``), its ``boxes`` are those ranges of the whole with where
+    each starts in the block and the axes that pick it, ``local_shape`` /
+    ``whole_shape`` go between the two shapes, ``ranges`` refuses a
+    segmented block (no one range), and ``worker_grad_spec`` keeps the
+    segments."""
+    from repro_torch.distributed.sharding import Placement, worker_grad_spec
+
+    segs = ((4, "model"), (4, "model"), (2, None), (2, None), (2, "model"))
+    full = torch.arange(3 * 14).reshape(3, 14)
+    mesh = _Mesh(data=2, model=2)
+    mesh.coords_of = lambda r: {"data": r // 2, "model": r % 2}
+    pl = Placement(mesh, (None, segs))
+    want = {0: [0, 1, 4, 5, 8, 9, 10, 11, 12], 1: [2, 3, 6, 7, 8, 9, 10, 11, 13]}
+    for rank in (0, 1):
+        mesh.coords = mesh.coords_of(rank)
+        block = pl.local(full)
+        assert block.tolist() == [[row * 14 + c for c in want[rank]] for row in range(3)]
+        assert block.untyped_storage().nbytes() == block.numel() * block.element_size()
+        boxes = pl.boxes(full.shape, rank)
+        assert [(b.lo[1], b.hi[1], b.at[1], b.axes) for b in boxes] == [
+            (2 * rank, 2 * rank + 2, 0, ("model",)), (4 + 2 * rank, 6 + 2 * rank, 2, ("model",)),
+            (8, 10, 4, ()), (10, 12, 6, ()), (12 + rank, 13 + rank, 8, ("model",))]
+        for b in boxes:
+            assert torch.equal(block[:, b.at[1]:b.at[1] + b.hi[1] - b.lo[1]],
+                               full[:, b.lo[1]:b.hi[1]])
+    assert pl.local_shape(full.shape) == (3, 9) and pl.whole_shape((3, 9)) == (3, 14)
+    assert pl.sharded_dims(2) == (1,) and pl.axes(1) == ("model",) and pl.parts(1) == 2
+    with pytest.raises(ValueError, match="boxes"):
+        pl.ranges(full.shape)
+    assert pl.ranges(full.shape, dims=[0]) == [(0, 3), (0, 14)]
+    assert worker_grad_spec(pl, mesh).spec == ("data", None, segs)
+    with pytest.raises(ValueError, match="even"):
+        Placement(mesh, (((3, "model"), (2, None)),)).local_shape((5,))
 
 
 @pytest.mark.parametrize("label", MOE_CASES)
@@ -310,14 +425,45 @@ def test_embedded_stream_is_the_one_device_stream(tp_ranks):
             assert _same_bits(out["cases"][label]["h"], want), label
 
 
-def test_block_ingress_equals_rows_to_cols(tp_ranks):
+@pytest.mark.parametrize("arch", INGRESS)
+def test_block_ingress_equals_rows_to_cols(tp_ranks, arch):
     """Each rank's column slice from the block ingress (its workers' rows,
-    its compute blocks; whole leaves sent by model coordinate 0 alone)
-    equals ``shard_cols`` of the packed global stack, the slice
-    ``rows_to_cols`` gives, bit for bit, padding included."""
+    its compute blocks; whole leaves, and an SSM leaf's whole B / C
+    segments, sent by model coordinate 0 alone) equals ``shard_cols`` of
+    the packed global stack, the slice ``rows_to_cols`` gives, bit for
+    bit, padding included. Mamba2's plan has segmented leaves."""
     _, _, ranks = tp_ranks
     for out in ranks:
-        assert _same_bits(out["ingress"]["blocks"], out["ingress"]["rows_to_cols"])
+        got = out["ingress"][arch]
+        assert _same_bits(got["blocks"], got["rows_to_cols"])
+        segmented = [spec for spec in got["specs"] if any(isinstance(e, tuple) for e in spec)]
+        assert bool(segmented) == (arch == "mamba2-130m")
+
+
+def test_gated_norm_split_sum_matches_one_device(tp_ranks):
+    """The SSM's gated RMSNorm on a rank's d_inner / T columns: its fp32 sum
+    of squares all-reduced over the model group (``sum_across``), divided
+    by the whole d_inner, then ``project_out``: the output on every rank
+    and the gradients of the stream's columns, the scale and out_proj's
+    rows, put together in rank order, match one device's ``rmsnorm`` and
+    product within the stated tolerance (rtol 1e-4, atol 1e-5: the fp32
+    sums' order differs)."""
+    (_, T), _, ranks = tp_ranks
+    from repro_torch.models import ssm
+
+    x = torch_shard_ranks.gated_norm_inputs()
+    cfg = configs.smoke_config("mamba2-130m")
+    leaves = [x["gated"].clone().requires_grad_(), x["norm_scale"].clone().requires_grad_(),
+              x["out_proj"].clone().requires_grad_()]
+    out = ssm._gated_out({"norm_scale": leaves[1], "out_proj": leaves[2]}, leaves[0], cfg)
+    grads = torch.autograd.grad((out * x["r"]).sum(), leaves)
+    group = [r["gated_norm"] for r in ranks[:T]]  # one model group, in rank order
+    assert [g["index"] for g in group] == list(range(T))
+    for r in ranks:
+        np.testing.assert_allclose(r["gated_norm"]["out"], out.detach(), rtol=RTOL, atol=ATOL)
+    for i, (want, dim) in enumerate(zip(grads, (-1, 0, 0))):
+        got = torch.cat([torch.as_tensor(g["grads"][i]) for g in group], dim=dim)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 def _step_config(label):
@@ -349,7 +495,8 @@ def test_rows_and_momenta_are_compute_blocks(tp_ranks, mode):
     the worker momenta are placed by the plan with the worker axes on dim
     0, and the block ingress ran; the step's parameters and loss match the
     one-device step (rtol 1e-4, atol 1e-6). gemma in both modes, and the
-    MoE steps (``MOE_STEPS``), whose expert rows are the rank's experts."""
+    MoE and SSM steps (``MOE_STEPS``), whose expert rows are the rank's
+    experts and whose SSM rows and momenta the rank's heads' segments."""
     (data, _), _, ranks = tp_ranks
     want_params, want_loss = _one_device_step(mode)
     for out in ranks:

@@ -16,6 +16,8 @@ rows at the group's width. The bf16 sequence-sharded decode's distance
 from one device is settled at the end (``_softmax_across``).
 """
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import math
@@ -54,6 +56,8 @@ CASES = {
     "jamba": ("jamba-v0.1-52b", {}),
     "olmoe_e6": ("olmoe-1b-7b", {"n_experts": 6}),
     "olmoe_drops": ("olmoe-1b-7b", {"capacity_factor": 0.5}),
+    # SSM heads along the model axis: 6 heads, split on (2, 2), whole on (1, 4)
+    "mamba2_h6": ("mamba2-130m", {"d_model": 192, "ssm_head_dim": 64}),
 }
 MESHES = [(1, 4), (2, 2)]
 #: prompt rows and length, greedy tokens after it, cache positions (above
@@ -147,9 +151,18 @@ def _payload():
 
 @pytest.fixture(scope="module")
 def group():
-    """Every rank's results of ``tp_serving``: one group runs both meshes."""
-    return spawn_ranks(torch_shard_ranks.tp_serving, 4, backend="gloo", devices=["cpu"] * 4,
-                       args=(_payload(),), timeout_s=600)
+    """Every rank's results of ``tp_serving``: one group runs both meshes.
+    While the ranks run, this process computes the reference's prefill and
+    decode the tests read (cached; one that raises is left for its test to
+    raise)."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn_ranks, torch_shard_ranks.tp_serving, 4, backend="gloo",
+                            devices=["cpu"] * 4, args=(_payload(),), timeout_s=600)
+        for label in CASES:
+            for rows, groups in [(B, data) for data, _ in MESHES] + [(1, 1)]:
+                with contextlib.suppress(Exception):
+                    _expected(label, rows, groups)
+        return ranks.result()
 
 
 @pytest.fixture(params=MESHES, ids=["1x4", "2x2"])
@@ -246,7 +259,8 @@ def test_ranks_hold_only_their_blocks(ranks):
     whole = sum(math.prod(s.shape) * 4 for s in tree_flatten(tfm.params_shape(cfg))[0])
     norms = 4 * cfg.d_model * (2 * cfg.n_layers + 1)
     assert out[0]["cases"]["gemma"]["bytes"] == (whole - norms) // T + norms
-    assert all(v for k, v in model_split(cfg, T).items() if not k.startswith("moe"))
+    assert all(v for k, v in model_split(cfg, T).items()
+               if not k.startswith("moe") and k != "ssm")  # gemma: no experts, no SSM
     # the experts: E / T of the stacked leaves a rank, where T divides E
     for label in ("olmoe", "kimi", "jamba", "olmoe_e6"):
         cfg = _case(label)[0]
@@ -258,6 +272,36 @@ def test_ranks_hold_only_their_blocks(ranks):
                         and cfg.pattern_[int(path.split("/")[1])][1] == "moe":
                     assert math.prod(shape) * (T if split else 1) == math.prod(s.shape), path
                     assert shape[1] == cfg.n_experts // (T if split else 1), path
+
+
+@pytest.mark.parametrize("label", ["mamba2", "mamba2_h6"])
+def test_ssm_caches_exchange_once_a_step(ranks, label):
+    """One decode step of the SSM models (all rows, batch-sharded): where
+    the model axis splits the SSM heads the step decodes on the compute
+    blocks of the state and conv ring, brought from and back to the
+    reference's cache placement by one all-gather each way for every
+    layer's caches, beside the vocab's gather; each SSM layer makes two
+    all-reduces (the gated norm's sum of squares and ``project_out``), the
+    embedding one. Where T does not divide the heads (``mamba2_h6`` on
+    (1, 4)) the layers run whole: each cache leaf the rules split is
+    gathered whole and cut after, and no layer all-reduces. Every rank
+    holds its heads' blocks of the SSM leaves where they split."""
+    (data, T), out = ranks
+    cfg = _case(label)[0]
+    split = model_split(cfg, T)["ssm"]
+    n_leaves = 2  # one SSM layer's conv ring and state, stacked over the layers
+    for o in out:
+        kinds = o["cases"][label]["batch"]["step_calls"]
+        want_gathers = 1 + (2 if split else n_leaves)
+        assert kinds.count("all-gather") == want_gathers, kinds
+        assert kinds.count("all-reduce") == 1 + (2 * cfg.n_layers if split else 0), kinds
+        assert set(kinds) <= {"all-gather", "all-reduce"}
+        shapes = dict(zip([p for p, _ in tree_flatten_with_path(tfm.params_shape(cfg))[0]],
+                          o["cases"][label]["shapes"]))
+        h = cfg.ssm_heads // (T if split else 1)
+        assert shapes["blocks/0/mixer/A_log"] == (cfg.n_layers, h)
+        assert shapes["blocks/0/mixer/in_proj"][-1] == (
+            2 * cfg.d_inner + cfg.ssm_heads) // (T if split else 1) + 2 * cfg.ssm_state
 
 
 def test_whole_parameters_raise(ranks):

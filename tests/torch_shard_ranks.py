@@ -562,10 +562,11 @@ def _tp_case(mesh, case):
                                               for k in model_split(cfg, ax.size)}}
 
 
-def _tp_ingress(mesh):
-    """The block ingress of a random global stack over gemma's smoke
-    compute plan (each rank its workers' rows, its compute blocks) against
-    ``shard_cols`` of the packed global stack."""
+def _tp_ingress(mesh, arch):
+    """The block ingress of a random global stack over ``arch``'s one-layer
+    smoke compute plan (each rank its workers' rows, its compute blocks;
+    Mamba2's SSM leaves segmented) against ``shard_cols`` of the packed
+    global stack."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -574,7 +575,7 @@ def _tp_ingress(mesh):
     from repro_torch.models import transformer as tfm
     from repro_torch.utils.tree import tree_map
 
-    cfg = dataclasses.replace(smoke_config("gemma-7b"), n_layers=1)
+    cfg = dataclasses.replace(smoke_config(arch), n_layers=1)
     specs = tfm.params_shape(cfg)
     compute = compute_shardings(cfg, specs, mesh)
     G = n_workers(mesh)
@@ -587,7 +588,41 @@ def _tp_ingress(mesh):
     packer = packing.packer_for(mine, compute)
     return {"blocks": packing.pack_from_shardings(packer, mine, compute, mesh),
             "rows_to_cols": shard_kernels.shard_cols(packing.packer_for(stack).pack(stack),
-                                                      mesh.group)}
+                                                      mesh.group),
+            "specs": [pl.spec for pl in tree_flatten(compute)[0]]}
+
+
+def gated_norm_inputs():
+    """A seeded fp32 gated stream ``[2, 16, 512]``, norm scale ``[512]``,
+    out_proj ``[512, 256]`` and output weights ``[2, 16, 256]`` at smoke
+    Mamba2's d_inner and width (``test_torch_tensor_parallel.py``)."""
+    gen = torch.Generator().manual_seed(31)
+    return {"gated": torch.randn(2, 16, 512, generator=gen),
+            "norm_scale": 1.0 + 0.1 * torch.randn(512, generator=gen),
+            "out_proj": torch.randn(512, 256, generator=gen) / 512 ** 0.5,
+            "r": torch.randn(2, 16, 256, generator=gen)}
+
+
+def _tp_gated_norm(mesh):
+    """The SSM's gated RMSNorm and out projection on this rank's d_inner / T
+    columns (``ssm._gated_out`` with smoke Mamba2's axis): the output, and
+    the gradients of ``sum(out * r)`` by the rank's columns of the stream,
+    its scale and its rows of out_proj."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import ssm
+    from repro_torch.models.parallel import ModelAxis
+
+    cfg = smoke_config("mamba2-130m")
+    ax = ModelAxis.of(cfg, mesh)
+    x = gated_norm_inputs()
+    b = cfg.d_inner // ax.size
+    cols = slice(ax.index * b, (ax.index + 1) * b)
+    g = x["gated"][..., cols].clone().requires_grad_()
+    p = {"norm_scale": x["norm_scale"][cols].clone().requires_grad_(),
+         "out_proj": x["out_proj"][cols].clone().requires_grad_()}
+    out = ssm._gated_out(p, g, cfg, ax)
+    grads = torch.autograd.grad((out * x["r"]).sum(), [g, p["norm_scale"], p["out_proj"]])
+    return {"out": out.detach(), "grads": [t for t in grads], "index": ax.index}
 
 
 def _tp_steps(mesh, p):
@@ -692,17 +727,22 @@ def _tp_one_model_rank(group, p):
 
 
 def tensor_parallel(rank, group, device, p):
-    """Everything tests/test_torch_tensor_parallel.py holds on the
-    ``p["mesh"]`` (data, model) mesh of the group: each case's loss and
-    gradients on compute blocks, the block ingress, the train steps; and
-    the (4, 1) mesh of the same group against the bare group."""
+    """Everything tests/test_torch_tensor_parallel.py holds, in one group:
+    on each (data, model) mesh of ``p["meshes"]`` each case's loss and
+    gradients on compute blocks, the block ingress of each arch of
+    ``p["ingress"]``, the SSM's gated norm, the train steps; and the (4, 1)
+    mesh of the same group against the bare group."""
     from repro_torch.launch.mesh import make_host_mesh
 
-    mesh = make_host_mesh(group, *p["mesh"])
-    out = {"coords": mesh.coords,
-           "cases": {label: _tp_case(mesh, case) for label, case in p["cases"].items()},
-           "ingress": _tp_ingress(mesh), "steps": _tp_steps(mesh, p["steps"]),
-           "one_model_rank": _tp_one_model_rank(group, p["steps"])}
+    out = {}
+    for shape in p["meshes"]:
+        mesh = make_host_mesh(group, *shape)
+        out[tuple(shape)] = {
+            "coords": mesh.coords,
+            "cases": {label: _tp_case(mesh, case) for label, case in p["cases"].items()},
+            "ingress": {arch: _tp_ingress(mesh, arch) for arch in p["ingress"]},
+            "gated_norm": _tp_gated_norm(mesh), "steps": _tp_steps(mesh, p["steps"])}
+    out["one_model_rank"] = _tp_one_model_rank(group, p["steps"])
     return out
 
 
@@ -712,7 +752,8 @@ def _tps_case(mesh, case, p):
     parameters, the prefill's last-position logits and a greedy decode
     through ``make_serve_step`` with a batch-sharded cache of all rows and,
     where the mesh has more than one worker group, a one-row cache (on
-    (1, T) one row is batch-sharded too)."""
+    (1, T) one row is batch-sharded too); the kinds of the collectives
+    the last decode step made."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -720,6 +761,7 @@ def _tps_case(mesh, case, p):
     from repro_torch.convert import params_from_jax
     from repro_torch.distributed.sharding import compute_blocks, local_zeros
     from repro_torch.distributed.steps import gather_batch, make_prefill_step, make_serve_step
+    from repro_torch.launch.collectives import record_collectives
 
     cfg = dataclasses.replace(smoke_config(case["arch"]), **case["cfg"])
     whole = params_from_jax(case["params"], "cpu")
@@ -745,13 +787,15 @@ def _tps_case(mesh, case, p):
         logits_seq, chosen = [], []
         for pos in range(S + p["new_tokens"]):
             tok = tokens[..., pos] if pos < S else chosen[-1]
-            logits, cache = serve(params, cache, tok, pos)
+            with record_collectives() as calls:
+                logits, cache = serve(params, cache, tok, pos)
             logits = gather_batch(logits, mesh, rows)
             logits_seq.append(logits)
             chosen.append(torch.argmax(logits, dim=-1))
         first = next(iter(placements.values()))
         out[label] = dict(logits=torch.stack(logits_seq), tokens=torch.stack(chosen),
-                          spec=next(iter(first.values())).spec)
+                          spec=next(iter(first.values())).spec,
+                          step_calls=[c.kind for c in calls])
     return out
 
 
