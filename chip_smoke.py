@@ -73,8 +73,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    the same inputs, as the earlier design's time in the same run.
 8. Serve TinyLlama-1.1B at full width (22 layers, bf16, random weights from
    a seeded generator on the card): (a) ``make_prefill_step`` on B = 2,
-   S = 4096 gives finite next-token logits [2, 1, 32000], timed and
-   profiled (device busy share); (b) layer
+   S = 4096 gives finite next-token logits [2, 1, 32000], timed; (b) layer
    0's q/k/v, made by the model's own ``rmsnorm`` and ``_project_qkv`` from
    that prefill's embeddings, go through ``flash_attention`` (exactly one
    launch, of the ``wgmma`` kernel, counted on its own) and are held against
@@ -119,8 +118,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    parameters from a seed) trained by W = 4 workers, one 1024-token
    sequence each from ``make_token_stream`` (one affine-bigram law a
    worker), sgdm lr 1e-2, worker momentum 0.9: RFA with bucketing s = 2
-   for 3 steps, 1 more under the profiler (device busy share), then CM for
-   1 step. Each step launches exactly ``TRAIN_ROUTE``'s kernels at
+   for 3 steps, then CM for 1 step. Each step launches exactly ``TRAIN_ROUTE``'s kernels at
    X[4, n_pad], n_pad = 1,100,048,384 + padding; its loss is finite and the
    parameters move; its aggregate, recomputed on the same worker momenta,
    equals the plain route's (``TRAIN_AGG_RTOL`` of the largest row norm),
@@ -153,8 +151,8 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 12. The MoE family (``models/moe.py``): (a) OLMoE-1B-7B served at its
    published width and depth (16 layers, 64 experts top-8, d_ff_expert
    1024, bf16; 6,919,096,320 random parameters from a seed, the count
-   asserted): ``make_prefill_step`` on B = 2, S = 4096 (C = 1280) timed
-   and profiled, its drop fraction printed; phase 8's 6-request
+   asserted): ``make_prefill_step`` on B = 2, S = 4096 (C = 1280) timed,
+   its drop fraction printed; phase 8's 6-request
    ``ServeEngine`` run, request 0 equal to the greedy loop at the engine's
    width (C = 8 >= 4 decode tokens: none dropped); 20 decode steps with 4
    slots busy timed (5 more under the profiler) beside their bound (every expert's
@@ -170,14 +168,14 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    served at its published width and depth (24 layers, d_inner 1536, 24
    heads of 64, N = 128, tied vocab 50,280, bf16; the tree's 128,983,488
    parameters asserted, the reference formula's 128,958,336 beside them):
-   the prefill on B = 2 x 4096 (64 chunks) timed and profiled, phase 8's
+   the prefill on B = 2 x 4096 (64 chunks) timed, phase 8's
    6-request ``ServeEngine`` run with request 0 and request 4 (served after
    another in its slot, whose SSM state the engine zeroed) equal to the
    greedy loop, 20 decode steps with 4 slots busy timed (5 more under the profiler) beside
    their bound (the parameters, and the SSM state read and written); no
    kernel of ours launches (counted). (b) phase 11(a)'s training at
    Mamba2's full width and depth (d = 128,983,488), one RFA and one CM
-   step (``SSM_TRAIN_RUNS``, unprofiled; 15(h) trains it again on one
+   step (``SSM_TRAIN_RUNS``; 15(h) trains it again on one
    device as its reference): exact launches, the aggregate equal to the
    plain route's, every parameter and momentum leaf finite, then the three
    kernels held and timed on its packed momenta.
@@ -204,7 +202,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    tied 256,000-row embedding, bf16, fsdp, server momentum) with the depth
    cut to 1 of 28 layers (1,063,265,280 parameters, the tree's count
    asserted) trained on the mesh (data=4, model=1), W = 4 workers of one
-   1024-token sequence each: RFA with bucketing s = 2 for 2 steps, then CM
+   1024-token sequence each: RFA with bucketing s = 2 for 1 step, then CM
    for 1 from RFA's state (``FSDP_RUNS``),
    each with the group's exact launches per rank, a finite loss and
    moving parameters, the first step of each rule held against the plain
@@ -220,8 +218,8 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    the one-device step. (c) TinyLlama-1.1B at full width and depth served
    on (4, 1): the prefill on B = 4 x 4096 (a row a rank) against the
    one-device prefill; ``make_serve_step`` with a batch-sharded 4-row cache,
-   20 greedy steps after a 16-token prompt equal to the one-device greedy
-   loop's tokens at the rank's width; with B = 1 and the cache
+   ``MESH_DECODE_STEPS`` greedy steps after a 16-token prompt equal to the
+   one-device greedy loop's tokens at the rank's width; with B = 1 and the cache
    sequence-sharded over the 4 ranks, filled from a seed at 4,095
    positions, one decode step's logits against ``decode_step`` on the same
    cache (in fp32 within the reference's decode bar, rtol and atol 2e-3;
@@ -241,7 +239,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    checking its compute blocks' shapes, the exact ``SYNC_ROUTE``
    launches, the loss equal bit for bit on every rank and (a)'s
    plain-route check; then rank 0 runs the same step
-   with ``mesh=None`` on the gathered parameters, batch and mix (exact
+   with ``mesh=None`` from the same seeded init, batch and mix (exact
    ``TRAIN_ROUTE`` launches): the mesh step's loss within ``TP_LOSS_TOL``
    of it and its aggregate, gathered whole, within ``TP_AGG_RTOL`` of the
    largest worker row norm. Host ms a step, and each rank's peak at the
@@ -283,7 +281,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    decode on (1, 4), one batch-sharded step on (2, 2); the bf16 holds on
    each output and on the mean over every held logit row; the assignments
    the prefill routed otherwise than one device printed; one bf16 run at
-   the full 16 layers, each rank's expert bytes printed). (h) In (a)'s
+   8 of its 16 layers, each rank's expert bytes printed). (h) In (a)'s
    group, Mamba2-130m's SSM layers along the model axis of (data=1,
    model=4) (``ssm_rank``): each rank computes its 6 of 24 SSD heads (the
    z, x and dt columns of in_proj, the x channels of the conv, the
@@ -294,7 +292,8 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    launches, the loss within ``SSM_TP_LOSS_TOL`` of one device's
    (absolute) and the aggregate within ``SSM_TP_AGG_RTOL`` of the largest
    row norm, each rank's peak below one device's. Serving (``tps_rank`` /
-   ``tps_check`` with ``TPS_SSM``, at full depth in fp32 and bf16 on (1, 4)):
+   ``tps_check`` with ``TPS_SSM``, 12 of its 24 layers in fp32 and bf16 on
+   (1, 4)):
    the B = 2 x 1,024 prefill and a 4-slot greedy decode of 3 tokens after
    the prompt, in fp32 the tokens equal to one device's and every logit
    within ``TPS_SSM["tol"]``, in bf16 each output within ``SEQ_BF16_RATIO``
@@ -303,8 +302,30 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    heads, N = 16; ``ssm_layer_rank``), ``SSM_LAYER_S`` tokens, forward and
    backward on (1, 4) against one device: in fp32 the output and every
    gradient within ``SSM_LAYER_RTOL["float32"]`` of its largest one-device
-   magnitude, in bf16 within ``SSM_LAYER_RTOL["bfloat16"]``. The phase has
-   no fallback to the whole layer: any miss raises.
+   magnitude, in bf16 within ``SSM_LAYER_RTOL["bfloat16"]``. (i) Attention
+   whose heads the model axis does not divide, on (data=1, model=16): a
+   group of ``HEADS_TP_RANKS`` = 16 gloo ranks on the card, the attention
+   in t = 8 head blocks, each held by 2 ranks, replica 0's partial alone
+   summed (``models/parallel.py``). The ranks start up beside phase 15's
+   and wait for its end (``start_heads``); the parent computes the
+   one-device references while they run. qwen2.5-14b's attention layer alone at
+   its width (d_model 5,120, 40 / 8 heads of 128: 5 q heads and one kv
+   head a block; ``heads_layer_rank``), ``HEADS_LAYER_B`` x
+   ``HEADS_LAYER_S`` tokens, forward and backward against one device: in
+   fp32 the output and every gradient within ``HEADS_LAYER_RTOL
+   ["float32"]`` of its largest one-device magnitude, in bf16 within
+   ``HEADS_LAYER_RTOL["bfloat16"]``, a rank's attention bytes 1 / 8 of the
+   layer's. MusicGen-medium at its published width, ``HEADS_AUDIO_LAYERS``
+   deep in fp32 (24 heads, 3 a block; d_ff 6,144 and the 4 x 2,048
+   codebook vocab split 16 ways): (e)'s ``tp_rank`` / ``tp_check`` with
+   one RFA step (``HEADS_TP_RUNS``), the loss within ``HEADS_TP_LOSS_TOL``
+   of one device's (absolute) and the aggregate within
+   ``HEADS_TP_AGG_RTOL`` of the largest row norm, the exact launches, each
+   rank's peak below one device's; served (``tps_rank`` / ``tps_check``
+   with ``TPS_HEADS``): the B = 2 x 1,024 prefill and a 4-slot greedy
+   decode of 3 tokens after a 4-token prompt in fp32, the tokens equal to
+   one device's and every logit within ``TPS_HEADS["tol"]``. The phase has
+   no fallback to the whole layer or the whole attention: any miss raises.
 16. The CNN of App. Table 5 (``models/mlp.py::init_cnn``, HWIO convolutions
    run by cuDNN under ``ieee_fp32()``) and the static-analysis gate. (a)
    ``ByzantineSim`` with the CNN at phase 9's scale (n = 25, 300 steps) for
@@ -342,7 +363,7 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
    (``x16.per_leaf.*``, ``x16.packed.*``) and each Gram's route as the
    variant rule gives it, host ms, device ms and peak memory of each engine.
    (c) ``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
-   train_4k`` in a subprocess (fake tensors on the host's CPU), started
+   train_4k --layers 4`` (4 of 22 layers) in a subprocess (fake tensors on the host's CPU), started
    before phase 1 and run beside phases 1, 2 and 4, which report device
    times only; it must end before phase 3: exit 0 and its four lines. (d)
    ``examples/quickstart_torch.py``, ``attack_defense_matrix_torch.py
@@ -432,12 +453,12 @@ ATTN_S = 4096             # the attention and serving phases' sequence length
 #: TRAIN_S-token sequence each; (rule, steps) in order, the state carried on
 TRAIN_W, TRAIN_S, TRAIN_LR = 4, 1024, 1e-2
 TRAIN_RUNS = [("rfa", 3), ("cm", 1)]
-#: phase 13(b)'s steps on Mamba2, unprofiled (15(h) steps it again)
+#: phase 13(b)'s steps on Mamba2 (15(h) steps it again)
 SSM_TRAIN_RUNS = [("rfa", 1), ("cm", 1)]
-#: phase 15(a)'s steps: a gemma-7b fsdp step takes 15-21 s over gloo, and
-#: the plain-route checks read the first step of each rule; RFA's second
-#: step carries its worker momentum, CM's its parameters and server momentum
-FSDP_RUNS = [("rfa", 2), ("cm", 1)]
+#: phase 15(a)'s steps: a gemma-7b fsdp step takes 10-21 s over gloo, and
+#: the plain-route checks read the first step of each rule; CM's step
+#: carries RFA's parameters and server momentum (gemma's mode)
+FSDP_RUNS = [("rfa", 1), ("cm", 1)]
 #: phase 15(e): one step of each rule of (a)'s gemma-7b on (data=1,
 #: model=4), computing along the model axis (CM along a model axis is
 #: 15(h)'s); its loss against the same step on one device (absolute), its
@@ -490,7 +511,8 @@ PROFILED_DECODE_STEPS = 2
 #: on the card at its published width, the depth cut to FSDP_LAYERS of 28
 #: (786,432,000 embed + 276,830,208 a layer + 3,072 final norm); the
 #: smoke-width step on the (4, 1) and (2, 2) meshes; TinyLlama served on
-#: the (4, 1) mesh: MESH_DECODE_CACHE positions for the batch-sharded loop,
+#: the (4, 1) mesh: MESH_DECODE_CACHE positions for the batch-sharded loop
+#: of MESH_DECODE_STEPS greedy tokens,
 #: ATTN_S for the one sequence-sharded step, then a SEQ_PROMPT-token prompt
 #: in a SEQ_CACHE-position cache decoded for SEQ_NEW tokens (4 positions a
 #: rank, the prompt across three ranks' blocks and the decode into the
@@ -499,7 +521,7 @@ PROFILED_DECODE_STEPS = 2
 #: time limit wants the seconds for phase 15(g))
 FSDP_ARCH, FSDP_LAYERS, FSDP_PARAMS = "gemma-7b", 1, 1_063_265_280
 MESH_SHAPES = [(4, 1), (2, 2)]
-MESH_DECODE_PROMPT, MESH_DECODE_CACHE = 16, 64
+MESH_DECODE_PROMPT, MESH_DECODE_CACHE, MESH_DECODE_STEPS = 16, 64, 8
 SEQ_PROMPT, SEQ_CACHE, SEQ_NEW = 12, 16, 4
 #: phase 15(c)'s bar for a row's prefill alone against the B = 4 prefill,
 #: relative to the largest |logit|; and for the sequence-sharded bf16 step,
@@ -519,10 +541,11 @@ TPS_PREFILL, TPS_FULL_LAYERS, TPS_FULL_NEW = (2, 1024), 28, 4
 #: the holds against one device, the full depth of the one timed bf16 run
 #: (0: none), whether the one-row ATTN_S steps run, whether (2, 2)'s 4-row
 #: seeded step runs, the greedy decode's prompt tokens and new tokens (a
-#: mesh token takes 0.1-0.5 s over gloo), and the fp32 logits' bar against
-#: one device
+#: mesh token takes 0.1-0.5 s over gloo), the fp32 logits' bar against one
+#: device, and the dtypes the holds run in
 TPS_GEMMA = dict(label="tps", arch=FSDP_ARCH, layers=REMAT_LAYERS, full=TPS_FULL_LAYERS,
-                 one_row=True, pooled=False, rows=True, prompt=8, new=8, tol=TP_LOSS_TOL)
+                 one_row=True, pooled=False, rows=True, prompt=8, new=8, tol=TP_LOSS_TOL,
+                 dtypes=("float32", "bfloat16"))
 #: ``pooled``: beside the bf16 hold on each output, one on the mean over
 #: every held logit row (each prompt position of the greedy decode, the
 #: prefill's and the 4-row step's rows) of max |x - fp32 one device|. A
@@ -531,8 +554,9 @@ TPS_GEMMA = dict(label="tps", arch=FSDP_ARCH, layers=REMAT_LAYERS, full=TPS_FULL
 #: assignments), and a row whose own token routed otherwise sits far off
 #: fp32 (the prefill's 1.33 in both), so an output's max says whether a
 #: near-tie flipped, the mean over rows how far each run's rounding is
-TPS_MOE = dict(label="moe serve", arch=MOE_ARCH, layers=MOE_TRAIN_LAYERS, full=16,
-               one_row=False, pooled=True, rows=True, prompt=8, new=8, tol=TP_LOSS_TOL)
+TPS_MOE = dict(label="moe serve", arch=MOE_ARCH, layers=MOE_TRAIN_LAYERS, full=8,
+               one_row=False, pooled=True, rows=True, prompt=8, new=8, tol=TP_LOSS_TOL,
+               dtypes=("float32", "bfloat16"))
 #: phase 15(e)'s compute blocks: the dim each leaf splits on (path suffix ->
 #: dim; every other leaf whole); 15(g)'s OLMoE adds its lm_head and its
 #: experts on the expert dim of [P, E, D, F] / [P, E, F, D], the router whole
@@ -574,16 +598,44 @@ TP_BARS = {"tp": (TP_LOSS_TOL, TP_AGG_RTOL), "moe.tp": (TP_LOSS_TOL, TP_AGG_RTOL
 TP_SSM_DIMS = {"embed": 0, "mixer/in_proj": (2, 1030), "mixer/conv_w": (1, 640),
                "mixer/conv_b": (1, 640), "mixer/A_log": 1, "mixer/D": 1, "mixer/dt_bias": 1,
                "mixer/norm_scale": 1, "mixer/out_proj": 1}
-#: 15(h)'s serving: full depth (24 layers) in both dtypes on (1, 4) only, the
-#: greedy decode 3 tokens after a 4-token prompt (a mesh token takes ~0.8 s
-#: over gloo: 48 all-reduces), fp32 logits within ``tol`` of one device's;
+#: 15(h)'s serving: 12 of 24 layers in both dtypes on (1, 4) only, the
+#: greedy decode 3 tokens after a 4-token prompt (a mesh token takes ~0.4 s
+#: over gloo: 24 all-reduces), fp32 logits within ``tol`` of one device's;
 #: no separate full-depth run (``full`` 0)
-TPS_SSM = dict(label="ssm serve", arch=SSM_ARCH, layers=24, full=0, one_row=False,
-               pooled=False, rows=False, prompt=4, new=3, tol=1e-4)
+TPS_SSM = dict(label="ssm serve", arch=SSM_ARCH, layers=12, full=0, one_row=False,
+               pooled=False, rows=False, prompt=4, new=3, tol=1e-4,
+               dtypes=("float32", "bfloat16"))
 #: 15(h)'s Jamba SSM layer alone: tokens of one row, and the bars on the
 #: output and each gradient relative to its largest one-device magnitude
 SSM_LAYER_S = 1024
 SSM_LAYER_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: phase 15(i): attention whose heads the model axis does not divide, on
+#: (data=1, model=HEADS_TP_RANKS): 16 gloo ranks on the card, the attention
+#: in t = 8 head blocks of 2 ranks. qwen2.5-14b's attention layer alone:
+#: HEADS_LAYER_B rows of HEADS_LAYER_S tokens, the bars on the output and
+#: each gradient relative to its largest one-device magnitude.
+#: MusicGen-medium HEADS_AUDIO_LAYERS of 48 layers deep in fp32
+#: (81,796,608 parameters): one RFA step, the loss within
+#: HEADS_TP_LOSS_TOL of one device's (absolute) and the aggregate within
+#: HEADS_TP_AGG_RTOL of the largest worker row norm
+HEADS_TP_RANKS, HEADS_BLOCKS = 16, 8
+HEADS_LAYER_ARCH, HEADS_LAYER_B, HEADS_LAYER_S = "qwen2.5-14b", 2, 1024
+HEADS_LAYER_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+HEADS_AUDIO_LAYERS, HEADS_TP_RUNS = 2, ("rfa",)
+HEADS_TP_LOSS_TOL, HEADS_TP_AGG_RTOL = 1e-3, 1e-3
+TP_BARS["heads.tp"] = (HEADS_TP_LOSS_TOL, HEADS_TP_AGG_RTOL)
+#: 15(i)'s MusicGen compute blocks (path suffix -> split dim, or (dim,
+#: width) for a replicated head block): 3 of 24 heads of 64 a block, 192
+#: columns of wq / wk / wv and rows of wo; d_ff 6,144 / 16 and each
+#: codebook's 2,048 rows of embed and columns of lm_head / 16
+TP_AUDIO_DIMS = {"embed": 1, "lm_head": 2, "mixer/wq": (2, 192), "mixer/wk": (2, 192),
+                 "mixer/wv": (2, 192), "mixer/wo": (1, 192), "ff/w_up": 2, "ff/w_down": 1}
+#: 15(i)'s serving: HEADS_AUDIO_LAYERS deep in fp32 only on (1, 16), the
+#: greedy decode 3 tokens after a 4-token prompt of 4 codebooks, fp32 logits
+#: within ``tol`` of one device's
+TPS_HEADS = dict(label="heads serve", arch=AUDIO_ARCH, layers=HEADS_AUDIO_LAYERS, full=0,
+                 one_row=False, pooled=False, rows=False, prompt=4, new=3, tol=1e-4,
+                 dtypes=("float32",))
 #: exact launches of one sync over the group, per rank (the aggregators'
 #: defaults: RFA T = 8, CCLIP T = 3)
 SYNC_ROUTE = {
@@ -628,7 +680,7 @@ CNN_ROUNDS = 60
 X16_DTYPES = ("bfloat16", "float16")
 X16_SEL_W = 5
 X16_ODD_D = 100_003
-X16_DRYRUN = ("--arch", "tinyllama-1.1b", "--shape", "train_4k")
+X16_DRYRUN = ("--arch", "tinyllama-1.1b", "--shape", "train_4k", "--layers", "4")
 X16_EXAMPLES = [("examples/quickstart_torch.py", ()),
                 ("examples/attack_defense_matrix_torch.py", ("--steps", "50")),
                 ("examples/serve_decode_torch.py", ())]
@@ -1667,8 +1719,6 @@ def serve_phase(dev, results):
     log(f"serve prefill B2 S{S}: logits [2, 1, {V}] finite; host ms per prefill "
         f"{', '.join(f'{t:.1f}' for t in times)} (median {statistics.median(times):.1f}); "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    profile_steps(lambda: prefill(params, {"tokens": tokens}), f"serve.prefill B2 S{S}",
-                  statistics.median(times) * 1e3, 1, "prefill")
 
     # (b) the kernel on layer 0's own q/k/v
     lp = tree_map(lambda t: t[0], params["blocks"])["0"]
@@ -2113,14 +2163,12 @@ def agreement(label: str, rows, aggregator, mix):
                              "off the fp64 Gram")
 
 
-def train_full_width(dev, smi, cfg, note: str = "", n_expected=None, runs=None,
-                     profile: bool = True):
+def train_full_width(dev, smi, cfg, note: str = "", n_expected=None, runs=None):
     """Phase 11(a) / 12(b) / 13(b): ``make_train_step`` on ``cfg`` at its
     full width, W = TRAIN_W heterogeneous workers with one TRAIN_S-token
     sequence each, the steps of ``runs`` (``TRAIN_RUNS`` by default) with
     exact launches, each step's loss, device ms by phase and peak memory,
-    the first step of each rule held against the plain route, then, where
-    ``profile``, the RFA steps again under the profiler.
+    the first step of each rule held against the plain route.
     ``note`` (a depth cut) goes into the log lines; ``n_expected`` is the
     tree's parameter count (default ``cfg.param_count()``). Returns the
     launch totals and the run's state: ``params``, ``worker_m``,
@@ -2205,10 +2253,6 @@ def train_full_width(dev, smi, cfg, note: str = "", n_expected=None, runs=None,
                 agreement(f"train {agg}", worker_m, st["aggregator"], mix)
         if agg == "rfa":
             rfa_ms = statistics.median(steps_ms)
-            if profile:
-                profile_steps(lambda: one_step("rfa", step_fn, st["aggregator"]),
-                              f"train rfa {cfg.name} W{TRAIN_W} S{TRAIN_S} ({smi})",
-                              rfa_ms * 1e3, 1)
     log(f"train {cfg.name}{note}: host ms per step {', '.join(f'{t:.1f}' for t in steps_ms)} "
         f"(rfa median {rfa_ms:.1f}, {TRAIN_W * TRAIN_S / rfa_ms * 1e3:.0f} tokens/s); peak "
         f"device memory in a step {', '.join(f'{b / 1e9:.2f}' for b in peaks)} GB "
@@ -2621,8 +2665,8 @@ def timed_prefill(cfg, params, batch, label, launches, shape, dev):
 
 
 def serve_full(cfg, params, dev, smi, launches, label: str, reuse: bool = False):
-    """Phase 13's serving at full width: the prefill (B = 2 x ATTN_S) timed
-    and profiled, a MoE model's drop fraction; phase 8's 6-request
+    """Phase 13's serving at full width: the prefill (B = 2 x ATTN_S) timed,
+    a MoE model's drop fraction; phase 8's 6-request
     ``ServeEngine`` run, request 0 (and with ``reuse`` request 4, served
     after another in the same slot) equal to the greedy loop at the
     engine's width; 20 decode steps with 4 slots busy timed (5 more under the profiler)
@@ -2647,8 +2691,6 @@ def serve_full(cfg, params, dev, smi, launches, label: str, reuse: bool = False)
             f"{cfg.d_model}]; drop fraction a MoE layer "
             f"{float(aux['moe_drop_frac']) / n_moe:.4f} ({n_moe} MoE layers)")
         del aux
-    profile_steps(lambda: prefill(params, batch), f"{label}.prefill B2 S{S} ({smi})",
-                  statistics.median(times) * 1e3, 1, "prefill")
 
     rng = torch.Generator().manual_seed(3)
     lens = torch.randint(16, 97, (6,), generator=rng).tolist()
@@ -2778,7 +2820,7 @@ def ssm_phase(dev, smi):
     # (b) trained at full width and depth: every gradient folds into a
     # worker's momentum, so finite momenta mean finite gradients
     launches["ssm.train"], run = train_full_width(dev, smi, cfg, n_expected=SSM_PARAMS,
-                                                  runs=SSM_TRAIN_RUNS, profile=False)
+                                                  runs=SSM_TRAIN_RUNS)
     for name, tree in (("parameters", run["params"]), ("worker momenta", run["worker_m"])):
         bad = [i for i, t in enumerate(tree_flatten(tree)[0]) if not bool(torch.isfinite(t).all())]
         if bad:
@@ -3197,7 +3239,323 @@ def ssm_layer_check(results, smi: str) -> None:
             raise AssertionError(f"ssm layer {dtype}: {r['err']} off one device, above {bar}")
 
 
-def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_DIMS):
+def heads_layer_leaves(cfg, device, seed: int = 9):
+    """One attention layer's leaves at ``cfg``'s width (wq / wk / wv / wo
+    and, with ``qkv_bias``, bq / bk / bv), drawn on the card from a seed at
+    the init's scales (the biases at 0.02, where the init's zeros would
+    leave their gradients untested), in the model dtype."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(seed)
+    D, q, kv = cfg.d_model, cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
+    dtype = getattr(torch, cfg.dtype)
+
+    def randn(*shape, std):
+        return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+    leaves = {"wq": randn(D, q, std=D ** -0.5), "wk": randn(D, kv, std=D ** -0.5),
+              "wv": randn(D, kv, std=D ** -0.5), "wo": randn(q, D, std=q ** -0.5)}
+    if cfg.qkv_bias:
+        leaves.update(bq=randn(q, std=0.02), bk=randn(kv, std=0.02), bv=randn(kv, std=0.02))
+    return leaves
+
+
+def heads_layer_inputs(cfg, device):
+    """15(i)'s attention layer inputs from a seed: the stream ``x`` [B, S,
+    D] in the model dtype and the output's fp32 weights ``r``."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(8)
+    shape = (HEADS_LAYER_B, HEADS_LAYER_S, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=device).to(getattr(torch, cfg.dtype))
+    return x, torch.randn(shape, generator=gen, device=device)
+
+
+def heads_layer_run(p, cfg, x, r, axis):
+    """``attention`` of the layer leaves ``p`` on ``x`` (on the model axis
+    ``axis``, or one device), forward and backward of ``sum(out * r)``:
+    the output, the gradients of ``x`` and of each leaf (in ``p``'s
+    order) and the host ms."""
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+
+    names = list(p)
+    live = [x.clone().requires_grad_()] + [p[k].detach().requires_grad_() for k in names]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = attn_mod.attention(dict(zip(names, live[1:])), live[0], cfg, positions, ax=axis)
+    grads = torch.autograd.grad((out.float() * r).sum(), live)
+    torch.cuda.synchronize()
+    return out.detach(), grads, (time.perf_counter() - t0) * 1e3
+
+
+def heads_layer_rank(rank, group, device):
+    """15(i)'s qwen2.5-14b attention layer alone at its published width
+    (d_model 5,120, 40 heads and 8 kv heads of 128, QKV bias) on (data=1,
+    model=R), in fp32 and in bf16: each rank cuts its head block of
+    ``heads_layer_leaves`` by the compute plan (t = 8 blocks of 5 q heads
+    and one kv head, each held by R / 8 ranks), runs ``attention`` forward
+    and backward on ``HEADS_LAYER_B`` x ``HEADS_LAYER_S`` tokens against
+    ``sum(out * r)`` for a seeded ``r`` (one timed call), and returns: rank 0 the output and the stream's gradient (the same on
+    every rank), each replica 0 its blocks' gradients, every rank whether
+    its leaves' gradients are exact zeros (replicas other than 0 add
+    nothing), its head block, the bytes it holds against the whole layer's
+    and the host ms. The parent holds them against one device
+    (``heads_layer_check``)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import compute_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.parallel import ModelAxis
+
+    R = dist.get_world_size(group)
+    mesh = make_host_mesh(group, data=1, model=R)
+    res = {}
+    for dtype in HEADS_LAYER_RTOL:
+        cfg = dataclasses.replace(get_config(HEADS_LAYER_ARCH), n_layers=1, dtype=dtype)
+        plan = compute_shardings(cfg, tfm.params_shape(cfg), mesh)["blocks"]["0"]["mixer"]
+        ax = ModelAxis.of(cfg, mesh)
+        if not (ax.attn and ax.kv and ax.head_groups == HEADS_BLOCKS):
+            raise AssertionError(f"heads layer: {cfg.n_heads} / {cfg.n_kv_heads} heads on "
+                                 f"{R} ranks in {ax.head_groups} blocks, expected "
+                                 f"{HEADS_BLOCKS}")
+        whole = heads_layer_leaves(cfg, device)
+        block = {k: plan[k].local(v[None])[0] for k, v in whole.items()}
+        whole_bytes = sum(t.numel() * t.element_size() for t in whole.values())
+        del whole
+        x, r = heads_layer_inputs(cfg, device)
+        out, grads, ms = heads_layer_run(block, cfg, x, r, ax)
+        leaf_grads = dict(zip(block, grads[1:]))
+        res[dtype] = {"ms": ms, "block": ax.head_block, "replica": ax.replica,
+                      "held": sum(t.numel() * t.element_size() for t in block.values()),
+                      "whole": whole_bytes,
+                      "zeros": all(not bool(g.any()) for g in leaf_grads.values()),
+                      "width": f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads "
+                               f"of {cfg.head_dim_}"}
+        if not ax.replica:
+            res[dtype]["grads"] = {k: g.float().cpu() for k, g in leaf_grads.items()}
+        if rank == 0:
+            res[dtype].update(out=out.float().cpu(), input=grads[0].float().cpu())
+        del out, grads, leaf_grads, block, x, r
+        dist.barrier(group)
+        torch.cuda.empty_cache()
+    return res
+
+
+def heads_layer_one_device(dev):
+    """``heads_layer_rank``'s layer whole on one device, in each dtype: the
+    output, the stream's and every leaf's gradients (on the host) and the
+    host ms of the call."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    one = {}
+    for dtype in HEADS_LAYER_RTOL:
+        cfg = dataclasses.replace(get_config(HEADS_LAYER_ARCH), n_layers=1, dtype=dtype)
+        whole = heads_layer_leaves(cfg, dev)
+        x, r = heads_layer_inputs(cfg, dev)
+        out, grads, ms = heads_layer_run(whole, cfg, x, r, None)
+        one[dtype] = {"ms": ms, "out": out.float().cpu(), "input": grads[0].float().cpu(),
+                      "grads": {k: g.float().cpu() for k, g in zip(whole, grads[1:])}}
+        del whole, x, r, out, grads
+        torch.cuda.empty_cache()
+    return one
+
+
+def heads_layer_check(results, one, smi: str) -> None:
+    """15(i)'s attention layer (``heads_layer_rank``'s ``results`` of every
+    rank) against one device (``heads_layer_one_device``'s ``one``): in
+    each dtype the output, the stream's gradient and each leaf's gradient,
+    every head block's from its replica 0 (wq / wk / wv / bq / bk / bv by
+    their columns, wo by its rows), within ``HEADS_LAYER_RTOL`` of its
+    largest one-device magnitude (a NaN misses); every replica other than
+    0 with exact-zero leaf gradients, each of the HEADS_BLOCKS = 8 blocks
+    held by R / 8 ranks; a rank's bytes 1 / 8 of the layer's."""
+    import torch
+
+    R = len(results)
+    for dtype, bar in HEADS_LAYER_RTOL.items():
+        first, o = results[0][dtype], one[dtype]
+        blocks = [r[dtype]["block"] for r in results]
+        if blocks != [m // (R // HEADS_BLOCKS) for m in range(R)]:
+            raise AssertionError(f"heads layer {dtype}: head blocks {blocks}")
+        if not all(r[dtype]["zeros"] == bool(r[dtype]["replica"]) for r in results):
+            raise AssertionError(f"heads layer {dtype}: a replica's gradients are not zeros, "
+                                 f"or replica 0's are")
+        err = {name: float((torch.as_tensor(first[name]) - o[name]).abs().max()
+                           / o[name].abs().max()) for name in ("out", "input")}
+        for name, want in o["grads"].items():
+            dim = 0 if name == "wo" else want.dim() - 1
+            gaps = []
+            for r in results:
+                if r[dtype]["replica"]:
+                    continue
+                got = torch.as_tensor(r[dtype]["grads"][name])
+                w = got.shape[dim]
+                gaps.append(float((got - want.narrow(dim, r[dtype]["block"] * w, w)).abs().max()))
+            if len(gaps) != HEADS_BLOCKS:
+                raise AssertionError(f"heads layer {dtype}: {len(gaps)} head blocks of {name}")
+            err[name] = max(gaps) / float(want.abs().max())
+        share = {r[dtype]["held"] / r[dtype]["whole"] for r in results}
+        log(f"check heads layer {HEADS_LAYER_ARCH} attention layer alone ({first['width']}), "
+            f"{dtype}, {HEADS_LAYER_B} x {HEADS_LAYER_S} tokens, forward and backward on "
+            f"(data=1, model={R}), {HEADS_BLOCKS} head blocks of {R // HEADS_BLOCKS} ranks, "
+            f"against one device: max "
+            f"|mesh - one device| / max |one device| "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in err.items()})} (bar {bar}); "
+            f"replicas other than 0: exact-zero leaf gradients; a rank holds "
+            f"{first['held']:,} of {first['whole']:,} B of attention parameters "
+            f"({first['held'] / first['whole']:.4f}); host ms forward + backward a rank "
+            f"{min(r[dtype]['ms'] for r in results):.1f}-"
+            f"{max(r[dtype]['ms'] for r in results):.1f} (one device {o['ms']:.1f}, run beside "
+            f"the ranks) ({smi})")
+        if share != {1 / HEADS_BLOCKS}:
+            raise AssertionError(f"heads layer {dtype}: a rank holds {share} of the layer")
+        if not all(v <= bar for v in err.values()):
+            raise AssertionError(f"heads layer {dtype}: {err} off one device, above {bar}")
+
+
+def heads_batch(cfg, device):
+    """15(i)'s training batch: TRAIN_W sequences of TRAIN_S tokens in each of
+    ``cfg``'s codebooks, drawn from a seed, and their next-token labels."""
+    import torch
+
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_W, cfg.n_codebooks, TRAIN_S + 1),
+                         generator=torch.Generator().manual_seed(11)).to(device)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def heads_config():
+    """15(i)'s MusicGen-medium: HEADS_AUDIO_LAYERS deep, in fp32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(AUDIO_ARCH), n_layers=HEADS_AUDIO_LAYERS,
+                               dtype="float32")
+
+
+def heads_rank(rank, group, device, go, abort):
+    """Phase 15(i), in each rank of a group of HEADS_TP_RANKS: attention
+    whose heads the model axis does not divide, on (data=1, model=16), the
+    attention in 8 head blocks of 2 ranks. The rank imports the port and
+    makes its CUDA context and cuBLAS handle, then waits for the parent's
+    ``go`` (``start_heads``); ``abort`` set means an earlier phase failed.
+    Then qwen2.5-14b's attention layer alone (``heads_layer_rank``);
+    MusicGen-medium at its published width, HEADS_AUDIO_LAYERS deep in
+    fp32: (e)'s ``tp_rank`` with one RFA step (``HEADS_TP_RUNS``), its
+    one-device step left to the parent (``one_device=False``), and (f)'s
+    ``tps_rank`` with ``TPS_HEADS``. The seconds each took on this rank."""
+    import torch
+
+    import repro_torch.distributed.steps  # noqa: F401  (imported before the wait)
+    import repro_torch.serving  # noqa: F401
+
+    x = torch.ones((8, 8), device=device)
+    float((x @ x).sum())  # the CUDA context and cuBLAS handle, before the wait
+    go.wait()
+    if abort.is_set():
+        raise RuntimeError("phase 15(i) called off: an earlier phase failed")
+    cfg = heads_config()
+    out, seconds = {}, {}
+    for part, run in (("layer", lambda: heads_layer_rank(rank, group, device)),
+                      ("train", lambda: tp_rank(rank, group, device, cfg,
+                                                heads_batch(cfg, device), rules=HEADS_TP_RUNS,
+                                                split_dims=TP_AUDIO_DIMS, one_device=False)),
+                      ("serve", lambda: tps_rank(rank, group, device, TPS_HEADS))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        seconds[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = seconds
+    return out
+
+
+def start_heads():
+    """Starts phase 15(i)'s group ahead of phase 15: HEADS_TP_RANKS gloo
+    ranks on the card (``heads_rank``) that start up beside phase 15's
+    ranks and wait for ``go``. Returns ``(pool, future, go, abort)`` for
+    ``heads_phase`` and ``stop_heads``."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # as mesh_phase's ranks
+    ctx = multiprocessing.get_context("spawn")
+    go, abort = ctx.Event(), ctx.Event()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    started = pool.submit(spawn_ranks, heads_rank, HEADS_TP_RANKS, backend="gloo",
+                          devices=["cuda:0"] * HEADS_TP_RANKS, args=(go, abort),
+                          timeout_s=1500)
+    return pool, started, go, abort
+
+
+def stop_heads(heads) -> None:
+    """Releases ``start_heads``' ranks (called off where ``heads_phase`` has
+    not run) and waits for their processes to end."""
+    pool, _, go, abort = heads
+    abort.set()
+    go.set()
+    pool.shutdown(wait=True)
+
+
+def heads_phase(dev, smi, heads):
+    """Phase 15(i): sets ``go`` for ``start_heads``' ranks (``heads_rank``)
+    and, while they run, computes the one-device references (the attention
+    layer, the RFA step from the same seeded init, batch and mix, the
+    prefill and greedy decode); then the holds: ``heads_layer_check``,
+    ``tp_check`` with the bars of ``TP_BARS["heads.tp"]`` (each rank's
+    peak below one device's) and ``tps_check``. Returns the launch counts
+    by path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+
+    launches = {}
+    cfg = heads_config()
+    _, started, go, _ = heads
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    go.set()
+    layer_one = heads_layer_one_device(dev)
+    train_one = tp_one_device(cfg, heads_batch(cfg, dev), HEADS_TP_RUNS, dev)
+    serve_one = tps_one_device(dev, TPS_HEADS)
+    t_one = time.perf_counter() - t0
+    ranks = started.result()
+    log(f"heads phase (i): {HEADS_TP_RANKS} ranks, started before phase 15, ran in "
+        f"{time.perf_counter() - t0:.1f} s after the go; the one-device references beside "
+        f"them {t_one:.1f} s; in the ranks (rank 0), s a part: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
+    torch.cuda.empty_cache()
+    heads_layer_check([r["layer"] for r in ranks], layer_one, smi)
+    runs = [r["train"]["runs"] for r in ranks]
+    for run, one, mesh in zip(runs[0], train_one, ranks[0]["train"]["mesh"]):
+        tp_merge(run, one, mesh["agg"], mesh["routes"])
+    tp_check(launches, "heads.tp", f"{AUDIO_ARCH} ({HEADS_AUDIO_LAYERS} of "
+             f"{get_config(AUDIO_ARCH).n_layers} layers, float32, {cfg.param_count():,} "
+             f"parameters, {cfg.n_heads} heads in {HEADS_BLOCKS} blocks)", runs, HEADS_TP_RUNS, smi)
+    launches["heads.serve_tp"] = {k: sum(r["serve"]["counts"][k] for r in ranks)
+                                  for k in LAUNCHES}
+    if any(launches["heads.serve_tp"].values()):
+        raise AssertionError(f"heads serve tp: kernels launched {launches['heads.serve_tp']}")
+    tps_check(dev, smi, [r["serve"] for r in ranks], TPS_HEADS, one=serve_one)
+    return launches
+
+
+def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_DIMS,
+            one_device=True):
     """Phase 15(e), in each rank of (a)'s group: (a)'s gemma-7b on the
     (data=1, model=4) mesh, where the training forward and backward run on
     this rank's compute blocks (4 of 16 heads, 4 of 16 kv heads, d_ff
@@ -3208,11 +3566,12 @@ def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_
     split dim, or ``(dim, width)`` for a segmented dim), the exact
     launches, the loss,
     host ms and the peak at the end of the forward and backward; (a)'s
-    ``plain_sync_check``; the aggregate gathered whole. Then rank 0 alone
-    (the others have returned) runs the same step with ``mesh=None`` on
-    the gathered parameters, batch and mix: its loss, its aggregate, the
-    largest norm of the rows it synced and its peak at the end of the
-    forward and backward."""
+    ``plain_sync_check``; the aggregate gathered whole. The mesh is
+    (data=1, model=R) over the group's R ranks. Then, where
+    ``one_device``, rank 0 alone (the others have returned) runs the same
+    step with ``mesh=None`` from the same seeded init, batch and mix
+    (``tp_one_device``); else rank 0 returns the aggregate and routes for
+    the caller to hold against its own (``tp_merge``)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3223,11 +3582,10 @@ def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
     from repro_torch.telemetry import phase_times
-    from repro_torch.utils.tree import (tree_flatten, tree_flatten_with_path, tree_map,
-                                        tree_unflatten)
+    from repro_torch.utils.tree import tree_flatten, tree_flatten_with_path
 
-    mesh = make_host_mesh(group, data=1, model=SYNC_RANKS)
-    T = SYNC_RANKS
+    T = dist.get_world_size(group)
+    mesh = make_host_mesh(group, data=1, model=T)
     runs, kept = [], []
     sync, pack, unpack, row_out = (steps.robust_gradient_sync, packing.pack_from_shardings,
                                    packing.unpack_to_shardings, packing.reshard_out)
@@ -3249,8 +3607,6 @@ def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_
             blocks[path] = shape
         params = st["init_params"](torch.Generator(device).manual_seed(0))
         opt_state, worker_m = st["init_opt_state"](params), st["init_worker_m"](params)
-        treedef = tree_flatten(params)[1]
-        whole = host_leaves(params, sh["params"], rank == 0)
         mix = st["aggregator"].mixing_matrix(TRAIN_W, torch.Generator().manual_seed(40 + i),
                                              device=device)
         cap = {}
@@ -3314,19 +3670,47 @@ def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_
         runs.append(dict(agg=agg, loss=loss, ms=wall, counts=counts, peak=peak,
                          fb_peak=fb_peak, check=check, blocks=blocks if i == 0 else None,
                          phase_ms=dict(pt)))
-        kept.append((agg, whole, mix.cpu(), agg_whole, routes))
-        del params, opt_state, worker_m, metrics, whole, agg_whole
+        kept.append((agg_whole, routes))
+        del params, opt_state, worker_m, metrics, agg_whole
         torch.cuda.empty_cache()
     dist.barrier(group)
     if rank:
         return dict(runs=runs)
+    if not one_device:
+        return dict(runs=runs, mesh=[dict(agg=agg_whole, routes=routes)
+                                     for agg_whole, routes in kept])
     # rank 0: the same steps on one device
-    for run, (agg, whole, mix, agg_mesh, mesh_routes) in zip(runs, kept):
+    for run, one, (agg_mesh, mesh_routes) in zip(runs, tp_one_device(cfg, batch, rules, device),
+                                                  kept):
+        tp_merge(run, one, agg_mesh, mesh_routes)
+    return dict(runs=runs)
+
+
+def tp_one_device(cfg, batch, rules, device):
+    """``tp_rank``'s steps on one device: for each rule of ``rules`` the step
+    with ``mesh=None`` on ``batch`` and the same mix, from the seeded init
+    the ranks cut their blocks from (the same whole draw): its loss,
+    launches, aggregate (on the host), the largest norm of the rows it
+    synced, its peak at the end of the forward and backward and its
+    routes."""
+    import torch
+
+    from repro_torch.configs.base import ByzConfig
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import moe
+    from repro_torch.telemetry import phase_times
+    from repro_torch.utils.tree import tree_flatten, tree_map
+
+    sync, out = steps.robust_gradient_sync, []
+    for i, agg in enumerate(rules):
         byz = ByzConfig(aggregator=agg, mixing="bucketing", s=2)
         step_fn, st = steps.make_train_step(cfg, byz, lr=TRAIN_LR, n_workers=TRAIN_W,
                                             device=device)
-        params = tree_unflatten(treedef, [t.to(device) for t in whole])
+        params = st["init_params"](torch.Generator(device).manual_seed(0))
         opt_state, worker_m = st["init_opt_state"](params), st["init_worker_m"](params)
+        mix = st["aggregator"].mixing_matrix(TRAIN_W, torch.Generator().manual_seed(40 + i),
+                                             device=device)
         seen = {}
 
         def keep(messages, *a, **kw):
@@ -3334,9 +3718,9 @@ def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_
             sq = [sum(float(torch.linalg.vector_norm(x[w], dtype=torch.float32)) ** 2
                       for x in leaves) for w in range(TRAIN_W)]
             seen["row_norm"] = max(sq) ** 0.5
-            out = sync(messages, *a, **kw)
-            seen["agg"] = tree_map(lambda t: t.cpu(), out[0])
-            return out
+            res = sync(messages, *a, **kw)
+            seen["agg"] = tree_map(lambda t: t.cpu(), res[0])
+            return res
 
         steps.robust_gradient_sync = keep
         torch.cuda.synchronize()
@@ -3344,22 +3728,32 @@ def tp_rank(rank, group, device, cfg, batch, rules=TP_RUNS, split_dims=TP_GEMMA_
         reset_launches()
         try:
             with phase_times() as pt, moe.recorded_routes() as routes:
-                params, opt_state, _, metrics = step_fn(params, opt_state, worker_m,
-                                                        mix.to(device), batch)
+                params, opt_state, _, metrics = step_fn(params, opt_state, worker_m, mix, batch)
             torch.cuda.synchronize()
         finally:
             steps.robust_gradient_sync = sync
-        routes = on_host(routes)
-        d2 = sum(torch.sum(torch.square(a.float() - b.float()))
-                 for a, b in zip(agg_mesh, tree_flatten(seen["agg"])[0]))
-        run.update(one_loss=float(metrics["loss"]), one_counts=dict(LAUNCHES),
-                   agg_err=float(torch.sqrt(d2)) / seen["row_norm"],
-                   row_norm=seen["row_norm"], one_fb_peak=pt.peaks["forward_backward"],
-                   routed=routed_otherwise(mesh_routes, routes) + (
-                       sum(int(idx.numel()) for idx, _ in routes),))
+        out.append(dict(loss=float(metrics["loss"]), counts=dict(LAUNCHES),
+                        agg=tree_flatten(seen["agg"])[0], row_norm=seen["row_norm"],
+                        fb_peak=pt.peaks["forward_backward"], routes=on_host(routes)))
         del params, opt_state, worker_m, metrics, seen
         torch.cuda.empty_cache()
-    return dict(runs=runs)
+    return out
+
+
+def tp_merge(run, one, agg_mesh, mesh_routes) -> None:
+    """``run`` (a rank's step of ``tp_rank``) given the one-device step
+    ``one`` (``tp_one_device``'s): its loss, launches, the gap of the mesh
+    aggregate ``agg_mesh`` (whole leaves) over the largest row norm, its
+    peak, and the assignments ``mesh_routes`` routed otherwise."""
+    import torch
+
+    d2 = sum(torch.sum(torch.square(torch.as_tensor(a).float() - b.float()))
+             for a, b in zip(agg_mesh, one["agg"]))
+    run.update(one_loss=one["loss"], one_counts=one["counts"],
+               agg_err=float(torch.sqrt(d2)) / one["row_norm"], row_norm=one["row_norm"],
+               one_fb_peak=one["fb_peak"],
+               routed=routed_otherwise(mesh_routes, one["routes"]) + (
+                   sum(int(idx.numel()) for idx, _ in one["routes"]),))
 
 
 def seeded_params(cfg, device, mesh=None, seed: int = 0):
@@ -3428,18 +3822,22 @@ def routed_otherwise(routes, want) -> tuple[int, int]:
     return other, kept
 
 
-def tps_inputs(vocab: int, spec):
-    """Phase 15(f)'s tokens from a seed: the prefill's, the greedy decode's
+def tps_inputs(cfg, spec):
+    """Phase 15(f)'s tokens of ``cfg``'s vocab from a seed (each row's K
+    codebooks for a codebook model): the prefill's, the greedy decode's
     prompt (its first ``spec["prompt"]`` tokens where given), the seeded
     4-row step's and the one-row step's."""
     import torch
 
+    vocab, books = cfg.vocab_size, ((cfg.n_codebooks,) if cfg.n_codebooks else ())
     gen = torch.Generator().manual_seed(41)
-    out = {"prefill": torch.randint(0, vocab, TPS_PREFILL, generator=gen),
-           "prompt": torch.randint(0, vocab, (4, MESH_DECODE_PROMPT), generator=gen),
-           "rows": torch.randint(0, vocab, (4,), generator=gen),
-           "row": torch.randint(0, vocab, (1,), generator=gen)}
-    out["prompt"] = out["prompt"][:, :spec["prompt"]]
+    out = {"prefill": torch.randint(0, vocab, TPS_PREFILL[:1] + books + TPS_PREFILL[1:],
+                                    generator=gen),
+           "prompt": torch.randint(0, vocab, (4,) + books + (MESH_DECODE_PROMPT,),
+                                   generator=gen),
+           "rows": torch.randint(0, vocab, (4,) + books, generator=gen),
+           "row": torch.randint(0, vocab, (1,) + books, generator=gen)}
+    out["prompt"] = out["prompt"][..., :spec["prompt"]]
     return out
 
 
@@ -3452,9 +3850,10 @@ def one_device_decode(cfg):
 
 
 def greedy_logits(serve, params, cache, prompt, n_new, gather=None, every_prompt=False):
-    """Greedy decode of the global ``prompt`` rows through ``serve(params,
-    cache, token, position)`` (``gather`` puts a batch-sharded step's
-    logits together): the chosen tokens ``[B, n_new]``, the logits at the
+    """Greedy decode of the global ``prompt`` rows (``[B, S]``, or ``[B, K,
+    S]`` for codebooks) through ``serve(params, cache, token, position)``
+    (``gather`` puts a batch-sharded step's logits together): the chosen
+    tokens ``[B, n_new]`` (``[B, n_new, K]``), the logits at the
     prompt's last position and at the last step (host; with
     ``every_prompt`` a third entry, the logits of every prompt position
     ``[S, B, ...]``), and the host ms of the steps after the prompt's
@@ -3462,13 +3861,13 @@ def greedy_logits(serve, params, cache, prompt, n_new, gather=None, every_prompt
     import torch
 
     toks, kept, prompt_logits = [], [], []
-    S = prompt.shape[1]
+    S = prompt.shape[-1]
     t0 = time.perf_counter()
     for pos in range(S + n_new - 1):
         if pos == S:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        tok = prompt[:, pos] if pos < S else toks[-1]
+        tok = prompt[..., pos] if pos < S else toks[-1]
         logits, cache = serve(params, cache, tok, pos)
         logits = logits if gather is None else gather(logits)
         if pos >= S - 1:
@@ -3489,9 +3888,11 @@ def tps_rank(rank, group, device, spec):
     published width on each rank's compute blocks (4 / T of 16 heads and kv
     heads, d_ff and vocab over T; ``models/parallel.py``); 15(g) serves
     OLMoE so (64 / T experts a rank), 15(h) Mamba2 (24 / T of its SSM
-    heads). ``spec`` (``TPS_GEMMA``, ``TPS_MOE``, ``TPS_SSM``) names the
-    arch and the depths. At ``spec["layers"]`` deep, in fp32 and in bf16:
-    on (data=1, model=4) the prefill's last-position logits (and each MoE
+    heads), 15(i) MusicGen (24 heads in 8 blocks of 2 ranks on (1, 16)).
+    ``spec`` (``TPS_GEMMA``, ``TPS_MOE``, ``TPS_SSM``, ``TPS_HEADS``) names
+    the arch and the depths. At ``spec["layers"]`` deep, in each dtype of
+    ``spec["dtypes"]``: on (data=1, model=R) over the group's R ranks the
+    prefill's last-position logits (and each MoE
     layer's routing) and a greedy decode of 4 slots, ``spec["new"]``
     tokens after the first ``spec["prompt"]`` tokens of the prompt, and,
     where ``spec["one_row"]``, one step on a one-row ATTN_S cache
@@ -3499,7 +3900,7 @@ def tps_rank(rank, group, device, spec):
     batch-sharded step on a seeded 4-row cache and, where
     ``spec["one_row"]``, one step on the one-row cache (positions over
     data, kv heads over model). Then, unless ``spec["full"]`` is 0, one
-    bf16 run at ``spec["full"]`` layers on (1, 4): prefill ms, decode ms
+    bf16 run at ``spec["full"]`` layers on (1, R): prefill ms, decode ms
     a token, the peak. Each rank checks that it holds exactly the plan's
     blocks."""
     import math
@@ -3516,13 +3917,13 @@ def tps_rank(rank, group, device, spec):
     from repro_torch.models import transformer as tfm
     from repro_torch.utils.tree import tree_flatten, tree_flatten_with_path, tree_map
 
-    arch, n_new = spec["arch"], spec["new"]
-    meshes = {(1, SYNC_RANKS): make_host_mesh(group, data=1, model=SYNC_RANKS)}
+    arch, n_new, R = spec["arch"], spec["new"], dist.get_world_size(group)
+    meshes = {(1, R): make_host_mesh(group, data=1, model=R)}
     if spec["rows"] or spec["one_row"]:
         meshes[(2, 2)] = make_host_mesh(group, data=2, model=2)
     T = {shape: shape[1] for shape in meshes}
-    vocab = tps_config("float32", 1, arch).vocab_size
-    inputs = {k: v.to(device) for k, v in tps_inputs(vocab, spec).items()}
+    inputs = {k: v.to(device)
+              for k, v in tps_inputs(tps_config("float32", 1, arch), spec).items()}
 
     def blocks(cfg, mesh):
         """This rank's blocks, asserted to be the plan's and nothing more;
@@ -3554,7 +3955,7 @@ def tps_rank(rank, group, device, spec):
     torch.cuda.synchronize()
     reset_launches()
     out = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in spec["dtypes"]:
         cfg = tps_config(dtype, spec["layers"], arch)
         res = out[dtype] = {"held": {}}
         for shape, mesh in meshes.items():
@@ -3575,7 +3976,7 @@ def tps_rank(rank, group, device, spec):
                         serve, params, local_zeros(cache_spec, pls, device), inputs["prompt"],
                         n_new, every_prompt=spec["pooled"])
                 res["greedy_routes"] = on_host(
-                    routes[:moe_layers(cfg) * inputs["prompt"].shape[1]])
+                    routes[:moe_layers(cfg) * inputs["prompt"].shape[-1]])
                 first = pls["0"]  # a KV cache's k, or an SSM layer's conv ring and state
                 res["greedy_spec"] = first["k"].spec if "k" in first else {
                     k: pl.spec for k, pl in first.items()}
@@ -3589,8 +3990,8 @@ def tps_rank(rank, group, device, spec):
     out["T"], out["counts"] = T, dict(LAUNCHES)
     if not spec["full"]:
         return out
-    # one bf16 run at full depth on (1, 4)
-    mesh = meshes[(1, SYNC_RANKS)]
+    # one bf16 run at full depth on (1, R)
+    mesh = meshes[(1, R)]
     cfg = tps_config("bfloat16", spec["full"], arch)
     params, held, experts = blocks(cfg, mesh)
     torch.cuda.synchronize()
@@ -3613,41 +4014,24 @@ def tps_rank(rank, group, device, spec):
     return out
 
 
-def tps_check(dev, smi: str, tps, spec) -> None:
-    """Phase 15(f) (and 15(g)'s and (h)'s: ``spec`` as ``tps_rank``'s)
-    against one device: the same seeded parameters whole on the card
-    through ``make_prefill_step`` and ``decode_step``. Every rank's outputs
-    the same bits; in fp32 the greedy tokens equal and every logit within
-    ``spec["tol"]``; in bf16 each output no further from the fp32
-    one-device logits than ``SEQ_BF16_RATIO`` x the one-device bf16 run's;
-    a MoE prefill's assignments routed otherwise than one device's
-    printed; at full depth the prefill and decode times and the peak a
-    rank beside one device's."""
-    import numpy as np
+def tps_one_device(dev, spec):
+    """``tps_check``'s one-device side of ``spec`` (as ``tps_rank``'s): the
+    same seeded parameters whole on the card through ``make_prefill_step``
+    and ``decode_step``, in each dtype of ``spec["dtypes"]``: the whole
+    bytes, the prefill's last-position logits and routes, the greedy
+    decode's tokens and logits, the seeded steps' logits and the host
+    ms."""
     import torch
 
     from repro_torch.distributed.steps import make_prefill_step
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
 
-    label, arch, layers = spec["label"], spec["arch"], spec["layers"]
-    n_new, tol, four = spec["new"], spec["tol"], spec["rows"]
-    rows_1 = [f"row_{(1, SYNC_RANKS)}", "row_(2, 2)"] if spec["one_row"] else []
-    first = tps[0]
-    for rank, r in enumerate(tps):
-        for key in ("float32", "bfloat16"):
-            for item in ["prefill", "tokens"] + ["rows"] * four + rows_1:
-                a, b = r[key][item], first[key][item]
-                a, b = (a[0], b[0]) if isinstance(a, tuple) else (a, b)
-                if not np_same_bits(np.asarray(a), np.asarray(b)):
-                    raise AssertionError(f"{label} rank {rank}: {key} {item} differs from "
-                                         "rank 0's")
-    inputs = {k: v.to(dev) for k, v in
-              tps_inputs(tps_config("float32", 1, arch).vocab_size, spec).items()}
-
+    arch, four = spec["arch"], spec["rows"]
+    inputs = {k: v.to(dev) for k, v in tps_inputs(tps_config("float32", 1, arch), spec).items()}
     one = {}
-    for dtype in ("float32", "bfloat16"):
-        cfg = tps_config(dtype, layers, arch)
+    for dtype in spec["dtypes"]:
+        cfg = tps_config(dtype, spec["layers"], arch)
         params = seeded_params(cfg, dev)
         o = one[dtype] = {"whole": nbytes(params)}
         torch.cuda.synchronize()
@@ -3661,8 +4045,8 @@ def tps_check(dev, smi: str, tps, spec) -> None:
             o["tokens"], o["greedy"], o["decode_ms"] = greedy_logits(
                 one_device_decode(cfg), params,
                 tfm.init_cache(cfg, 4, MESH_DECODE_CACHE, device=dev),
-                inputs["prompt"], n_new, every_prompt=spec["pooled"])
-        o["greedy_routes"] = on_host(routes[:moe_layers(cfg) * inputs["prompt"].shape[1]])
+                inputs["prompt"], spec["new"], every_prompt=spec["pooled"])
+        o["greedy_routes"] = on_host(routes[:moe_layers(cfg) * inputs["prompt"].shape[-1]])
         for key, rows, length in (("rows", 4, MESH_DECODE_CACHE), ("row", 1, ATTN_S)):
             if (key == "row" and not spec["one_row"]) or (key == "rows" and not four):
                 continue
@@ -3671,18 +4055,52 @@ def tps_check(dev, smi: str, tps, spec) -> None:
             del cache
         del params
         torch.cuda.empty_cache()
+    return one
+
+
+def tps_check(dev, smi: str, tps, spec, one=None) -> None:
+    """Phase 15(f) (and 15(g)'s, (h)'s and (i)'s: ``spec`` as ``tps_rank``'s)
+    against one device (``tps_one_device``, or its result ``one``). Every
+    rank's outputs the same bits; in fp32 the greedy tokens equal and every
+    logit within ``spec["tol"]``; in bf16, where ``spec["dtypes"]`` has
+    it, each output no further from the fp32 one-device logits than
+    ``SEQ_BF16_RATIO`` x the one-device bf16 run's; a MoE prefill's
+    assignments routed otherwise than one device's printed; at full depth
+    the prefill and decode times and the peak a rank beside one
+    device's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+
+    label, arch, layers = spec["label"], spec["arch"], spec["layers"]
+    n_new, tol, four, dtypes = spec["new"], spec["tol"], spec["rows"], spec["dtypes"]
+    R = len(tps)
+    rows_1 = [f"row_{(1, R)}", "row_(2, 2)"] if spec["one_row"] else []
+    first = tps[0]
+    for rank, r in enumerate(tps):
+        for key in dtypes:
+            for item in ["prefill", "tokens"] + ["rows"] * four + rows_1:
+                a, b = r[key][item], first[key][item]
+                a, b = (a[0], b[0]) if isinstance(a, tuple) else (a, b)
+                if not np_same_bits(np.asarray(a), np.asarray(b)):
+                    raise AssertionError(f"{label} rank {rank}: {key} {item} differs from "
+                                         "rank 0's")
+    inputs = {k: v.to(dev) for k, v in tps_inputs(tps_config("float32", 1, arch), spec).items()}
+    one = one or tps_one_device(dev, spec)
 
     def pairs(key):
         """(label, mesh output, one-device output) of every held output."""
         m, o = first[key], one[key]
-        held = [("prefill (1, 4)", m["prefill"], o["prefill"]),
-                ("greedy (1, 4), last prompt position", m["greedy"][0], o["greedy"][0])]
+        held = [(f"prefill (1, {R})", m["prefill"], o["prefill"]),
+                (f"greedy (1, {R}), last prompt position", m["greedy"][0], o["greedy"][0])]
         if four:
             held.append(("4-row step (2, 2)", m["rows"], o["rows"]))
         else:  # the last greedy step's logits
-            held.append(("greedy (1, 4), last step", m["greedy"][1], o["greedy"][1]))
+            held.append((f"greedy (1, {R}), last step", m["greedy"][1], o["greedy"][1]))
         if spec["one_row"]:
-            held += [("1-row step (1, 4)", m[f"row_{(1, SYNC_RANKS)}"][0], o["row"]),
+            held += [(f"1-row step (1, {R})", m[f"row_{(1, R)}"][0], o["row"]),
                      ("1-row step (2, 2)", m["row_(2, 2)"][0], o["row"])]
         return [(name, torch.as_tensor(a), b) for name, a, b in held]
 
@@ -3694,13 +4112,19 @@ def tps_check(dev, smi: str, tps, spec) -> None:
         fp32[name] = float((m - o).abs().max())
         if not fp32[name] <= tol:
             raise AssertionError(f"{label} fp32 {name}: max |mesh - one device| {fp32[name]}")
-    bf16 = {}
-    for (name, m, o), (_, _, o32) in zip(pairs("bfloat16"), pairs("float32")):
-        bf16[name] = (float((m - o32).abs().max()), float((o - o32).abs().max()))
-        if not bf16[name][0] <= SEQ_BF16_RATIO * bf16[name][1]:
-            raise AssertionError(f"{label} bf16 {name}: {bf16[name][0]} off fp32, above "
-                                 f"{SEQ_BF16_RATIO} x the one device's {bf16[name][1]}")
-    pooled = ""
+    bf16, pooled, agree16 = {}, "", ""
+    if "bfloat16" in dtypes:
+        for (name, m, o), (_, _, o32) in zip(pairs("bfloat16"), pairs("float32")):
+            bf16[name] = (float((m - o32).abs().max()), float((o - o32).abs().max()))
+            if not bf16[name][0] <= SEQ_BF16_RATIO * bf16[name][1]:
+                raise AssertionError(f"{label} bf16 {name}: {bf16[name][0]} off fp32, above "
+                                     f"{SEQ_BF16_RATIO} x the one device's {bf16[name][1]}")
+        agree = float(np.mean(first["bfloat16"]["tokens"] == one["bfloat16"]["tokens"].numpy()))
+        agree16 = (f"; bf16 max |x - fp32 one device| (mesh, one device) "
+                   f"{json.dumps({k: [float(f'{x:.3g}') for x in v] for k, v in bf16.items()})}"
+                   f" (bar {SEQ_BF16_RATIO} x one device's"
+                   f"{', and pooled' if spec['pooled'] else ''}); bf16 greedy tokens agreeing "
+                   f"with one device's {agree:.3f}")
     if spec["pooled"]:  # and the mean over every held row of its max |x - fp32 one device|
         def row_dist(a, b):
             return (torch.as_tensor(a) - b).abs().reshape(-1, a.shape[-1]).amax(-1)
@@ -3723,8 +4147,7 @@ def tps_check(dev, smi: str, tps, spec) -> None:
             raise AssertionError(f"{label} bf16: mean row distance from fp32 "
                                  f"{float(dm.mean())} above {SEQ_BF16_RATIO} x the one "
                                  f"device's {float(do.mean())}")
-    agree = float(np.mean(first["bfloat16"]["tokens"] == one["bfloat16"]["tokens"].numpy()))
-    held = {k: [r[k]["held"] for r in tps] for k in ("float32", "bfloat16")}
+    held = {k: [r[k]["held"] for r in tps] for k in dtypes}
     two = {k: f" / {held[k][0][(2, 2)]:,}" if (2, 2) in held[k][0] else ""
            for k in held}
     routing = ""
@@ -3736,33 +4159,29 @@ def tps_check(dev, smi: str, tps, spec) -> None:
                    f"device's, of {n:,}: fp32 {other['float32'][0]}, bf16 "
                    f"{other['bfloat16'][0]} (kept counts differing by {other['float32'][1]} / "
                    f"{other['bfloat16'][1]})")
-    one_row = (f", 1 row (1, 4) {first['float32'][f'row_{(1, SYNC_RANKS)}'][1]}, (2, 2) "
+    one_row = (f", 1 row (1, {R}) {first['float32'][f'row_{(1, R)}'][1]}, (2, 2) "
                f"{first['float32']['row_(2, 2)'][1]}" if spec["one_row"] else "")
     rows_spec = f", 4 rows {first['float32']['rows_spec']}" if four else ""
-    log(f"check {label} {arch} ({layers} layers) served on compute blocks, 4 gloo "
-        f"ranks on one card, every rank the same bits; bytes a rank (1, 4)"
-        f"{' / (2, 2)' if two['float32'] else ''}: fp32 "
-        f"{held['float32'][0][(1, SYNC_RANKS)]:,}{two['float32']}, bf16 "
-        f"{held['bfloat16'][0][(1, SYNC_RANKS)]:,}{two['bfloat16']} (the plan's "
-        f"blocks, asserted in each rank; "
-        f"{held['float32'][0][(1, SYNC_RANKS)] / one['float32']['whole']:.4f} of the whole "
-        f"{one['float32']['whole']:,} B on (1, 4)); caches: greedy "
-        f"{first['float32']['greedy_spec']}{rows_spec}{one_row}; fp32: {n_new} greedy tokens "
-        f"of 4 slots equal one device's, max |mesh - one device| "
-        f"{json.dumps({k: float(f'{v:.3g}') for k, v in fp32.items()})} (bar {tol}); "
-        f"bf16 max |x - fp32 one device| (mesh, one device) "
-        f"{json.dumps({k: [float(f'{x:.3g}') for x in v] for k, v in bf16.items()})} (bar "
-        f"{SEQ_BF16_RATIO} x one device's{', and pooled' if spec['pooled'] else ''}); bf16 "
-        f"greedy tokens agreeing with one device's {agree:.3f}{pooled}{routing}")
-    log(f"{label} {arch} ({layers} layers) on (data=1, model=4): prefill B = "
-        f"{TPS_PREFILL[0]} x {TPS_PREFILL[1]} host ms fp32 / bf16 "
-        f"{', '.join(f'{r['float32']['prefill_ms']:.1f}' for r in tps)} / "
-        f"{', '.join(f'{r['bfloat16']['prefill_ms']:.1f}' for r in tps)} (one device "
-        f"{one['float32']['prefill_ms']:.1f} / {one['bfloat16']['prefill_ms']:.1f}); decode of 4 "
-        f"slots, ms a token after the prompt "
-        f"{', '.join(f'{r['float32']['decode_ms']:.1f}' for r in tps)} / "
-        f"{', '.join(f'{r['bfloat16']['decode_ms']:.1f}' for r in tps)} (one device "
-        f"{one['float32']['decode_ms']:.1f} / {one['bfloat16']['decode_ms']:.1f}) ({smi})")
+    whole = one["float32"]["whole"]
+    log(f"check {label} {arch} ({layers} layers) served on compute blocks, {R} gloo "
+        f"ranks on one card, every rank the same bits; bytes a rank (1, {R})"
+        f"{' / (2, 2)' if two['float32'] else ''}: "
+        + ", ".join(f"{'fp32' if k == 'float32' else 'bf16'} {held[k][0][(1, R)]:,}{two[k]}"
+                    for k in dtypes)
+        + f" (the plan's blocks, asserted in each rank; "
+        f"{held['float32'][0][(1, R)] / whole:.4f} of the whole {whole:,} B on (1, {R})); "
+        f"caches: greedy {first['float32']['greedy_spec']}{rows_spec}{one_row}; fp32: {n_new} "
+        f"greedy tokens of 4 slots equal one device's, max |mesh - one device| "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in fp32.items()})} (bar {tol})"
+        f"{agree16}{pooled}{routing}")
+    log(f"{label} {arch} ({layers} layers) on (data=1, model={R}): prefill B = "
+        f"{TPS_PREFILL[0]} x {TPS_PREFILL[1]} host ms "
+        + " / ".join(", ".join(f"{r[k]['prefill_ms']:.1f}" for r in tps) for k in dtypes)
+        + " (one device " + " / ".join(f"{one[k]['prefill_ms']:.1f}" for k in dtypes)
+        + "); decode of 4 slots, ms a token after the prompt "
+        + " / ".join(", ".join(f"{r[k]['decode_ms']:.1f}" for r in tps) for k in dtypes)
+        + " (one device " + " / ".join(f"{one[k]['decode_ms']:.1f}" for k in dtypes)
+        + f") ({' / '.join(dtypes)}) ({smi})")
     if not spec["full"]:
         return
     # the full-depth bf16 run on one device
@@ -3794,7 +4213,7 @@ def tps_check(dev, smi: str, tps, spec) -> None:
     experts = (f" ({', '.join(f'{f['experts']:,}' for f in full)} B of experts)"
                if full[0]["experts"] else "")
     log(f"{label} {arch} at full depth ({spec['full']} layers, bf16, {whole:,} B whole) on "
-        f"(data=1, model=4), 4 gloo ranks on one card: each rank holds "
+        f"(data=1, model={R}), {R} gloo ranks on one card: each rank holds "
         f"{', '.join(f'{f['held']:,}' for f in full)} B{experts} "
         f"({full[0]['held'] / whole:.4f} of the whole); peak a rank "
         f"{', '.join(f'{f['peak'] / 1e9:.2f}' for f in full)} GB against one device's "
@@ -4021,7 +4440,7 @@ def serve_mesh_rank(rank, group, device, payload):
     out["batch_spec"] = pls["0"]["k"].spec
     t0 = time.perf_counter()
     out["batch_tokens"] = greedy(serve, params, local_zeros(spec, pls, device), prompt,
-                                 DECODE_STEPS)
+                                 MESH_DECODE_STEPS)
     torch.cuda.synchronize()
     out["batch_ms"] = (time.perf_counter() - t0) * 1e3
     # one step on a seeded cache, in bf16 and in fp32
@@ -4081,10 +4500,10 @@ def tp_check(launches, key: str, name: str, tp, rules, smi: str, peak_bar=None) 
     ``launches[key + "_train"]`` and ``[key + "_one_device"]``."""
     from repro_torch.kernels import LAUNCHES
 
-    bars = TP_BARS[key]
+    bars, T = TP_BARS[key], len(tp)
     launches[f"{key}_train"] = {k: 0 for k in LAUNCHES}
     launches[f"{key}_one_device"] = {k: 0 for k in LAUNCHES}
-    log(f"{key} {name} on (data=1, model=4): rank 0's compute blocks "
+    log(f"{key} {name} on (data=1, model={T}): rank 0's compute blocks "
         f"{json.dumps(tp[0][0]['blocks'])}")
     for i, agg in enumerate(rules):
         runs = [t[i] for t in tp]
@@ -4113,7 +4532,7 @@ def tp_check(launches, key: str, name: str, tp, rules, smi: str, peak_bar=None) 
                                      f"and backward {run['fb_peak']} not below "
                                      f"{bar_label} {bar[rank]}")
         wall = max(run["ms"] for run in runs)
-        log(f"{key} {name} {agg} step on (data=1, model=4), 4 gloo ranks on one card, W = "
+        log(f"{key} {name} {agg} step on (data=1, model={T}), {T} gloo ranks on one card, W = "
             f"{TRAIN_W} x {TRAIN_S} tokens on every rank: loss {float(one['loss']):.5f}, the same "
             f"bits on every rank, one device {one['one_loss']:.5f} "
             f"(|gap| {loss_gap:.3g}, bar {bars[0] if bars else 'none'}); host ms {wall:.1f} (slowest rank), "
@@ -4355,15 +4774,15 @@ def mesh_phase(dev, smi):
                              tfm.init_cache(c, prompt.shape[0], cache_len, device=dev),
                              prompt.to(dev), n_new)[0].numpy()
 
-    wide = loop(cfg, params, payload["decode"], DECODE_STEPS, MESH_DECODE_CACHE)
-    rows = np.concatenate([loop(cfg, params, payload["decode"][i:i + 1], DECODE_STEPS,
+    wide = loop(cfg, params, payload["decode"], MESH_DECODE_STEPS, MESH_DECODE_CACHE)
+    rows = np.concatenate([loop(cfg, params, payload["decode"][i:i + 1], MESH_DECODE_STEPS,
                                 MESH_DECODE_CACHE) for i in range(SYNC_RANKS)])
     for rank, r in enumerate(ranks):
         if not np.array_equal(r["batch_tokens"], rows):
             raise AssertionError(f"serve mesh batch decode: rank {rank}'s tokens differ")
     agree = float(np.mean(rows == wide))
     log(f"check serve mesh batch-sharded decode (cache {ranks[0]['batch_spec']}, "
-        f"{MESH_DECODE_CACHE} positions): {DECODE_STEPS} greedy tokens after a "
+        f"{MESH_DECODE_CACHE} positions): {MESH_DECODE_STEPS} greedy tokens after a "
         f"{MESH_DECODE_PROMPT}-token prompt equal, on every rank, the one-device loop's at the "
         f"rank's width (one row); {agree:.3f} of them agree with the one-device loop at width 4; "
         f"host ms {', '.join(f'{r["batch_ms"]:.0f}' for r in ranks)} per loop")
@@ -5014,7 +5433,7 @@ def dryrun_check(dryrun) -> None:
     """Wait for ``start_dryrun``'s process and raise unless it exited 0
     with its four lines."""
     text = finish_subprocess(dryrun, "dry-run", X16_TIMEOUT_S)
-    head = "== tinyllama-1.1b x train_4k x 16x16 (train) =="
+    head = "== tinyllama-1.1b x train_4k x 16x16 (train, n_layers=4) =="
     lines = text.splitlines()
     if head not in lines or [line.split(":")[0] for line in
                              lines[lines.index(head) + 1:lines.index(head) + 4]] != [
@@ -5129,8 +5548,16 @@ def main() -> int:
     done("13")
     launches.update(prefix_codebook_phase(dev, smi))
     done("14")
-    launches.update(mesh_phase(dev, smi))
-    done("15")
+    # phase 15(i)'s 16 ranks start up beside phase 15's and wait for it
+    heads = start_heads()
+    try:
+        launches.update(mesh_phase(dev, smi))
+        done("15")
+        launches.update(heads_phase(dev, smi, heads))
+        done("15(i)")
+    finally:
+        stop_heads(heads)
+        del heads  # its events' semaphores, before the resource tracker stops
     launches.update(cnn_phase(dev, smi, results))
     done("16")
     launches.update(x16_phase(dev, smi, results))

@@ -236,10 +236,13 @@ def _sends(mesh, rank: int, box) -> bool:
     """Whether ``rank``'s ``box`` of a leaf's block goes into the ingress:
     a box that ranks differing only off the worker axes and off the axes
     that pick it all hold (a leaf, or a segment of one, whole on every
-    model rank) is sent by the one at coordinate 0 there."""
+    model rank) is sent by the one at coordinate 0 there, and a replicated
+    block's box (``box.held``: r consecutive ranks along an axis hold it)
+    by its replica 0."""
     coords = mesh.coords_of(rank)
     own = set(worker_axes(mesh)).union(box.axes)
-    return all(coords[a] == 0 for a in mesh.axis_names if a not in own)
+    return (all(coords[a] == 0 for a in mesh.axis_names if a not in own)
+            and all(coords[a] % r == 0 for a, r in box.held))
 
 
 def pack_from_shardings(packer: GradPacker, grads_w: Any, in_shardings: Any, mesh
@@ -253,7 +256,8 @@ def pack_from_shardings(packer: GradPacker, grads_w: Any, in_shardings: Any, mes
     its blocks that fall in the owner's columns. A block, or a segment of
     one, held alike by several model ranks is sent once (``_sends``; an
     SSM layer's whole B / C columns by model coordinate 0, its heads'
-    columns by every rank). Pure data movement: the
+    columns by every rank; an attention head block held by r replicas by
+    replica 0). Pure data movement: the
     slice is ``shard_kernels.rows_to_cols``'s of the same global stack,
     bit for bit, padding zeros included."""
     placements, _ = tree_flatten(in_shardings)
@@ -306,7 +310,8 @@ def unpack_to_shardings(packer: GradPacker, local: torch.Tensor, out_shardings: 
     axis). One ``all_to_all`` (``shard_kernels.exchange``) in which each
     rank receives exactly the fp32 elements of its own blocks; the
     replicated ``[n_pad]`` row never exists. The blocks are the replicated
-    egress's leaves, cut, bit for bit."""
+    egress's leaves, cut, bit for bit; each replica of a replicated block
+    receives the same block."""
     placements, _ = tree_flatten(out_shardings)
     if len(placements) != len(packer.sizes):
         raise ValueError(f"out_shardings has {len(placements)} leaves for a "

@@ -18,7 +18,9 @@ egress. Compute has a plan of its own, ``compute_shardings``: the block
 of each parameter a rank runs the training forward and backward on,
 Megatron's column / row split of attention and the MLP, the vocab split,
 a MoE layer's experts and an SSM layer's heads over the model axis where
-its size divides them, the leaf whole elsewhere (``models/parallel.py``).
+its size divides them, attention over the largest divisor of it that fits
+the heads (replicated blocks), the leaf whole elsewhere
+(``models/parallel.py``).
 The storage rule picks the largest dim, the first on a tie, so it often
 splits a weight on its input dim where the column split needs the output
 dim; the train step gathers each leaf from its storage blocks and keeps
@@ -30,7 +32,11 @@ spec}``, matched with ``re.search`` against the leaf's path string
 
 A spec is a tuple with one entry per dim: ``None``, an axis name, or a
 tuple of axis names (the major axis first), the counterpart of JAX's
-``PartitionSpec``; or, in the compute plan, a tuple of *segments*
+``PartitionSpec``; or, in the compute plan, a *replicated-block* entry
+``(axis, n)``, n dividing the axis's size, which cuts the dim into n
+blocks, each held by the size / n consecutive ranks along the axis (its
+replicas: rank c holds block c // (size / n); an attention layer whose
+heads the model axis's size does not divide); or a tuple of *segments*
 ``((size, entry), ...)`` that cut the dim into consecutive ranges, each
 split by its entry's axes or whole (an SSM layer's ``in_proj`` columns
 z | x | B | C | dt: z, x and dt by heads, B and C whole). A rank's block
@@ -38,8 +44,9 @@ of a segmented dim is its part of each segment, in segment order; every
 split segment of a dim names the same axes. A ``Placement(mesh, spec)``
 takes the place of a ``NamedSharding``: ``local(full)`` cuts this rank's
 block out of a whole tensor, ``gather(block)`` rebuilds the whole tensor
-on every rank, ``local_shape(shape)`` is the block's shape and
-``boxes(shape)`` the ranges of the whole that make up the block. The
+on every rank (one copy of each replicated block), ``local_shape(shape)``
+is the block's shape and ``boxes(shape)`` the ranges of the whole that
+make up the block. The
 rules only put a dim on axes whose sizes divide it, so every block is
 even; a placement that would be uneven raises. Rule functions read only
 ``mesh.axis_names`` and ``mesh.shape``; ``local`` and ``gather`` need a
@@ -72,7 +79,16 @@ Spec = Tuple[Any, ...]
 def _entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
-    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+    if isinstance(entry, (tuple, list)):
+        return tuple(a for a in entry if isinstance(a, str))
+    return (entry,)
+
+
+def _entry_blocks(entry) -> Optional[int]:
+    """n of a replicated-block entry ``(axis, n)``, or ``None``."""
+    if isinstance(entry, tuple) and len(entry) == 2 and isinstance(entry[1], int):
+        return entry[1]
+    return None
 
 
 def _segments(entry):
@@ -114,14 +130,16 @@ def _gather_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 class Box(NamedTuple):
     """A range of a whole tensor inside one rank's block: ``lo`` / ``hi``
-    per dim in the whole, ``at`` per dim where it starts in the block, and
+    per dim in the whole, ``at`` per dim where it starts in the block,
     ``axes`` the mesh axes whose coordinates pick it (a segment held whole
-    by a model group names no model axis)."""
+    by a model group names no model axis), and ``held`` the ``(axis, r)``
+    of a replicated block: r consecutive ranks along the axis hold it."""
 
     lo: Tuple[int, ...]
     hi: Tuple[int, ...]
     at: Tuple[int, ...]
     axes: Tuple[str, ...]
+    held: Tuple[Tuple[str, int], ...] = ()
 
 
 class Placement:
@@ -151,27 +169,40 @@ class Placement:
 
     def parts(self, dim: int) -> int:
         """How many blocks ``dim`` (each split segment of it) is cut into."""
-        return math.prod(self.mesh.shape[a] for a in self.axes(dim))
+        size = math.prod(self.mesh.shape[a] for a in self.axes(dim))
+        n = _entry_blocks(self.spec[dim]) if dim < len(self.spec) else None
+        if n is not None and size % n:
+            raise ValueError(f"placement {self.spec}: dim {dim} cut into {n} blocks over "
+                             f"{size} ranks")
+        return size if n is None else n
+
+    def replicas(self, dim: int) -> int:
+        """How many consecutive ranks along ``dim``'s axes hold each of its
+        blocks: 1 but for a replicated-block entry ``(axis, n)``."""
+        return math.prod(self.mesh.shape[a] for a in self.axes(dim)) // self.parts(dim)
 
     def _pieces(self, shape: Sequence[int], coords, dims=None):
-        """Per dim the ``(lo, hi, at, axes)`` of each of its pieces in
-        this block (one for a plain dim, one a segment for a segmented)."""
+        """Per dim the ``(lo, hi, at, axes, held)`` of each of its pieces
+        in this block (one for a plain dim, one a segment for a
+        segmented)."""
         out = []
         for d, n in enumerate(shape):
             if dims is not None and d not in dims:
-                out.append([(0, n, 0, ())])
+                out.append([(0, n, 0, (), ())])
                 continue
-            k, axes = self.parts(d), self.axes(d)
+            k, axes, r = self.parts(d), self.axes(d), self.replicas(d)
             idx = 0
             for a in axes:  # mixed radix, the first axis major
                 idx = idx * self.mesh.shape[a] + coords[a]
+            idx //= r  # a replicated block: r consecutive ranks hold it
+            held = ((axes[0], r),) if r > 1 and k > 1 else ()
             segs = self._segs(d)
             if segs is None:
                 if n % k:
                     raise ValueError(f"placement {self.spec}: dim {d} of {tuple(shape)} does "
                                      f"not split into {k} even blocks")
                 b = n // k
-                out.append([(idx * b, (idx + 1) * b, 0, axes if k > 1 else ())])
+                out.append([(idx * b, (idx + 1) * b, 0, axes if k > 1 else (), held)])
                 continue
             if sum(size for size, _ in segs) != n:
                 raise ValueError(f"placement {self.spec}: dim {d}'s segments do not add up "
@@ -183,10 +214,10 @@ class Placement:
                         raise ValueError(f"placement {self.spec}: a segment of {size} in "
                                          f"dim {d} does not split into {k} even blocks")
                     b = size // k
-                    pieces.append((g + idx * b, g + (idx + 1) * b, at, axes))
+                    pieces.append((g + idx * b, g + (idx + 1) * b, at, axes, held))
                 else:
                     b = size
-                    pieces.append((g, g + size, at, ()))
+                    pieces.append((g, g + size, at, (), ()))
                 g, at = g + size, at + b
             out.append(pieces)
         return out
@@ -202,7 +233,8 @@ class Placement:
         for combo in itertools.product(*self._pieces(shape, coords, dims)):
             out.append(Box(tuple(p[0] for p in combo), tuple(p[1] for p in combo),
                            tuple(p[2] for p in combo),
-                           tuple(dict.fromkeys(a for p in combo for a in p[3]))))
+                           tuple(dict.fromkeys(a for p in combo for a in p[3])),
+                           tuple(dict.fromkeys(h for p in combo for h in p[4]))))
         return out
 
     def ranges(self, shape: Sequence[int], rank: Optional[int] = None,
@@ -251,10 +283,12 @@ class Placement:
 
     def _join(self, parts: Sequence[torch.Tensor], dim: int, left: int) -> torch.Tensor:
         """The blocks ``parts`` of the ranks along one axis of ``dim`` in
-        rank order, joined: concatenated for a plain dim; for a segmented
+        rank order, joined: one of each replicated block's r consecutive
+        copies kept, then concatenated for a plain dim; for a segmented
         one, each split segment's parts concatenated in segment order and
         a whole segment taken from the first. ``left`` is how many blocks
         each split segment was cut into before this axis was gathered."""
+        parts = list(parts)[::self.replicas(dim)]
         segs = self._segs(dim)
         if segs is None:
             return torch.cat(list(parts), dim=dim)
@@ -383,18 +417,23 @@ def param_shardings(params, mesh, fsdp: bool = False,
 
 def compute_shardings(cfg, params_shape, mesh):
     """The compute plan: a ``Placement`` tree over ``params_shape`` whose
-    entries are only ``"model"``, ``None`` or segments over ``"model"``,
-    each leaf's block the one a rank computes on in the training forward
-    and backward (``models/parallel.py``): Megatron's layout wherever the
-    model axis's size T divides the part (``parallel.model_split``), the
-    experts of a MoE layer on their expert dim (a shared expert as the
-    MLP, the router whole), an SSM layer's heads (``ssm_segments``: in
-    ``in_proj`` and the conv the x, z and dt channels of the rank's heads,
-    B and C whole; the per-head leaves, the gated norm's scale and
-    ``out_proj``'s rows by heads), the leaf whole on every model rank
-    elsewhere (attention, experts or SSM heads T does not split, the
-    norms). Decided from the config and the mesh alone; with T = 1 every
-    leaf is whole. It is its own plan beside the storage rules
+    entries are only ``"model"``, ``("model", t)``, ``None`` or segments
+    over ``"model"``, each leaf's block the one a rank computes on in the
+    training forward and backward (``models/parallel.py``): Megatron's
+    layout wherever the model axis's size T divides the part
+    (``parallel.model_split``); an attention layer over its t head blocks
+    (wq / bq, and wk / wv / bk / bv where t divides the kv heads, on their
+    output dim, wo on its rows), ``"model"`` where t = T and the
+    replicated-block entry ``("model", t)`` where t < T, each block then
+    held by T / t consecutive model ranks; the experts of a MoE layer on
+    their expert dim (a shared expert as the MLP, the router whole), an
+    SSM layer's heads (``ssm_segments``: in ``in_proj`` and the conv the
+    x, z and dt channels of the rank's heads, B and C whole; the per-head
+    leaves, the gated norm's scale and ``out_proj``'s rows by heads), the
+    leaf whole on every model rank elsewhere (attention with t = 1,
+    experts or SSM heads T does not split, the norms). Decided from the
+    config and the mesh alone; with T = 1 every leaf is whole. It is its
+    own plan beside the storage rules
     (``param_shardings``), which often put the model axis on a weight's
     input dim (the largest dim, the first on a tie) where the column split
     needs the output dim."""
@@ -402,6 +441,7 @@ def compute_shardings(cfg, params_shape, mesh):
 
     T = dict(mesh.shape).get("model", 1)
     split = model_split(cfg, T)
+    heads = "model" if split["t"] == T else ("model", split["t"])
     kinds = dict(enumerate(cfg.pattern_))
     segs = ssm_segments(cfg)
 
@@ -422,9 +462,9 @@ def compute_shardings(cfg, params_shape, mesh):
             mlp = ff == "mlp" and split["mlp"]
         if parts[2] == "mixer" and mixer == "attn" and split["attn"]:
             if name in ("wq", "bq") or (name in ("wk", "wv", "bk", "bv") and split["kv"]):
-                return ndim - 1, "model"
+                return ndim - 1, heads
             if name == "wo":
-                return 1, "model"
+                return 1, heads
         if parts[2] == "mixer" and mixer == "ssm" and split["ssm"]:
             if name == "in_proj":  # [P, D, z | x | B | C | dt]
                 return ndim - 1, segs["in_proj"]
@@ -481,11 +521,11 @@ def batch_spec(mesh) -> Spec:
 
 def worker_grad_spec(param_placement: Placement, mesh) -> Placement:
     """Placement of a ``[W, ...]``-stacked gradient leaf: worker axes on
-    dim 0, the param's "model" placements (segments over "model" too)
-    kept, its FSDP placements dropped."""
+    dim 0, the param's "model" placements (replicated blocks and segments
+    over "model" too) kept, its FSDP placements dropped."""
     w = worker_axes(mesh)
-    kept = tuple(s if s == "model" or (_segments(s) and set(param_placement.axes(d)) <= {"model"})
-                 else None for d, s in enumerate(param_placement.spec))
+    kept = tuple(s if param_placement.axes(d) == ("model",) else None
+                 for d, s in enumerate(param_placement.spec))
     return Placement(mesh, (w if len(w) > 1 else w[0],) + kept)
 
 

@@ -49,8 +49,9 @@ def init_attention(generator, cfg, device) -> dict:
 
 def _project_qkv(p, x, cfg, positions, ax=None):
     """q, k, v ``[B, S, heads, dh]`` of ``x``; on a model axis ``ax`` (the
-    attention split: ``models/parallel.py``) this rank's q heads and the kv
-    heads they read, the head counts read from the blocks' widths."""
+    attention split: ``models/parallel.py``) this rank's head block's q
+    heads and the kv heads they read, the head counts read from the
+    blocks' widths."""
     B, S, _ = x.shape
     dh = cfg.head_dim_
     xq = x if ax is None else ax.copy_in(x)
@@ -61,10 +62,10 @@ def _project_qkv(p, x, cfg, positions, ax=None):
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if ax is not None and not ax.kv:
-        # whole k / v (T a multiple of KV): this rank's q heads share kv
-        # head m KV / T; the gradient of the whole k / v is all-reduced,
+        # whole k / v (t a multiple of KV): head block g's q heads share kv
+        # head g KV / t; the gradient of the whole k / v is all-reduced,
         # once, on its way to wk / wv
-        k0 = ax.index * cfg.n_kv_heads // ax.size
+        k0 = ax.head_block * cfg.n_kv_heads // ax.head_groups
         k, v = (ax.copy_in(t)[..., k0 * dh:(k0 + 1) * dh] for t in (k, v))
     q = q.reshape(B, S, -1, dh)
     k = k.reshape(B, S, -1, dh)
@@ -154,7 +155,8 @@ def _attn_blockwise(q, k, v, scale, causal: bool, window: int, bq: int, bkv: int
 # ---------------------------------------------------------------- forward
 def attention(p, x, cfg, positions, impl: Optional[str] = None, ax=None) -> torch.Tensor:
     """Self-attention over the full sequence (train / prefill); on a model
-    axis ``ax`` over this rank's heads, the output all-reduced."""
+    axis ``ax`` over this rank's head block, the output all-reduced with
+    each head block counted once (``ModelAxis.project_heads``)."""
     q, k, v = _project_qkv(p, x, cfg, positions, ax)
     scale = cfg.head_dim_ ** -0.5
     impl = impl or cfg.attention_impl
@@ -170,7 +172,7 @@ def attention(p, x, cfg, positions, impl: Optional[str] = None, ax=None) -> torc
         raise ValueError(f"unknown attention impl {impl!r}")
     B, S = x.shape[:2]
     out = out.reshape(B, S, q.shape[2] * cfg.head_dim_)
-    return out @ p["wo"] if ax is None else ax.project_out(out, p["wo"])
+    return out @ p["wo"] if ax is None else ax.project_heads(out, p["wo"])
 
 
 # ----------------------------------------------------------------- decode
@@ -214,13 +216,15 @@ def decode_attention(p, x, cache, cfg, position: int, span=None,
     (``softmax_values``, the default, for a whole cache).
 
     On a model axis ``ax`` that splits the attention, ``p`` holds this
-    rank's compute blocks: the token's q heads, and its kv heads where the
-    plan splits them (else wk / wv are whole and so are k / v), come from
-    them and are gathered into all heads (``parallel.gather_heads``), so
-    one route serves any cache block the placement rules give a rank
-    (positions, kv heads or neither over the model axis); this rank's q
-    heads of the output then meet its rows of wo, and the products are
-    summed over the model group.
+    rank's compute blocks, its head block's: the token's q heads, and its
+    kv heads where the plan splits them (else wk / wv are whole and so are
+    k / v), come from them and are gathered into all heads, one block of
+    each head group (``parallel.gather_heads``), so one route serves any
+    cache block the placement rules give a rank (positions, kv heads or
+    neither over the model axis); the output's heads of this rank's block
+    (``g H / t ..``) then meet its rows of wo, and the products are summed
+    over the model group, each head block once (``ModelAxis.project_heads``:
+    replica 0's).
     """
     B = x.shape[0]
     H, dh = cfg.n_heads, cfg.head_dim_
@@ -259,6 +263,7 @@ def decode_attention(p, x, cache, cfg, position: int, span=None,
     out = (combine or softmax_values)(logits, v_e, x.dtype)
     if ax is None:
         return out.reshape(B, 1, H * dh) @ p["wo"], {"k": k, "v": v}
-    h0 = ax.index * H // ax.size  # this rank's q heads, its rows of wo
-    out = out[:, :, h0:h0 + H // ax.size].reshape(B, 1, -1)
-    return ax.project_out(out, p["wo"]), {"k": k, "v": v}
+    h = H // ax.head_groups  # this rank's head block's q heads, its rows of wo
+    h0 = ax.head_block * h
+    out = out[:, :, h0:h0 + h].reshape(B, 1, -1)
+    return ax.project_heads(out, p["wo"]), {"k": k, "v": v}

@@ -6,11 +6,17 @@ rank of a model group on its compute blocks of the parameters
 (``distributed/sharding.py::compute_shardings``), where T divides the
 part (``model_split``):
 
-  attention  rank m holds q heads ``[m H/T, (m+1) H/T)``: the columns of wq
-             (bq), the rows of wo. Its kv heads are ``[m KV/T, ...)``,
-             aligned with its q groups, where T divides KV; else (GQA with
-             KV < T, T a multiple of KV) wk / wv are whole and rank m
-             takes the one kv head its q heads share.
+  attention  split over t head blocks, t the largest divisor of T that
+             divides H and divides KV or is a multiple of it
+             (``head_blocks``; t = T wherever T itself fits). Rank m
+             holds block g = m // r, r = T / t: q heads
+             ``[g H/t, (g+1) H/t)``, the columns of wq (bq), the rows of
+             wo. Its kv heads are ``[g KV/t, ...)``, aligned with its q
+             groups, where t divides KV; else (GQA with KV < t, t a
+             multiple of KV) wk / wv are whole and rank m takes the one kv
+             head its q heads share. The r ranks of a block are its
+             replicas: each computes the block, and only replica 0 adds
+             its partial to ``project_out``'s sum (``project_heads``).
   MLP        the columns of w_gate / w_up, the rows of w_down.
   vocab      embed rows ``[m V/T, ...)`` and lm_head columns (each
              codebook's the same).
@@ -27,9 +33,10 @@ part (``model_split``):
              Megatron's layout as the Mamba-2 paper sets it out,
              arXiv:2405.21060 §8).
 
-Attention whose head counts T does not split, MoE layers whose experts T
-does not split, SSM layers whose heads T does not split, and the norms
-run whole on every rank of the group, as without a model axis.
+Attention with t = 1 (no divisor of T above 1 fits its heads), MoE layers
+whose experts T does not split, SSM layers whose heads T does not split,
+and the norms run whole on every rank of the group, as without a model
+axis.
 
 Two operators over the model group carry the residual stream across a
 split part (Megatron's f and g): ``copy_in``, the identity whose backward
@@ -66,7 +73,11 @@ the target logit (one all-reduce of both); it saves the rank's fp32
 logits ``[N, V/T]`` and recomputes the softmax from them in the backward,
 as Megatron's ``_VocabParallelCrossEntropy`` does.
 
-Every collective of the training forward and backward is an
+A replica other than 0 of an attention head block computes the block as
+replica 0 does, but its attention output enters ``project_out`` as exact
+zeros whose gradient is zero (``_Zeroed``), so each head block is counted
+once, the replica's weight and stream gradients through the layer are
+zeros, and its graph is replica 0's. Every collective of the training forward and backward is an
 ``all_reduce`` over the model group, entered by every rank of the group in
 the same order, so a period recomputed in the backward (``remat="full"``)
 replays them alike on every rank.
@@ -76,11 +87,11 @@ the same blocks and adds two all-gathers over the model group, each
 entered by every rank in the same order and concatenating the blocks in
 rank order: ``gather_vocab``, the logits of this rank's vocab block into
 all V as fp32 (each codebook's on the last dim), and ``gather_heads``, a
-decode token's head blocks into all heads (``attention.decode_attention``
-attends over a cache block whose heads or positions need not be the
-rank's). Under gloo a CUDA block is staged through host memory
-(``sharding._gather_along``), so both stay one token's or one position's
-size.
+decode token's head blocks into all heads, replica 0's block of each
+head group where t < T (``attention.decode_attention`` attends over a
+cache block whose heads or positions need not be the rank's). Under gloo
+a CUDA block is staged through host memory (``sharding._gather_along``),
+so both stay one token's or one position's size.
 """
 
 from __future__ import annotations
@@ -94,28 +105,39 @@ import torch.distributed as dist
 from repro_torch.distributed.sharding import _gather_along
 
 
-def model_split(cfg, T: int) -> Dict[str, bool]:
+def head_blocks(H: int, KV: int, T: int) -> int:
+    """t: the largest divisor of T that divides the H q heads and divides
+    the KV kv heads or is a multiple of them (1 where none above 1 does,
+    or without heads)."""
+    if H <= 0 or KV <= 0:
+        return 1
+    return max(t for t in range(1, T + 1)
+               if T % t == 0 and H % t == 0 and (KV % t == 0 or t % KV == 0))
+
+
+def model_split(cfg, T: int) -> Dict[str, Any]:
     """Which parts of ``cfg`` run split over T model ranks (module
-    docstring): ``attn`` (q heads, and kv heads or whole k / v), ``kv``
-    (the kv heads split too), ``mlp`` (d_ff), ``vocab``, ``moe`` (the
-    experts), ``moe_shared`` (the shared experts' d_ff_expert, beside split
-    experts), ``ssm`` (an SSM layer's heads). Decided from the config and
-    T alone."""
+    docstring): ``attn`` (q heads, and kv heads or whole k / v) over ``t``
+    head blocks (``head_blocks``), ``kv`` (the kv heads split too),
+    ``mlp`` (d_ff), ``vocab``, ``moe`` (the experts), ``moe_shared`` (the
+    shared experts' d_ff_expert, beside split experts), ``ssm`` (an SSM
+    layer's heads). Decided from the config and T alone."""
     H, KV, E = cfg.n_heads, cfg.n_kv_heads, cfg.n_experts
-    attn = T > 1 and H > 0 and KV > 0 and H % T == 0 and (KV % T == 0 or T % KV == 0)
+    t = head_blocks(H, KV, T)
+    attn = T > 1 and t > 1
     moe = T > 1 and E > 0 and E % T == 0
     has_ssm = any(mixer == "ssm" for mixer, _ in cfg.pattern_)
-    return {"attn": attn, "kv": attn and KV % T == 0,
+    return {"attn": attn, "kv": attn and KV % t == 0,
             "mlp": T > 1 and cfg.d_ff % T == 0, "vocab": T > 1 and cfg.vocab_size % T == 0,
             "moe": moe, "moe_shared": moe and (cfg.d_ff_expert or cfg.d_ff) % T == 0,
-            "ssm": T > 1 and has_ssm and cfg.ssm_heads % T == 0}
+            "ssm": T > 1 and has_ssm and cfg.ssm_heads % T == 0, "t": t}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """The model axis a training forward computes along: the model group,
-    this rank's coordinate ``index`` on it, its size T and ``model_split``'s
-    flags."""
+    this rank's coordinate ``index`` on it, its size T, ``model_split``'s
+    flags and the attention's head blocks ``t`` (0 reads as T)."""
 
     group: Any
     index: int
@@ -127,6 +149,7 @@ class ModelAxis:
     moe: bool
     moe_shared: bool
     ssm: bool = False
+    t: int = 0
 
     @classmethod
     def of(cls, cfg, mesh) -> Optional["ModelAxis"]:
@@ -136,6 +159,26 @@ class ModelAxis:
         if T == 1:
             return None
         return cls(mesh.axis_group("model"), mesh.coords["model"], T, **model_split(cfg, T))
+
+    @property
+    def head_groups(self) -> int:
+        """t, the attention's head blocks."""
+        return self.t or self.size
+
+    @property
+    def replicas(self) -> int:
+        """r = T / t: the ranks that hold one attention head block."""
+        return self.size // self.head_groups
+
+    @property
+    def head_block(self) -> int:
+        """This rank's attention head block g = index // r."""
+        return self.index // self.replicas
+
+    @property
+    def replica(self) -> int:
+        """This rank's place among its head block's r ranks."""
+        return self.index % self.replicas
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
         """Megatron's f: ``x`` as it is; its gradient all-reduced."""
@@ -161,6 +204,13 @@ class ModelAxis:
             return self.reduce_out(x @ w)
         return self.reduce_out(_Fp32Partial.apply(x, w)).to(x.dtype)
 
+    def project_heads(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``project_out`` of the attention's head blocks: ``x`` this rank's
+        heads' output, ``w`` its rows of wo. A replica other than 0 hands
+        in exact zeros whose gradient is zero, so each head block is summed
+        once (module docstring)."""
+        return self.project_out(_Zeroed.apply(x) if self.replica else x, w)
+
 
 def gather_vocab(ax: ModelAxis, logits: torch.Tensor) -> torch.Tensor:
     """All V logits on every rank of the group from each rank's vocab
@@ -170,16 +220,17 @@ def gather_vocab(ax: ModelAxis, logits: torch.Tensor) -> torch.Tensor:
 
 
 def gather_heads(ax: ModelAxis, *blocks: torch.Tensor):
-    """Each of ``blocks`` (``[..., h / T, dh]``: this rank's heads of a
-    decode token's q, k or v) with all its heads, in rank order: one
-    all-gather of the blocks side by side, split back."""
+    """Each of ``blocks`` (``[..., h / t, dh]``: this rank's head block of a
+    decode token's q, k or v) with all its heads, in head-block order: one
+    all-gather of the blocks side by side, replica 0's block of each head
+    group kept, split back."""
     flat = [b.flatten(-2) for b in blocks]
     widths = [f.shape[-1] for f in flat]
     lead = tuple(flat[0].shape[:-1])
     got = _gather_along(torch.cat(flat, dim=-1), 0, ax.group)  # [T * lead[0], ...]
-    parts = got.reshape((ax.size,) + lead + (sum(widths),)).split(widths, dim=-1)
+    got = got.reshape((ax.size,) + lead + (sum(widths),))[::ax.replicas]
     return [part.movedim(0, -2).reshape(lead + (-1, b.shape[-1]))
-            for part, b in zip(parts, blocks)]
+            for part, b in zip(got.split(widths, dim=-1), blocks)]
 
 
 def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -218,6 +269,19 @@ class _SumAcross(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _Zeroed(torch.autograd.Function):
+    """Exact zeros of ``x``'s shape whose gradient to ``x`` is zeros: the
+    graph behind ``x`` runs as it would, and adds nothing."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.zeros_like(grad)
 
 
 class _Fp32Partial(torch.autograd.Function):

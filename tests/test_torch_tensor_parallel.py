@@ -58,6 +58,11 @@ CASES = {
     # split heads in a period recomputed in the backward
     "mamba2_h6": ("mamba2-130m", {"d_model": 192, "ssm_head_dim": 64}),
     "mamba2_remat": ("mamba2-130m", {"remat": "full"}),
+    # attention whose heads T does not divide: 6 heads over t = 2 head blocks
+    # on (1, 4), each held by 2 ranks, kv heads split; whole k / v in a period
+    # recomputed in the backward; a plain split on (2, 2)
+    "qwen_h6": ("qwen2.5-14b", {"n_heads": 6, "n_kv_heads": 2}),
+    "qwen_h6_kv1_remat": ("qwen2.5-14b", {"n_heads": 6, "n_kv_heads": 1, "remat": "full"}),
 }
 MOE_CASES = [label for label, (arch, _) in CASES.items()
              if arch in ("olmoe-1b-7b", "kimi-k2-1t-a32b", "jamba-v0.1-52b")]
@@ -65,14 +70,20 @@ MOE_CASES = [label for label, (arch, _) in CASES.items()
 #: mesh: worker momentum and its momenta in expert blocks (OLMoE, one
 #: layer), fsdp and a shared expert with server momentum (Kimi K2; its
 #: optimizer momentum in fp32, since a bf16 one turns a last-bit difference
-#: of a gradient into a whole bf16 step), the hybrid's period (Jamba), and
-#: worker momenta in an SSM layer's segmented head blocks (Mamba2, one layer)
+#: of a gradient into a whole bf16 step), the hybrid's period (Jamba),
+#: worker momenta in an SSM layer's segmented head blocks (Mamba2, one
+#: layer), and worker momenta in attention head blocks held by 2 replicas
+#: each on (1, 4) (the 6-head qwen, fsdp, one layer)
 MOE_STEPS = {"olmoe": ("olmoe-1b-7b", {"n_layers": 1}),
              "kimi": ("kimi-k2-1t-a32b", {"n_layers": 1, "opt_m_dtype": "float32"}),
              "jamba": ("jamba-v0.1-52b", {}),
-             "mamba2": ("mamba2-130m", {"n_layers": 1})}
-#: the block ingress's plans: dense blocks, and Mamba2's segmented SSM leaves
-INGRESS = ("gemma-7b", "mamba2-130m")
+             "mamba2": ("mamba2-130m", {"n_layers": 1}),
+             "qwen_h6": ("qwen2.5-14b", {"n_heads": 6, "n_kv_heads": 2, "n_layers": 1,
+                                         "momentum_mode": "worker"})}
+#: the block ingress's plans (arch -> config fields): dense blocks, Mamba2's
+#: segmented SSM leaves, and replicated attention blocks (6 heads: t = 2 on
+#: (1, 4))
+INGRESS = {"gemma-7b": {}, "mamba2-130m": {}, "qwen2.5-14b": {"n_heads": 6, "n_kv_heads": 2}}
 MESHES = [(1, 4), (2, 2)]
 B, S, W = 2, 16, 4
 RTOL, ATOL = 1e-4, 1e-5
@@ -210,8 +221,11 @@ def test_loss_and_gradients_on_compute_blocks(tp_ranks, label):
 
 def _block_width(n: int, entry, T: int) -> int:
     """A dim of ``n`` under a compute-plan entry: cut by T where it is
-    ``"model"``; for segments, each split one cut by T, each whole one
-    kept."""
+    ``"model"``, by t where it is the replicated-block ``("model", t)``;
+    for segments, each split one cut by T, each whole one kept."""
+    if isinstance(entry, tuple) and isinstance(entry[-1], int):
+        assert entry[0] == "model" and T % entry[1] == 0 and entry[1] < T
+        return n // entry[1]
     if isinstance(entry, tuple):
         assert sum(size for size, _ in entry) == n
         return sum(size // T if e == "model" else size for size, e in entry)
@@ -225,21 +239,27 @@ def test_compute_blocks_follow_the_plan(tp_ranks):
     ``model_split``'s (whole k / v for tinyllama's 2 kv heads at T = 4,
     whole attention for 3 heads, everything split for gemma, SSM heads
     split where T divides them: Mamba2's 16 and Jamba's 16, the 6 of
-    ``mamba2_h6`` on (2, 2) only). An SSM layer's in_proj block is z, x
-    and dt of the rank's heads beside whole B and C, its conv's the x
-    channels beside whole B and C."""
+    ``mamba2_h6`` on (2, 2) only; the 6 q heads of ``qwen_h6`` in t = 2
+    head blocks on both meshes, each block held by T / t ranks, its 2 kv
+    heads split, its 1 kv head whole in ``qwen_h6_kv1_remat``). An SSM
+    layer's in_proj block is z, x and dt of the rank's heads beside whole
+    B and C, its conv's the x channels beside whole B and C. Where t < T
+    the replicas of a head block hold the same block of wq / wk / wv / wo,
+    those of different blocks different ones."""
     (_, T), _, ranks = tp_ranks
-    keys = ("attn", "kv", "mlp", "vocab", "moe", "moe_shared", "ssm")
-    want_flags = {"gemma": (True, True, True, True, False, False, False),
-                  "tinyllama_kv2": (True, T == 2, True, True, False, False, False),
-                  "whole_attention": (False, False, True, True, False, False, False),
-                  "olmoe": (True, True, True, True, True, True, False),
-                  "kimi": (True, True, True, True, True, True, False),
-                  "jamba": (True, True, True, True, True, True, True),
-                  "olmoe_e6": (True, True, True, True, T == 2, T == 2, False),
-                  "mamba2": (False, False, True, True, False, False, True),
-                  "mamba2_remat": (False, False, True, True, False, False, True),
-                  "mamba2_h6": (False, False, True, True, False, False, T == 2)}
+    keys = ("attn", "kv", "mlp", "vocab", "moe", "moe_shared", "ssm", "t")
+    want_flags = {"gemma": (True, True, True, True, False, False, False, T),
+                  "tinyllama_kv2": (True, T == 2, True, True, False, False, False, T),
+                  "whole_attention": (False, False, True, True, False, False, False, 1),
+                  "olmoe": (True, True, True, True, True, True, False, T),
+                  "kimi": (True, True, True, True, True, True, False, T),
+                  "jamba": (True, True, True, True, True, True, True, T),
+                  "olmoe_e6": (True, True, True, True, T == 2, T == 2, False, T),
+                  "mamba2": (False, False, True, True, False, False, True, 1),
+                  "mamba2_remat": (False, False, True, True, False, False, True, 1),
+                  "mamba2_h6": (False, False, True, True, False, False, T == 2, 1),
+                  "qwen_h6": (True, True, True, True, False, False, False, 2),
+                  "qwen_h6_kv1_remat": (True, False, True, True, False, False, False, 2)}
     for label in CASES:
         cfg = _case(label)[0]
         plan = compute_shardings(cfg, tfm.params_shape(cfg), _Mesh(data=4 // T, model=T))
@@ -257,6 +277,21 @@ def test_compute_blocks_follow_the_plan(tp_ranks):
                     assert shape[-1] == (2 * din + h) // T + 2 * n, label
                 if path.endswith("mixer/conv_w") and flags["ssm"]:
                     assert shape[1] == cfg.d_inner // T + 2 * cfg.ssm_state, label
+                if path.endswith("mixer/wq") and flags["attn"]:
+                    assert shape[-1] == cfg.n_heads * cfg.head_dim_ // flags["t"], label
+        if flags["attn"]:  # each rank its head block g = m // (T / t) of the whole
+            whole = dict(tree_flatten_with_path(_case(label)[2])[0])
+            for out in ranks:
+                g = out["coords"]["model"] // (T // flags["t"])
+                for path, block in out["cases"][label]["attn_blocks"].items():
+                    name, w = path.split("/")[-1], np.asarray(block).shape
+                    if name == "wo":
+                        want = whole[path][:, g * w[1]:(g + 1) * w[1]]
+                    elif name in ("wq", "bq") or flags["kv"]:
+                        want = whole[path][..., g * w[-1]:(g + 1) * w[-1]]
+                    else:  # whole k / v
+                        want = whole[path]
+                    assert _same_bits(block, want), (label, path)
 
 
 def test_plan_on_the_production_mesh():
@@ -264,9 +299,14 @@ def test_plan_on_the_production_mesh():
     rules put the model axis on input dims: gemma's heads, kv heads, d_ff
     and vocab split (wq / wk / wv / w_gate / w_up on their output dim, wo /
     w_down on their rows, the tied embed on its rows); qwen2.5-14b's 40
-    heads run whole, its MLP and vocab split; tinyllama's 4 kv heads
-    whole beside 32 split q heads; with T = 1 every leaf whole."""
+    heads and 8 kv heads in 8 head blocks of 5 and 1, each held by 2 model
+    ranks (``("model", 8)`` on wq / wk / wv / bq / bk / bv's output dim and
+    wo's rows), its MLP and vocab split; qwen1.5-32b's 40 / 40 heads and
+    musicgen-medium's 24 / 24 in 8 blocks too (5 / 5 and 3 / 3 a block);
+    tinyllama's 4 kv heads whole beside 32 split q heads; with T = 1 every
+    leaf whole."""
     mesh = _Mesh(data=16, model=16)
+    eight = ("model", 8)
     want = {
         "gemma-7b": {"embed": ("model", None), "blocks/0/mixer/wq": (None, None, "model"),
                      "blocks/0/mixer/wk": (None, None, "model"),
@@ -274,22 +314,45 @@ def test_plan_on_the_production_mesh():
                      "blocks/0/ff/w_gate": (None, None, "model"),
                      "blocks/0/ff/w_down": (None, "model", None),
                      "blocks/0/norm1/scale": (None, None)},
-        "qwen2.5-14b": {"blocks/0/mixer/wq": (None, None, None),
-                        "blocks/0/mixer/bk": (None, None),
+        "qwen2.5-14b": {"blocks/0/mixer/wq": (None, None, eight),
+                        "blocks/0/mixer/wk": (None, None, eight),
+                        "blocks/0/mixer/wv": (None, None, eight),
+                        "blocks/0/mixer/wo": (None, eight, None),
+                        "blocks/0/mixer/bq": (None, eight), "blocks/0/mixer/bk": (None, eight),
                         "blocks/0/ff/w_up": (None, None, "model"),
                         "embed": ("model", None), "lm_head": (None, "model")},
+        "qwen1.5-32b": {"blocks/0/mixer/wq": (None, None, eight),
+                        "blocks/0/mixer/wv": (None, None, eight),
+                        "blocks/0/mixer/wo": (None, eight, None),
+                        "blocks/0/mixer/bv": (None, eight)},
+        "musicgen-medium": {"blocks/0/mixer/wq": (None, None, eight),
+                            "blocks/0/mixer/wk": (None, None, eight),
+                            "blocks/0/mixer/wo": (None, eight, None),
+                            "blocks/0/ff/w_down": (None, "model", None),
+                            "lm_head": (None, None, "model")},
         "tinyllama-1.1b": {"blocks/0/mixer/wq": (None, None, "model"),
                            "blocks/0/mixer/wk": (None, None, None),
                            "blocks/0/mixer/wo": (None, "model", None)},
     }
+    blocks = {"qwen2.5-14b": (5, 1), "qwen1.5-32b": (5, 5), "musicgen-medium": (3, 3)}
     for arch, specs in want.items():
         cfg = configs.get_config(arch)
         shapes = tfm.params_shape(cfg)
-        got = {p: pl.spec for p, pl in tree_flatten_with_path(
-            compute_shardings(cfg, shapes, mesh))[0]}
+        plan = compute_shardings(cfg, shapes, mesh)
+        got = {p: pl.spec for p, pl in tree_flatten_with_path(plan)[0]}
         for path, spec in specs.items():
             assert got[path] == spec, (arch, path)
-        assert all(set(s) <= {None, "model"} for s in got.values())
+        assert all(set(s) <= {None, "model", eight} for s in got.values())
+        if arch in blocks:  # a rank's block: 5 / 1, 5 / 5 or 3 / 3 heads of 128 / 64
+            flags = model_split(cfg, 16)
+            assert flags["t"] == 8 and flags["attn"] and flags["kv"]
+            mixer = {k: v for k, v in tree_flatten_with_path(shapes)[0]}
+            local = {p: pl.local_shape(mixer[p].shape) for p, pl in
+                     tree_flatten_with_path(plan)[0] if "/mixer/w" in p}
+            dh = cfg.head_dim_
+            assert local["blocks/0/mixer/wq"][-1] == blocks[arch][0] * dh
+            assert local["blocks/0/mixer/wk"][-1] == blocks[arch][1] * dh
+            assert local["blocks/0/mixer/wo"][1] == blocks[arch][0] * dh
         one = compute_shardings(cfg, shapes, _Mesh(data=16, model=1))
         assert all(not any(pl.spec) for pl in tree_flatten(one)[0])
 
@@ -394,6 +457,89 @@ def test_segmented_placement_cuts_boxes_in_segment_order():
         Placement(mesh, (((3, "model"), (2, None)),)).local_shape((5,))
 
 
+def test_replicated_placement_holds_each_block_on_its_replicas():
+    """``Placement`` on a replicated-block entry ``("model", 2)`` over a
+    model axis of 4: ranks 0, 1 hold block 0 and ranks 2, 3 block 1
+    (``local``, each a tensor of its own), its ``boxes`` say so, name the
+    model axis and carry ``held`` (2 ranks a block), ``local_shape`` /
+    ``whole_shape`` go between the two shapes, ``parts`` is 2 and
+    ``replicas`` 2, ``worker_grad_spec`` keeps the entry, the block
+    ingress sends each box from replica 0 alone (``packing._sends``), and
+    a count that does not divide the axis raises."""
+    from repro_torch.distributed import packing
+    from repro_torch.distributed.sharding import Placement, worker_grad_spec
+
+    full = torch.arange(3 * 8 * 2).reshape(3, 8, 2)
+    mesh = _Mesh(data=2, model=4)
+    mesh.coords_of = lambda r: {"data": r // 4, "model": r % 4}
+    pl = Placement(mesh, (None, ("model", 2), None))
+    for rank in range(8):
+        mesh.coords = mesh.coords_of(rank)
+        g = mesh.coords["model"] // 2
+        block = pl.local(full)
+        assert torch.equal(block, full[:, 4 * g:4 * g + 4])
+        assert block.untyped_storage().nbytes() == block.numel() * block.element_size()
+        (box,) = pl.boxes(full.shape, rank)
+        assert box == ((0, 4 * g, 0), (3, 4 * g + 4, 2), (0, 0, 0), ("model",),
+                       (("model", 2),))
+        assert packing._sends(mesh, rank, box) == (mesh.coords["model"] % 2 == 0)
+    assert pl.local_shape(full.shape) == (3, 4, 2) and pl.whole_shape((3, 4, 2)) == (3, 8, 2)
+    assert pl.parts(1) == 2 and pl.replicas(1) == 2 and pl.axes(1) == ("model",)
+    assert pl.sharded_dims(3) == (1,) and pl.ranges(full.shape, 2) == [(0, 3), (4, 8), (0, 2)]
+    assert worker_grad_spec(pl, mesh).spec == ("data", None, ("model", 2), None)
+    assert Placement(mesh, (("model", 4),)).replicas(0) == 1
+    with pytest.raises(ValueError, match="3 blocks over 4 ranks"):
+        Placement(mesh, (("model", 3),)).local_shape((6,))
+
+
+def test_replicated_blocks_gather_once(tp_ranks):
+    """``gather`` of a replicated-block placement rebuilds the whole tensor
+    from one copy of each block, bit for bit, on every rank (on (1, 4) two
+    blocks of two replicas each; on (2, 2) a plain split in two), and
+    ``gather_many`` beside a leaf cut plainly on the model axis gives both
+    whole by one all-gather."""
+    (_, T), _, ranks = tp_ranks
+    for out in ranks:
+        got = out["replicated"]
+        g = got["index"] // (T // 2)
+        assert _same_bits(got["block"], got["full"][:, 4 * g:4 * g + 4])
+        assert _same_bits(got["gather"], got["full"])
+        assert _same_bits(got["many"][0], got["full"])
+        assert _same_bits(got["many"][1], got["other"])
+
+
+def test_replicas_add_zeros_and_enter_the_same_collectives(tp_ranks):
+    """``ModelAxis.project_heads`` over 2 head blocks: the sum over the
+    model group is one device's ``x @ w`` (rtol 1e-4, atol 1e-5: the fp32
+    order of the partials), each block counted once, on every rank the
+    same bits; replica 0 of a block gets one device's gradients of its
+    columns and rows, a replica other than 0 exact zeros (it added zeros);
+    every rank makes the same collectives (kind, function, bytes) in the
+    same order, in ``project_heads`` and in every case's forward and
+    backward (``qwen_h6_kv1_remat`` recomputes its period)."""
+    (_, T), _, ranks = tp_ranks
+    x, w, gout = (t.clone().requires_grad_() for t in torch_shard_ranks.project_heads_inputs())
+    one = x @ w
+    gx, gw = torch.autograd.grad((one * gout).sum(), [x, w])
+    b = x.shape[-1] // 2
+    replicas = {out["project_heads"]["replica"] for out in ranks}
+    assert replicas == set(range(T // 2))
+    for out in ranks:
+        got = out["project_heads"]
+        np.testing.assert_allclose(got["out"], one.detach(), rtol=RTOL, atol=ATOL)
+        assert _same_bits(got["out"], ranks[0]["project_heads"]["out"])
+        cols = slice(got["block"] * b, (got["block"] + 1) * b)
+        if got["replica"]:
+            assert not np.any(np.asarray(got["grads"][0])) and not np.any(got["grads"][1])
+        else:
+            np.testing.assert_allclose(got["grads"][0], gx[..., cols], rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(got["grads"][1], gw[cols], rtol=RTOL, atol=ATOL)
+        assert got["calls"] == ranks[0]["project_heads"]["calls"]
+        for label in CASES:
+            assert out["cases"][label]["calls"] == ranks[0]["cases"][label]["calls"], label
+    assert [c[0] for c in ranks[0]["project_heads"]["calls"]] == ["all-reduce"]
+
+
 @pytest.mark.parametrize("label", MOE_CASES)
 def test_every_rank_routes_as_one_device(tp_ranks, label):
     """Routing is whole on every rank: each MoE layer's top-k experts and
@@ -425,19 +571,28 @@ def test_embedded_stream_is_the_one_device_stream(tp_ranks):
             assert _same_bits(out["cases"][label]["h"], want), label
 
 
-@pytest.mark.parametrize("arch", INGRESS)
+@pytest.mark.parametrize("arch", list(INGRESS))
 def test_block_ingress_equals_rows_to_cols(tp_ranks, arch):
     """Each rank's column slice from the block ingress (its workers' rows,
     its compute blocks; whole leaves, and an SSM leaf's whole B / C
-    segments, sent by model coordinate 0 alone) equals ``shard_cols`` of
-    the packed global stack, the slice ``rows_to_cols`` gives, bit for
-    bit, padding included. Mamba2's plan has segmented leaves."""
-    _, _, ranks = tp_ranks
+    segments, sent by model coordinate 0 alone; a replicated attention
+    block by its replica 0 alone) equals ``shard_cols`` of the packed
+    global stack, the slice ``rows_to_cols`` gives, bit for bit, padding
+    included. Mamba2's plan has segmented leaves, the 6-head qwen's on
+    (1, 4) replicated head blocks (t = 2). The egress of the slice's first
+    row to the compute blocks hands each rank, each replica of a head
+    block alike, that row's leaves cut by the plan, bit for bit."""
+    (_, T), _, ranks = tp_ranks
     for out in ranks:
         got = out["ingress"][arch]
         assert _same_bits(got["blocks"], got["rows_to_cols"])
-        segmented = [spec for spec in got["specs"] if any(isinstance(e, tuple) for e in spec)]
+        segmented = [spec for spec in got["specs"]
+                     if any(isinstance(e, tuple) and isinstance(e[0], tuple) for e in spec)]
         assert bool(segmented) == (arch == "mamba2-130m")
+        replicated = [spec for spec in got["specs"] if ("model", 2) in spec]
+        assert bool(replicated) == (arch == "qwen2.5-14b" and T == 4)
+        assert len(got["egress"]) == len(got["row"])
+        assert all(_same_bits(a, b) for a, b in zip(got["egress"], got["row"]))
 
 
 def test_gated_norm_split_sum_matches_one_device(tp_ranks):
@@ -495,8 +650,10 @@ def test_rows_and_momenta_are_compute_blocks(tp_ranks, mode):
     the worker momenta are placed by the plan with the worker axes on dim
     0, and the block ingress ran; the step's parameters and loss match the
     one-device step (rtol 1e-4, atol 1e-6). gemma in both modes, and the
-    MoE and SSM steps (``MOE_STEPS``), whose expert rows are the rank's
-    experts and whose SSM rows and momenta the rank's heads' segments."""
+    MoE, SSM and head-block steps (``MOE_STEPS``), whose expert rows are
+    the rank's experts, whose SSM rows and momenta the rank's heads'
+    segments, and whose attention rows and momenta the rank's head block
+    (the same block on both replicas of it)."""
     (data, _), _, ranks = tp_ranks
     want_params, want_loss = _one_device_step(mode)
     for out in ranks:

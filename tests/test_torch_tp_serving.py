@@ -58,6 +58,10 @@ CASES = {
     "olmoe_drops": ("olmoe-1b-7b", {"capacity_factor": 0.5}),
     # SSM heads along the model axis: 6 heads, split on (2, 2), whole on (1, 4)
     "mamba2_h6": ("mamba2-130m", {"d_model": 192, "ssm_head_dim": 64}),
+    # attention in t = 2 head blocks on (1, 4), each held by 2 ranks (the
+    # tensor-parallel training tests' cases)
+    "qwen_h6": ("qwen2.5-14b", {"n_heads": 6, "n_kv_heads": 2}),
+    "qwen_h6_kv1_remat": ("qwen2.5-14b", {"n_heads": 6, "n_kv_heads": 1, "remat": "full"}),
 }
 MESHES = [(1, 4), (2, 2)]
 #: prompt rows and length, greedy tokens after it, cache positions (above
@@ -153,15 +157,19 @@ def _payload():
 def group():
     """Every rank's results of ``tp_serving``: one group runs both meshes.
     While the ranks run, this process computes the reference's prefill and
-    decode the tests read (cached; one that raises is left for its test to
-    raise)."""
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    decode the tests read, two cases at a time (cached; one that raises is
+    left for its test to raise)."""
+
+    def warm(label):
+        for rows, groups in [(B, data) for data, _ in MESHES] + [(1, 1)]:
+            with contextlib.suppress(Exception):
+                _expected(label, rows, groups)
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool, \
+            concurrent.futures.ThreadPoolExecutor(2) as refs:
         ranks = pool.submit(spawn_ranks, torch_shard_ranks.tp_serving, 4, backend="gloo",
                             devices=["cpu"] * 4, args=(_payload(),), timeout_s=600)
-        for label in CASES:
-            for rows, groups in [(B, data) for data, _ in MESHES] + [(1, 1)]:
-                with contextlib.suppress(Exception):
-                    _expected(label, rows, groups)
+        list(refs.map(warm, CASES))
         return ranks.result()
 
 
@@ -272,6 +280,41 @@ def test_ranks_hold_only_their_blocks(ranks):
                         and cfg.pattern_[int(path.split("/")[1])][1] == "moe":
                     assert math.prod(shape) * (T if split else 1) == math.prod(s.shape), path
                     assert shape[1] == cfg.n_experts // (T if split else 1), path
+
+
+@pytest.mark.parametrize("label", ["qwen_h6", "qwen_h6_kv1_remat"])
+def test_head_blocks_decode_collectives(ranks, label):
+    """One decode step of the 6-head qwens (all rows, batch-sharded) on
+    their head blocks (t = 2; on (1, 4) each held by 2 ranks): every rank
+    holds only its block of wq / wk / wv / wo (and the biases; whole wk /
+    wv where the one kv head does not split), and the step makes, beside
+    the embedding's all-reduce and the vocab's all-gather, one all-gather
+    a layer (the token's q, and k / v where they split, of every head
+    block, ``parallel.gather_heads``), two more a layer for the softmax
+    across the cache's positions, which the rules put on the model axis
+    (``steps._softmax_across``: the blocks' statistics and values, as the
+    whole-attention route makes them), and two all-reduces a layer (the
+    attention's ``project_out`` and the MLP's), the same kinds in the same
+    order on every rank."""
+    (_, T), out = ranks
+    cfg = _case(label)[0]
+    flags = model_split(cfg, T)
+    assert flags["attn"] and flags["t"] == 2 and flags["kv"] == (cfg.n_kv_heads == 2)
+    dh, L = cfg.head_dim_, cfg.n_layers
+    paths = [p for p, _ in tree_flatten_with_path(tfm.params_shape(cfg))[0]]
+    for o in out:
+        shapes = dict(zip(paths, o["cases"][label]["shapes"]))
+        assert shapes["blocks/0/mixer/wq"] == (L, cfg.d_model, cfg.n_heads * dh // 2)
+        assert shapes["blocks/0/mixer/wo"] == (L, cfg.n_heads * dh // 2, cfg.d_model)
+        kv = cfg.n_kv_heads * dh // (2 if flags["kv"] else 1)
+        assert shapes["blocks/0/mixer/wk"] == shapes["blocks/0/mixer/wv"] == (L, cfg.d_model, kv)
+        assert shapes["blocks/0/mixer/bk"] == (L, kv)
+        kinds = o["cases"][label]["batch"]["step_calls"]
+        assert kinds == out[0]["cases"][label]["batch"]["step_calls"]
+        assert o["cases"][label]["batch"]["spec"][2] == "model"
+        assert kinds.count("all-gather") == 1 + 3 * L, kinds
+        assert kinds.count("all-reduce") == 1 + 2 * L, kinds
+        assert set(kinds) == {"all-gather", "all-reduce"}
 
 
 @pytest.mark.parametrize("label", ["mamba2", "mamba2_h6"])

@@ -530,16 +530,18 @@ def per_leaf_16bit(rank, group, device, payload):
 def _tp_case(mesh, case):
     """One case of ``tensor_parallel``: the loss and every gradient of
     ``loss_fn`` on this rank's compute blocks, the gradients gathered
-    whole; the embedded stream; the blocks' shapes."""
+    whole; the collectives the forward and backward made (kind, function,
+    bytes received); the embedded stream; the blocks' shapes."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
     from repro_torch.convert import params_from_jax
     from repro_torch.distributed.sharding import compute_shardings
+    from repro_torch.launch.collectives import record_collectives
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     from repro_torch.models.parallel import ModelAxis, model_split
-    from repro_torch.utils.tree import tree_map, tree_unflatten
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_map, tree_unflatten
 
     cfg = dataclasses.replace(smoke_config(case["arch"]), **case["cfg"])
     compute = compute_shardings(cfg, tfm.params_shape(cfg), mesh)
@@ -549,24 +551,30 @@ def _tp_case(mesh, case):
     live = [p.detach().requires_grad_() for p in leaves]
     p_live = tree_unflatten(treedef, live)
     batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
-    with moe.recorded_routes() as routes:
+    with moe.recorded_routes() as routes, record_collectives() as calls:
         loss, aux = tfm.loss_fn(p_live, cfg, batch, ax=ax)
-    grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live)
     placements = tree_flatten(compute)[0]
     with torch.no_grad():
         h = tfm.embed_tokens(p_live, cfg, batch["tokens"], ax)
     return {"loss": loss.detach(), "grads": [pl.gather(g) for g, pl in zip(grads, placements)],
             "h": h, "local": [tuple(g.shape) for g in grads], "routes": routes,
             "drop": aux.get("moe_drop_frac"),
+            "calls": [(c.kind, c.fn, c.received) for c in calls],
+            "attn_blocks": {path: x for path, x in tree_flatten_with_path(own)[0]
+                            if path.split("/")[-1] in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
             "split": None if ax is None else {k: getattr(ax, k)
                                               for k in model_split(cfg, ax.size)}}
 
 
-def _tp_ingress(mesh, arch):
+def _tp_ingress(mesh, arch, fields):
     """The block ingress of a random global stack over ``arch``'s one-layer
-    smoke compute plan (each rank its workers' rows, its compute blocks;
-    Mamba2's SSM leaves segmented) against ``shard_cols`` of the packed
-    global stack."""
+    smoke compute plan with ``fields`` (each rank its workers' rows, its
+    compute blocks; Mamba2's SSM leaves segmented, replicated attention
+    blocks where the model axis's size does not divide the heads) against
+    ``shard_cols`` of the packed global stack; and the egress of the
+    ingress's first row to the compute blocks against that row's leaves
+    cut by the plan."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -575,7 +583,7 @@ def _tp_ingress(mesh, arch):
     from repro_torch.models import transformer as tfm
     from repro_torch.utils.tree import tree_map
 
-    cfg = dataclasses.replace(smoke_config(arch), n_layers=1)
+    cfg = dataclasses.replace(smoke_config(arch), n_layers=1, **fields)
     specs = tfm.params_shape(cfg)
     compute = compute_shardings(cfg, specs, mesh)
     G = n_workers(mesh)
@@ -586,10 +594,65 @@ def _tp_ingress(mesh, arch):
     mine = tree_map(lambda x, pl: Placement(mesh, (None,) + pl.spec).local(
         x[me * w:(me + 1) * w]), stack, compute)
     packer = packing.packer_for(mine, compute)
-    return {"blocks": packing.pack_from_shardings(packer, mine, compute, mesh),
+    blocks = packing.pack_from_shardings(packer, mine, compute, mesh)
+    row = tree_map(lambda x, pl: pl.local(x[0]), stack, compute)
+    return {"blocks": blocks,
             "rows_to_cols": shard_kernels.shard_cols(packing.packer_for(stack).pack(stack),
                                                       mesh.group),
+            "egress": tree_flatten(packing.unpack_to_shardings(packer, blocks[0], compute))[0],
+            "row": tree_flatten(row)[0],
             "specs": [pl.spec for pl in tree_flatten(compute)[0]]}
+
+
+def _tp_replicated(mesh):
+    """A seeded ``[3, 8, 6]`` tensor under the replicated-block entry
+    ``("model", 2)`` on its middle dim (two blocks, each held by T / 2
+    ranks): this rank's block (``local``), the whole ``gather`` rebuilds
+    from every rank's block, and ``gather_many``'s of it beside a leaf cut
+    plainly on the model axis."""
+    from repro_torch.distributed.sharding import Placement, gather_many
+
+    full = torch.randn(3, 8, 6, generator=torch.Generator().manual_seed(5))
+    pl = Placement(mesh, (None, ("model", 2), None))
+    plain = Placement(mesh, (None, None, "model"))
+    other = torch.randn(3, 4, 8, generator=torch.Generator().manual_seed(6))
+    block = pl.local(full)
+    both = gather_many([block, plain.local(other)], [pl, plain], [None, None])
+    return {"full": full, "block": block, "gather": pl.gather(block), "many": both,
+            "other": other, "index": mesh.coords["model"]}
+
+
+def project_heads_inputs():
+    """A seeded fp32 attention output ``x`` [2, 8, 24] (6 heads of 4), the
+    rows of wo ``w`` [24, 16] and the output's weights ``g`` [2, 8, 16]
+    (``test_torch_tensor_parallel.py``)."""
+    gen = torch.Generator().manual_seed(33)
+    return (torch.randn(2, 8, 24, generator=gen), torch.randn(24, 16, generator=gen) / 5,
+            torch.randn(2, 8, 16, generator=gen))
+
+
+def _tp_project_heads(mesh):
+    """``ModelAxis.project_heads`` over 2 head blocks of 3 heads, each held
+    by T / 2 ranks: each rank's output from its block's columns of ``x``
+    and rows of ``w``, its gradients of ``sum(out * g)`` by those, and the
+    collectives the forward and backward made."""
+    import dataclasses
+
+    from repro_torch.launch.collectives import record_collectives
+    from repro_torch.models.parallel import ModelAxis
+
+    T = mesh.shape["model"]
+    ax = ModelAxis(mesh.axis_group("model"), mesh.coords["model"], T, *([True] * 6), t=2)
+    dense = dataclasses.replace(ax, moe=False, moe_shared=False)
+    x, w, g = project_heads_inputs()
+    b = x.shape[-1] // 2
+    cols = slice(ax.head_block * b, (ax.head_block + 1) * b)
+    xs, ws = x[..., cols].clone().requires_grad_(), w[cols].clone().requires_grad_()
+    with record_collectives() as calls:
+        out = dense.project_heads(xs, ws)
+        grads = torch.autograd.grad((out * g).sum(), [xs, ws])
+    return {"out": out.detach(), "grads": list(grads), "replica": ax.replica,
+            "block": ax.head_block, "calls": [(c.kind, c.fn, c.received) for c in calls]}
 
 
 def gated_norm_inputs():
@@ -731,7 +794,8 @@ def tensor_parallel(rank, group, device, p):
     on each (data, model) mesh of ``p["meshes"]`` each case's loss and
     gradients on compute blocks, the block ingress of each arch of
     ``p["ingress"]``, the SSM's gated norm, the train steps; and the (4, 1)
-    mesh of the same group against the bare group."""
+    mesh of the same group against the bare group; the replicated-block
+    placement and the attention head blocks' ``project_heads``."""
     from repro_torch.launch.mesh import make_host_mesh
 
     out = {}
@@ -740,7 +804,9 @@ def tensor_parallel(rank, group, device, p):
         out[tuple(shape)] = {
             "coords": mesh.coords,
             "cases": {label: _tp_case(mesh, case) for label, case in p["cases"].items()},
-            "ingress": {arch: _tp_ingress(mesh, arch) for arch in p["ingress"]},
+            "ingress": {arch: _tp_ingress(mesh, arch, fields)
+                        for arch, fields in p["ingress"].items()},
+            "replicated": _tp_replicated(mesh), "project_heads": _tp_project_heads(mesh),
             "gated_norm": _tp_gated_norm(mesh), "steps": _tp_steps(mesh, p["steps"])}
     out["one_model_rank"] = _tp_one_model_rank(group, p["steps"])
     return out
